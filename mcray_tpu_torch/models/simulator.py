@@ -1,0 +1,265 @@
+"""End-to-end ultrasound simulator: trace -> march -> RF image -> B-mode.
+
+Port of ``mcray_tpu/models/simulator.py`` (reference src/main.cpp:92-152 and
+scene::cast_rays, src/scene.cpp:50-183), forward only:
+
+- the ragged per-ray segment lists are a dense ``(D, N)`` segment dict with
+  a validity mask (N = elements x samples paths);
+- the bounce loop runs D bounces over the whole path batch, each through
+  the closest-hit kernel (K1);
+- the march (K2), PSF convolution + envelope (K3) and scan conversion (K4)
+  run as one kernel each.
+
+Every stage calls its kernel's wrapper, which launches the CUDA kernel for
+CUDA tensors and runs the plain PyTorch version for CPU tensors; the
+``Simulator``'s ``device`` decides which.
+
+Randomness is explicit: ``render`` takes the frame's draws
+(``physics.draw_bounce_randoms``) and the two texture seeds, and
+``Simulator`` draws them from ``torch.Generator``s seeded from ``seed``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import SimConfig, validate
+from ..ops import imaging, physics, texture
+from ..ops.cuda.intersect import intersect_closest_cuda
+from ..ops.cuda.march import march_cuda, pack_segments
+from ..ops.cuda.postproc import postproc_cuda
+from ..ops.cuda.scanconv import pack_scan_maps, scan_convert_cuda
+from ..ops.geometry import safe_norm
+from ..ops.texture import fdiv
+from ..probe.transducer import element_layout
+from ..utils import convert
+
+
+def distance_in_mm(a, b, spacing):
+    """World distance with per-axis spacing, x10 to mm (src/scene.cpp:281-290)."""
+    return safe_norm(torch.abs(a - b) * spacing) * 10.0
+
+
+def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spacing,
+                starting_material: int, cfg: SimConfig) -> dict[str, torch.Tensor]:
+    """Monte-Carlo path tracing of all elements x samples paths. Returns the
+    segment dict, each field stacked over bounce depth (D, N, ...), plus
+    ``rays``: the (D, 6, N) [origin; segment] closest-hit queries of every
+    bounce, as the intersect kernel received them."""
+    n_samples = cfg.samples_per_element
+    freq = cfg.transducer_frequency
+    eps = cfg.intensity_epsilon
+    positions, directions = element_layout(probe_position, probe_angles_deg, cfg)
+    device = positions.device
+    elem_idx = torch.arange(cfg.transducer_elements, dtype=torch.int32, device=device)
+    elem_idx = elem_idx.repeat_interleave(n_samples)
+    n = elem_idx.shape[0]
+
+    tri_soa, tri_mesh_id = scene["tri_soa"], scene["tri_mesh_id"]
+    mesh_in, mesh_out = scene["mesh_mat_inside"], scene["mesh_mat_outside"]
+    mesh_vasc = scene["mesh_is_vascular"]
+    # per-mesh inside thickness, so the per-ray lookup is one small gather
+    thick_by_mesh = physics.take_rows(materials, mesh_in)[:, physics.THICKNESS]
+
+    src = positions.repeat_interleave(n_samples, dim=0)
+    direction = directions.repeat_interleave(n_samples, dim=0)
+    media_id = torch.full((n,), starting_material, dtype=torch.int32, device=device)
+    media_outside_id = torch.full((n,), -1, dtype=torch.int32, device=device)
+    intensity = torch.full((n,), cfg.initial_intensity / n_samples, dtype=torch.float32,
+                           device=device)
+    distance_mm = torch.zeros((n,), dtype=torch.float32, device=device)
+    alive = torch.ones((n,), dtype=torch.bool, device=device)
+
+    segments = []
+    for d in range(cfg.max_depth):
+        bounce_draws = {k: v[d] for k, v in draws.items()}
+        att = physics.take_rows(materials[:, physics.ATTENUATION], media_id)
+        r_length = physics.max_ray_length(torch.clamp(intensity, min=eps * 1e-3), att, freq, eps)
+        origin = src + cfg.ray_start_offset * direction
+        # enlarge(): mm/100 with per-axis spacing (src/scene.cpp:292-298)
+        dest = src + fdiv(r_length[:, None], 100.0) * spacing * direction
+        # dead rays get a zero segment parked far away: det == 0, so they miss
+        alive_col = alive[:, None]
+        seg_vec = (dest - origin) * alive_col
+        origin = torch.where(alive_col, origin, 1e9)
+
+        hits = intersect_closest_cuda(origin, seg_vec, tri_soa, tri_mesh_id)
+        hit = hits["hit"] & alive
+
+        # sub-surface penetration fuzz: q ~ |N(0, thickness_inside)| (src/scene.cpp:129-139)
+        thick = physics.take_rows(thick_by_mesh, hits["mesh_id"].clamp(min=0))
+        q = torch.abs(bounce_draws["q_normal"] * thick)
+        inside_point = hits["point"] + q[:, None] * direction
+
+        dist_mm = distance_in_mm(src, inside_point, spacing)
+        intensity_travelled = intensity * physics.travel_attenuation(att, dist_mm, freq)
+        hb = physics.hit_boundary(
+            direction, hits["point"], hits["normal"], intensity_travelled,
+            media_id, media_outside_id, hits["mesh_id"], materials,
+            mesh_in, mesh_out, mesh_vasc, cfg, draws=bounce_draws,
+        )
+        miss = alive & ~hits["hit"]
+        segments.append({
+            "from": src,
+            "to": torch.where(hit[:, None], inside_point, dest),
+            "direction": direction,
+            "reflected": torch.where(hit, hb["back_intensity"], 0.0),
+            "initial": intensity,
+            "attenuation": att,
+            "distance": distance_mm,
+            "media_id": media_id,
+            "valid": hit | miss,
+            "rays": torch.cat([origin, seg_vec], dim=1).T,
+        })
+
+        alive_next = hit & (hb["new_intensity"] > eps)
+        if cfg.cull_time_window:
+            # the continuation's segment would start at t0 >= the window: none
+            # of its echoes can land in the RF image
+            t0_next = fdiv((distance_mm + dist_mm) * 1000.0, cfg.speed_of_sound)
+            alive_next = alive_next & (t0_next < float(cfg.max_travel_time_us))
+        src = torch.where(hit[:, None], hb["new_from"], src)
+        direction = torch.where(hit[:, None], hb["new_direction"], direction)
+        media_id = torch.where(hit, hb["new_media_id"], media_id)
+        media_outside_id = torch.where(hit, hb["new_media_outside_id"], media_outside_id)
+        intensity = torch.where(hit, hb["new_intensity"], intensity)
+        distance_mm = torch.where(hit, distance_mm + dist_mm, distance_mm)
+        alive = alive_next
+
+    out = {k: torch.stack([s[k] for s in segments]) for k in segments[0]}
+    out["element"] = elem_idx.expand(cfg.max_depth, n)
+    return out
+
+
+def segment_march_quantities(segments, materials, cfg: SimConfig):
+    """Derived quantities of the march loop, shared by the scatter march and
+    the kernel packing: steps (float), start time t0 [us], ln attenuation
+    per step, and the segment material's mu0, mu1, sigma."""
+    axres = cfg.axial_resolution_mm
+    # scene::distance ignores spacing (src/scene.cpp:342-346)
+    seg_len = safe_norm(segments["to"] - segments["from"]) * 10.0
+    steps = torch.floor(fdiv(seg_len, axres))
+    t0 = fdiv(segments["distance"] * 1000.0, cfg.speed_of_sound)
+    ln_att_step = -segments["attenuation"] * axres * 0.01 * cfg.transducer_frequency
+    rows = physics.take_rows(materials, segments["media_id"])
+    return steps, t0, ln_att_step, rows[..., physics.MU0], rows[..., physics.MU1], rows[..., physics.SIGMA]
+
+
+def march_and_accumulate(segments, materials, volume, cfg: SimConfig, n_cols: int | None = None):
+    """Segment marching + echo scatter-add (reference main loop,
+    src/main.cpp:106-141) as one masked dense (segments x steps) grid: the
+    reference's own plain march, which the kernel path is held against."""
+    d, n = segments["valid"].shape
+    flat = {k: v.reshape((d * n,) + v.shape[2:]) for k, v in segments.items() if k != "rays"}
+    axres = cfg.axial_resolution_mm
+    dt = cfg.march_dt_us
+
+    steps_f, t0, ln_att_step, mu0, mu1, sigma = segment_march_quantities(flat, materials, cfg)
+    steps = steps_f.int()
+    k = torch.arange(cfg.max_march_steps, dtype=torch.float32, device=t0.device)[None, :]
+    t_k = t0[:, None] + k * dt
+    live = (k < steps[:, None]) & (t_k < float(cfg.max_travel_time_us)) & flat["valid"][:, None]
+    points = flat["from"][:, None, :] + (k * axres)[..., None] * flat["direction"][:, None, :]
+    intens = flat["initial"][:, None] * torch.exp(ln_att_step[:, None] * k)
+    scat = texture.get_scattering(volume, mu1[:, None], mu0[:, None], sigma[:, None], points, cfg)
+    cols = flat["element"][:, None].expand(t_k.shape)
+
+    # boundary echo at t0 + dt*(steps-1); steps == 0 would underflow to a
+    # dropped row in the reference (unsigned wrap, src/main.cpp:139)
+    b_time = t0 + dt * (steps.float() - 1.0)
+    b_valid = flat["valid"] & (steps >= 1)
+    b_vals = fdiv(flat["reflected"], float(cfg.samples_per_element))
+
+    all_times = torch.cat([t_k.reshape(-1), b_time])
+    return imaging.accumulate_echoes(
+        imaging.time_to_row(all_times, cfg),
+        torch.cat([cols.reshape(-1), flat["element"]]),
+        torch.cat([(intens * scat).reshape(-1), b_vals]),
+        torch.cat([live.reshape(-1), b_valid]),
+        cfg, n_cols,
+    )
+
+
+def render(draws, seeds, materials, probe_position, probe_angles_deg, scene, spacing,
+           starting_material: int, scan_table, cfg: SimConfig) -> dict[str, torch.Tensor]:
+    """Full frame from explicit randomness: ``draws`` (the (D, N) fields of
+    ``physics.draw_bounce_randoms``) and the (2,) texture ``seeds``. Returns
+    ``bmode`` (bmode_rows, bmode_cols) and the intermediates the stages pass
+    on: ``segments`` (with the per-bounce ``rays``), the packed ``soa``,
+    ``rf_raw`` and ``rf_env``."""
+    segments = trace_paths(draws, materials, probe_position, probe_angles_deg, scene,
+                           spacing, starting_material, cfg)
+    soa = pack_segments(segments, materials, cfg, cfg.rf_cols)
+    rf_raw = march_cuda(soa, seeds, cfg, cfg.rf_cols)
+    rf_env = postproc_cuda(rf_raw, cfg)
+    if cfg.log_compression:
+        rf_env = imaging.log_compress(rf_env)
+    # clamped at 0, as the reference clamps on its kernel path (simulator.py:407-420)
+    bmode = torch.clamp(scan_convert_cuda(rf_env, scan_table, cfg.bmode_cols), min=0.0)
+    return {"bmode": bmode, "rf_raw": rf_raw, "rf_env": rf_env, "soa": soa, "segments": segments}
+
+
+class Simulator:
+    """A compiled scene and config bound to a device.
+
+    ``device="cuda"`` runs every stage through the CUDA kernels, ``"cpu"``
+    through their plain versions; nothing else differs. The texture seeds
+    come from a CPU generator seeded with ``seed ^ 0x5CA77E7`` (as the
+    reference derives its volume key), so the scatterer field is the same on
+    every device; each frame's draws come from a generator on ``device``
+    seeded with the frame's seed.
+    """
+
+    def __init__(self, pack, cfg: SimConfig, *, device="cpu", seed: int = 0):
+        validate(cfg)
+        if cfg.soft_row_binning:
+            raise NotImplementedError("soft_row_binning is not ported yet")
+        self.cfg = cfg
+        self.pack = pack
+        self.device = torch.device(device)
+        seeds = texture.make_texture_volume(torch.Generator().manual_seed(seed ^ 0x5CA77E7), cfg)
+        state = convert.from_reference(pack, pack.materials, seeds["seeds"], device=self.device)
+        self.scene = state["scene"]
+        self.materials = state["materials"]
+        self.spacing = state["spacing"]
+        self.starting_material = state["starting_material"]
+        self.position = state["position"]
+        self.angles = state["angles"]
+        self.seeds = state["seeds"]
+        maps = imaging.scan_conversion_maps(cfg)
+        table = pack_scan_maps(maps[0], maps[1], cfg.rf_rows, cfg.rf_cols)
+        self.scan_table = torch.from_numpy(table).to(self.device)
+
+    def _tensor(self, x, default):
+        return default if x is None else torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def draws(self, seed: int) -> dict[str, torch.Tensor]:
+        """The frame's random draws from a generator on the device seeded with ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        n = self.cfg.transducer_elements * self.cfg.samples_per_element
+        return physics.draw_bounce_randoms(gen, self.cfg.max_depth, n)
+
+    def render_frame(self, seed: int = 0, materials=None, position=None, angles=None):
+        """One frame; returns the dict of ``render``."""
+        return render(
+            self.draws(seed), self.seeds,
+            self._tensor(materials, self.materials),
+            self._tensor(position, self.position),
+            self._tensor(angles, self.angles),
+            self.scene, self.spacing, self.starting_material, self.scan_table, self.cfg,
+        )
+
+    def render_batch(self, seeds, materials=None, position=None, angles=None) -> torch.Tensor:
+        """(B, H, W) B-modes of independent Monte-Carlo frames, one per seed."""
+        return torch.stack([
+            self.render_frame(s, materials, position, angles)["bmode"] for s in seeds
+        ])
+
+    def render_compound(self, seeds, **kw) -> torch.Tensor:
+        """Speckle-compounded B-mode: the mean of independent frames."""
+        return self.render_batch(seeds, **kw).mean(dim=0)
+
+    @property
+    def rays_per_frame(self) -> int:
+        """Traced path-bounce queries per frame (src/scene.cpp:75-117)."""
+        return self.cfg.transducer_elements * self.cfg.samples_per_element * self.cfg.max_depth

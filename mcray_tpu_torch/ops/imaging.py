@@ -1,0 +1,175 @@
+"""RF image pipeline: echo accumulation, PSF convolution, envelope, scan conversion.
+
+Port of ``mcray_tpu/ops/imaging.py`` (reference src/rfimage.h) in plain torch:
+- ``accumulate_echoes``: the per-echo ``+=`` of add_echo as an
+  ``index_put_`` scatter-add;
+- ``convolve_psf``: the reference-exact uncentered separable convolution,
+  raw values kept outside the write window;
+- ``envelope``: the closed form of the C++ peak-lerp walk, with the
+  (index, value) scans done as index scans (cummax/cummin) plus a gather;
+- ``scan_convert``: cv::remap(INTER_LINEAR, BORDER_CONSTANT) as an explicit
+  4-tap gather — ``grid_sample`` is avoided because its coordinate
+  normalisation adds a rounding that ``map_coordinates`` does not have.
+
+These are the plain versions that the CUDA postproc and scan-conversion
+kernels (``ops/cuda``) are held against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import SimConfig
+from . import psf as psf_mod
+from .texture import fdiv
+
+
+def time_to_row(time_us: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """row = floor(t / (axial_res_um / c)) (src/rfimage.h:35)."""
+    return torch.floor(fdiv(time_us, cfg.rf_row_dt_us)).int()
+
+
+def accumulate_echoes(rows, cols, values, valid, cfg: SimConfig, n_cols: int | None = None):
+    """Masked scatter-add into a fresh (rf_rows, n_cols) image."""
+    ok = valid & (rows >= 0) & (rows < cfg.rf_rows)
+    rf = torch.zeros((cfg.rf_rows, n_cols or cfg.rf_cols), dtype=torch.float32, device=values.device)
+    index = (torch.where(ok, rows, 0).long(), torch.where(ok, cols, 0).long())
+    return rf.index_put_(index, torch.where(ok, values, 0.0), accumulate=True)
+
+
+def convolve_psf(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    if cfg.centered_psf:
+        raise NotImplementedError("centered_psf is not ported yet (reference mode only)")
+    return _convolve_reference(
+        rf,
+        [float(v) for v in psf_mod.axial_kernel_np(cfg)],
+        [float(v) for v in psf_mod.lateral_kernel_np(cfg)],
+    )
+
+
+def _convolve_reference(rf: torch.Tensor, ax, lat) -> torch.Tensor:
+    """Forward-shifted (uncentered) kernels: axial pass into a buffer for rows
+    [A, R-A), lateral pass written back only for rows [A, R-A) x cols
+    [L/2, C-L); every other cell keeps its raw value (src/rfimage.h:97-122).
+    Taps are summed in the order k = 0..A-1, then 0..L-1."""
+    rows, cols = rf.shape
+    a, l = len(ax), len(lat)
+    if rows <= 2 * a or cols <= l + l // 2:  # the reference's loops never run
+        return rf
+    rv = rows - a + 1
+    conv_ax = sum(rf[k : k + rv, :] * ax[k] for k in range(a))
+    buf = torch.zeros_like(rf)
+    buf[a : rows - a] = conv_ax[a : rows - a]
+    cv = cols - l + 1
+    conv_lat = sum(buf[:, k : k + cv] * lat[k] for k in range(l))
+    out = rf.clone()
+    out[a : rows - a, l // 2 : cols - l] = conv_lat[a : rows - a, l // 2 : cols - l]
+    return out
+
+
+def envelope(rf: torch.Tensor) -> torch.Tensor:
+    """Closed form of the reference's sequential peak-lerp walk over rows.
+
+    A peak is at row i (1 <= i <= R-2) iff x[i-1] < x[i] and x[i] >= x[i+1].
+    Row j lerps from the last peak at or before j (|x| there, or the raw
+    x[0] before the first peak) to the first peak after j; rows after the
+    last peak, and all rows of a column without peaks, keep their raw values.
+    """
+    rows = rf.shape[0]
+    x = rf
+    rise = x[:-1] < x[1:]
+    peak = torch.zeros_like(x, dtype=torch.bool)
+    peak[1:-1] = rise[:-1] & ~rise[1:]
+
+    idx = torch.arange(rows, device=rf.device)[:, None].expand_as(x)
+    big = rows + 1
+    absx = torch.abs(x)
+
+    # previous peak at or before j (or -1)
+    ppk = torch.cummax(torch.where(peak, idx, -1), dim=0).values
+    # next peak strictly after j: reverse running min, shifted by one row
+    m = torch.flip(torch.cummin(torch.flip(torch.where(peak, idx, big), [0]), dim=0).values, [0])
+    npk = torch.cat([m[1:], torch.full_like(m[:1], big)], dim=0)
+
+    prev_pos = torch.clamp(ppk, min=0)
+    prev_val = torch.where(ppk < 0, x[0:1], absx.gather(0, prev_pos))
+    has_next = npk < big
+    npk_pos = torch.where(has_next, npk, 0)
+    next_val = absx.gather(0, npk_pos)
+    denom = torch.clamp(npk_pos - prev_pos, min=1)
+    alpha = (idx - prev_pos).float() / denom.float()
+    lerped = prev_val * (1.0 - alpha) + next_val * alpha
+    return torch.where(has_next, lerped, x)
+
+
+def apply_envelope(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    if cfg.envelope_mode != "reference":
+        raise NotImplementedError("the hilbert envelope is not ported yet")
+    return envelope(rf)
+
+
+def log_compress(img: torch.Tensor) -> torch.Tensor:
+    """The reference's commented-out log compression (src/rfimage.h:131-136)."""
+    return torch.log10(img + 1.0) / torch.log10(torch.max(img) + 1.0)
+
+
+def scan_conversion_maps(cfg: SimConfig) -> tuple[np.ndarray, np.ndarray]:
+    """Polar->Cartesian sample maps (reference create_mapping,
+    src/rfimage.h:183-215): (map_row, map_col), each (bmode_rows,
+    bmode_cols) float32 RF-image coordinates per output pixel. Linear probes
+    get a plain bilinear resize; phased probes the radius->0 sector."""
+    out_rows, out_cols = cfg.bmode_rows, cfg.bmode_cols
+    if cfg.probe_type == "linear":
+        i = np.arange(out_rows, dtype=np.float32)[:, None]
+        j = np.arange(out_cols, dtype=np.float32)[None, :]
+        map_row = np.broadcast_to(i / out_rows * cfg.rf_rows, (out_rows, out_cols))
+        map_col = np.broadcast_to(j / out_cols * cfg.rf_cols, (out_rows, out_cols))
+        return map_row.astype(np.float32).copy(), map_col.astype(np.float32).copy()
+    radius_mm = 0.0 if cfg.probe_type == "phased" else cfg.transducer_radius_cm * 10.0
+    total = cfg.transducer_amplitude_rad
+    depth_mm = cfg.max_travel_time_us * cfg.speed_of_sound * 0.001
+
+    ratio = (depth_mm + radius_mm - radius_mm * np.cos(total / 2.0)) / out_rows
+    shift_y = radius_mm * np.cos(total / 2.0)
+    half_width = out_cols / 2.0
+
+    i = np.arange(out_rows, dtype=np.float32)[:, None]
+    j = np.arange(out_cols, dtype=np.float32)[None, :]
+    fi = i + shift_y / ratio
+    fj = j - half_width
+    r = np.sqrt(fi * fi + fj * fj)
+    angle = np.arctan2(fj, fi)
+
+    map_row = (r * ratio - radius_mm) / depth_mm * cfg.rf_rows
+    map_col = (angle + total / 2.0) / total * cfg.rf_cols
+    return map_row.astype(np.float32), map_col.astype(np.float32)
+
+
+def bilinear_gather(rf, r0, w_r0, w_r1, c0, w_c0, w_c1) -> torch.Tensor:
+    """Sum of the four bilinear taps around (r0, c0) with per-axis weights,
+    in map_coordinates' order: (r0,c0), (r0,c0+1), (r0+1,c0), (r0+1,c0+1).
+    A tap outside the image reads 0 (BORDER_CONSTANT)."""
+    rows, cols = rf.shape
+    flat = rf.reshape(-1)
+
+    def tap(r, c):
+        ok = (r >= 0) & (r < rows) & (c >= 0) & (c < cols)
+        v = flat[r.clamp(0, rows - 1) * cols + c.clamp(0, cols - 1)]
+        return torch.where(ok, v, 0.0)
+
+    r1, c1 = r0 + 1, c0 + 1
+    return (
+        (w_r0 * w_c0) * tap(r0, c0)
+        + (w_r0 * w_c1) * tap(r0, c1)
+        + (w_r1 * w_c0) * tap(r1, c0)
+        + (w_r1 * w_c1) * tap(r1, c1)
+    )
+
+
+def scan_convert(rf: torch.Tensor, map_row: torch.Tensor, map_col: torch.Tensor) -> torch.Tensor:
+    """Bilinear gather with zero fill outside — the reference's
+    ``map_coordinates(order=1, mode="constant", cval=0)``."""
+    r0f, c0f = torch.floor(map_row), torch.floor(map_col)
+    ar, ac = map_row - r0f, map_col - c0f
+    return bilinear_gather(rf, r0f.long(), 1.0 - ar, ar, c0f.long(), 1.0 - ac, ac)

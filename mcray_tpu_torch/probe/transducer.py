@@ -1,0 +1,66 @@
+"""Transducer element layout as a pure function of probe pose.
+
+Port of ``mcray_tpu/probe/transducer.py:22-101``: positions and outward
+beam directions of all N elements for the convex (the reference's arc,
+src/transducer.h:41-59), linear and phased probe families.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import SimConfig
+from ..ops.geometry import euler_zxy
+
+
+def element_layout(position: torch.Tensor, angles_deg: torch.Tensor, cfg: SimConfig):
+    """(positions (N, 3), directions (N, 3)) on ``position``'s device."""
+    if cfg.probe_type == "linear":
+        return element_layout_linear(position, angles_deg, cfg)
+    if cfg.probe_type == "phased":
+        return element_layout_phased(position, angles_deg, cfg)
+    return element_layout_convex(position, angles_deg, cfg)
+
+
+def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.float32, device=like.device)
+
+
+def _unit_fan(angles: torch.Tensor) -> torch.Tensor:
+    return torch.stack([torch.sin(angles), torch.cos(angles), torch.zeros_like(angles)], dim=-1)
+
+
+def element_layout_linear(position, angles_deg, cfg: SimConfig):
+    """N elements along the rotated x axis at the reference's element pitch,
+    all beams parallel to the rotated +y axis."""
+    n = cfg.transducer_elements
+    pitch_world = cfg.element_separation_mm / 10.0  # mm -> world (cm-ish)
+    offsets = (_arange(n, position) - (n - 1) / 2.0) * pitch_world
+    angles_rad = torch.deg2rad(angles_deg.float())
+    axes = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=position.device)
+    lateral, beam = euler_zxy(axes, angles_rad)
+    positions = position.float() + offsets[:, None] * lateral
+    return positions, beam.expand(n, 3)
+
+
+def element_layout_phased(position, angles_deg, cfg: SimConfig):
+    """Beam k steered across the sector, all emitted from the probe position
+    (the sector apex that the radius->0 scan conversion assumes)."""
+    n = cfg.transducer_elements
+    total = cfg.transducer_amplitude_rad
+    steer = -(total / 2.0) + total * (_arange(n, position) + 0.5) / n
+    directions = euler_zxy(_unit_fan(steer), torch.deg2rad(angles_deg.float()))
+    return position.float().expand(n, 3), directions
+
+
+def element_layout_convex(position, angles_deg, cfg: SimConfig):
+    """Convex arc: angular pitch = separation/radius, first element at
+    -(pitch*N/2) + pitch/2; position = probe_pos + radius_cm * dir."""
+    n = cfg.transducer_elements
+    radius_mm = cfg.transducer_radius_cm * 10.0
+    pitch = cfg.element_separation_mm / radius_mm  # [rad] per element
+    angle0 = -(pitch * n / 2.0) + pitch / 2.0
+    angles = angle0 + pitch * _arange(n, position)
+    directions = euler_zxy(_unit_fan(angles), torch.deg2rad(angles_deg.float()))
+    return position.float() + cfg.transducer_radius_cm * directions, directions
+

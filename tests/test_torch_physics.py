@@ -1,0 +1,74 @@
+"""mcray_tpu_torch.ops.physics against mcray_tpu.ops.physics.
+
+``hit_boundary`` gets the reference's own draws on both sides. Integer and
+boolean outputs (media ids, the roulette choice) must be equal; float
+outputs compare at rtol 1e-5 (pow/sqrt/sin/cos round their last ulp
+differently in XLA and torch), atol 1e-6 for components near zero.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import reference_draws, to_np, to_torch
+from mcray_tpu.ops import physics as ref
+from mcray_tpu_torch.ops import physics
+
+FLOAT_OUT = ("back_intensity", "new_from", "new_direction", "new_intensity")
+EXACT_OUT = ("new_media_id", "new_media_outside_id", "chose_reflection")
+
+
+@pytest.mark.parametrize("bug_compat", [False, True], ids=["id-transition", "bug-compat"])
+def test_hit_boundary_matches(rng, sphere_pack, bug_compat):
+    pack, cfg = sphere_pack
+    cfg = dataclasses.replace(cfg, bug_compat_material_transition=bug_compat)
+    n = 512
+    m, k = pack.n_materials, pack.mesh_mat_inside.shape[0]
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    nrm = rng.standard_normal((n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    inputs = dict(
+        direction=d,
+        hit_point=rng.uniform(-5, 5, (n, 3)).astype(np.float32),
+        surface_normal=nrm,
+        intensity=rng.uniform(1e-6, 0.5, n).astype(np.float32),
+        media_id=rng.integers(0, m, n).astype(np.int32),
+        media_outside_id=np.where(rng.random(n) < 0.3, rng.integers(0, m, n), -1).astype(np.int32),
+        mesh_id=rng.integers(-1, k, n).astype(np.int32),
+    )
+    # one bounce's slice of the reference frame's draws
+    draws = {key: v[3] for key, v in reference_draws(5, n, 4).items()}
+    tables = (pack.materials, pack.mesh_mat_inside, pack.mesh_mat_outside, pack.mesh_is_vascular)
+
+    want = ref.hit_boundary(
+        None, *(jnp.asarray(v) for v in inputs.values()), *(jnp.asarray(t) for t in tables),
+        cfg, draws={key: jnp.asarray(v) for key, v in draws.items()},
+    )
+    got = physics.hit_boundary(
+        *(to_torch(v) for v in inputs.values()), *(to_torch(t) for t in tables), cfg,
+        draws={key: to_torch(v) for key, v in draws.items()},
+    )
+    for key in EXACT_OUT:
+        np.testing.assert_array_equal(to_np(got[key]), np.asarray(want[key]), err_msg=key)
+    for key in FLOAT_OUT:
+        np.testing.assert_allclose(
+            to_np(got[key]), np.asarray(want[key]), rtol=1e-5, atol=1e-6, err_msg=key
+        )
+
+
+def test_draw_bounce_randoms_distributions():
+    gen = torch.Generator().manual_seed(3)
+    draws = physics.draw_bounce_randoms(gen, 4, 5000)
+    assert set(draws) == {"q_normal", "angle_u", "axis_u", "radius_u", "roulette_u"}
+    for key, v in draws.items():
+        assert v.shape == (4, 5000) and v.dtype == torch.float32
+        if key != "q_normal":
+            assert float(v.min()) >= 0.0 and float(v.max()) < 1.0
+            assert abs(float(v.mean()) - 0.5) < 0.02
+    assert float(draws["angle_u"].min()) >= 1e-12
+    q = draws["q_normal"]
+    assert abs(float(q.mean())) < 0.03 and abs(float(q.std()) - 1.0) < 0.03

@@ -1,0 +1,165 @@
+"""The port's whole frame against mcray_tpu's, and the port's JAX-free import.
+
+``mcray_tpu.models.simulator.render`` with its CPU defaults (jnp brute
+intersect, jnp scatter march, jnp postproc, map_coordinates) renders the
+sphere under ``small_test_config()``; the port's ``render`` gets the same
+draws and texture seeds and runs its kernels' plain versions.
+
+Discrete outputs (segment validity and media ids) must be equal path by
+path. One mechanism is allowed to break that, and each instance is checked:
+a ray that passes within float noise of a triangle edge — the sphere's
+equator edges lie in the probe plane z = 0 — where XLA's CPU code (which
+contracts Möller–Trumbore's multiply-adds into FMAs) and torch (which
+rounds every op) can disagree on which of two triangles, or whether either,
+is hit (ROADMAP queue 3). Such a path must graze an edge at the bounce where
+it first diverges; its RF columns, and the B-mode pixels that read them
+through the PSF, are left out of the image comparison. Float segment
+fields compare at rtol 1e-5: scalars elementwise (atol 1e-6), points and
+directions by vector norm (atol 1e-5), because a missed ray's end point
+lies up to ~1e9 units out along its direction and carries the direction's
+last-ulp error scaled up. rf_raw and bmode compare at rtol 1e-4, atol 1e-5.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import SPHERE_SCENE, reference_draws, to_np
+from mcray_tpu.config import small_test_config
+from mcray_tpu.models import simulator as ref_sim
+from mcray_tpu.ops import imaging as ref_imaging
+from mcray_tpu.ops import texture as ref_texture
+from mcray_tpu.scene.compile import load_and_compile
+from mcray_tpu_torch.models import simulator
+from mcray_tpu_torch.ops.cuda.scanconv import pack_scan_maps
+from mcray_tpu_torch.utils.convert import from_reference
+
+VECTOR_FIELDS = ("from", "to", "direction")
+SCALAR_FIELDS = ("reflected", "initial", "attenuation", "distance")
+
+
+@pytest.fixture(scope="module")
+def reference_setup():
+    cfg = small_test_config()
+    pack = load_and_compile(SPHERE_SCENE, cfg, with_bvh=False)
+    return cfg, pack
+
+
+def _reference_frame(cfg, pack, seed):
+    """The reference frame for ``seed`` and its segment tensor, from one
+    jitted program (as the reference's Simulator runs it)."""
+    scene = {k: jnp.asarray(v) for k, v in pack.trace_tables().items()}
+    args = (jnp.asarray(pack.materials), jnp.asarray(pack.transducer_position),
+            jnp.asarray(pack.transducer_angles), scene, jnp.asarray(pack.spacing),
+            jnp.int32(pack.starting_material))
+    volume = ref_texture.make_texture_volume(jax.random.PRNGKey(seed ^ 0x5CA77E7), cfg)
+    maps = ref_imaging.scan_conversion_maps(cfg)
+
+    @jax.jit
+    def frame(key):
+        segments = ref_sim.trace_paths(jax.random.fold_in(key, 0), *args, cfg)
+        out = ref_sim.render(key, *args, volume, (jnp.asarray(maps[0]), jnp.asarray(maps[1])), cfg)
+        return segments, {k: out[k] for k in ("rf_raw", "bmode")}
+
+    segments, images = frame(jax.random.PRNGKey(seed))
+    return (
+        {k: np.asarray(v) for k, v in segments.items()},
+        {k: np.asarray(v) for k, v in images.items()},
+        np.asarray(volume["seeds"]),
+        maps,
+    )
+
+
+def _grazes_an_edge(tris, ray, tol=1e-6) -> bool:
+    """Whether the segment crosses the plane of some triangle within ``tol``
+    (barycentric) of one of its edges, in float64."""
+    o, s = ray[:3].astype(np.float64), ray[3:].astype(np.float64)
+    t64 = tris.astype(np.float64)
+    v0, e1, e2 = t64[:, 0], t64[:, 1] - t64[:, 0], t64[:, 2] - t64[:, 0]
+    p = np.cross(s, e2)
+    det = np.einsum("ij,ij->i", e1, p)
+    ok = np.abs(det) > 1e-12
+    det = np.where(ok, det, 1.0)
+    tv = o - v0
+    q = np.cross(tv, e1)
+    u = np.einsum("ij,ij->i", tv, p) / det
+    v = (q @ s) / det
+    t = np.einsum("ij,ij->i", e2, q) / det
+    margin = np.minimum(np.minimum(u, v), 1.0 - u - v)
+    return bool(np.any(ok & (t > 0) & (t < 1) & (np.abs(margin) < tol)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_render_matches_reference(reference_setup, seed):
+    cfg, pack = reference_setup
+    ref_segments, ref_frame, seeds, maps = _reference_frame(cfg, pack, seed)
+    n = cfg.transducer_elements * cfg.samples_per_element
+    state = from_reference(pack, pack.materials, seeds, reference_draws(seed, n, cfg.max_depth))
+    table = pack_scan_maps(maps[0], maps[1], cfg.rf_rows, cfg.rf_cols)
+    out = simulator.render(
+        state["draws"], state["seeds"], state["materials"], state["position"], state["angles"],
+        state["scene"], state["spacing"], state["starting_material"], torch.from_numpy(table), cfg,
+    )
+    segments = {k: to_np(v) for k, v in out["segments"].items()}
+
+    # paths whose segments disagree anywhere (discrete or float)
+    bad = (segments["valid"] != ref_segments["valid"]) | (
+        segments["media_id"] != ref_segments["media_id"])
+    for key in VECTOR_FIELDS:
+        a, b = segments[key], ref_segments[key]
+        bad |= np.linalg.norm(a - b, axis=-1) > 1e-5 * np.linalg.norm(b, axis=-1) + 1e-5
+    for key in SCALAR_FIELDS:
+        bad |= ~np.isclose(segments[key], ref_segments[key], rtol=1e-5, atol=1e-6)
+    diverged = np.nonzero(bad.any(axis=0))[0]
+    assert len(diverged) <= n // 20, f"{len(diverged)} of {n} paths diverge"
+    for p in diverged:
+        d = int(np.nonzero(bad[:, p])[0][0])
+        assert _grazes_an_edge(pack.tris, segments["rays"][d][:, p]), (
+            f"path {p} diverges at bounce {d} on a ray that grazes no triangle edge")
+
+    # image comparison away from the columns the diverged paths write
+    cols = set(int(p) // cfg.samples_per_element for p in diverged)
+    rf_cols = np.ones(cfg.rf_cols, bool)
+    rf_cols[list(cols)] = False
+    np.testing.assert_allclose(
+        to_np(out["rf_raw"])[:, rf_cols], ref_frame["rf_raw"][:, rf_cols], rtol=1e-4, atol=1e-5
+    )
+    # the lateral PSF reads columns c..c+L-1, so env column c' sees raw c' .. c'+L-1
+    env_ok = np.array([rf_cols[c : c + cfg.psf_lateral_size].all() for c in range(cfg.rf_cols)])
+    c0 = table[:, 3, : cfg.bmode_cols].astype(int)
+    pix_ok = env_ok[np.clip(c0, 0, cfg.rf_cols - 1)] & env_ok[np.clip(c0 + 1, 0, cfg.rf_cols - 1)]
+    # the port clamps the B-mode at 0, as the reference's kernel path does
+    np.testing.assert_allclose(
+        to_np(out["bmode"])[pix_ok], np.maximum(ref_frame["bmode"], 0.0)[pix_ok],
+        rtol=1e-4, atol=1e-5,
+    )
+    assert pix_ok.mean() > 0.8
+
+
+def test_port_imports_no_jax(tmp_path):
+    """A 16-element x 2-sample frame renders on the CPU without importing jax."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "from mcray_tpu_torch.config import small_test_config\n"
+        "from mcray_tpu_torch.models.simulator import Simulator\n"
+        "from mcray_tpu_torch.scene.compile import load_and_compile\n"
+        f"pack = load_and_compile({SPHERE_SCENE!r})\n"
+        "cfg = small_test_config(transducer_elements=16, samples_per_element=2)\n"
+        "b = Simulator(pack, cfg).render_frame(3)['bmode']\n"
+        "assert b.shape == (cfg.bmode_rows, cfg.bmode_cols) and bool(torch.isfinite(b).all())\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "print('ok')\n"
+    )
+    root = os.path.join(os.path.dirname(__file__), "..")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(root), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
