@@ -47,6 +47,12 @@ def main(argv=None) -> int:
     p.add_argument("--elements", type=int, default=None, help="override scanline count")
     p.add_argument("--samples", type=int, default=None, help="override MC paths/scanline")
     p.add_argument("--device", default="cpu", help="torch device: cpu or cuda")
+    p.add_argument("--intersect-mode", default=None,
+                   choices=["listed", "culled", "staged", "grouped"],
+                   help="cluster closest-hit kernel on scenes of 2,048 triangles and up "
+                        "(default: listed; grouped is not ported yet)")
+    p.add_argument("--intersect-tile-r", type=int, default=None,
+                   help="rays per intersect packet (default 512 with clusters)")
     args = p.parse_args(sys.argv[1:] if argv is None else argv)
 
     overrides = {}
@@ -58,9 +64,11 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     pack = load_and_compile(args.scene)
-    sim = Simulator(pack, cfg, device=args.device, seed=args.seed)
+    sim = Simulator(pack, cfg, device=args.device, seed=args.seed,
+                    intersect_mode=args.intersect_mode, intersect_tile_r=args.intersect_tile_r)
+    mode = sim.culled_tris[1] if sim.culled_tris is not None else "brute"
     print(f"scene: {pack.n_triangles} triangles, {pack.n_materials} materials "
-          f"(setup {time.perf_counter() - t0:.2f}s, device {sim.device})")
+          f"(setup {time.perf_counter() - t0:.2f}s, device {sim.device}, intersect {mode})")
 
     times = []
     for i in range(args.frames):

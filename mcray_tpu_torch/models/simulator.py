@@ -6,7 +6,9 @@ scene::cast_rays, src/scene.cpp:50-183), forward only:
 - the ragged per-ray segment lists are a dense ``(D, N)`` segment dict with
   a validity mask (N = elements x samples paths);
 - the bounce loop runs D bounces over the whole path batch, each through
-  the closest-hit kernel (K1);
+  one closest-hit kernel: on scenes of 2,048 triangles and up the
+  reference's default, the list-driven cluster kernel (K5; K6 culled and
+  K7 staged on request), else the brute kernel (K1);
 - the march (K2), PSF convolution + envelope (K3) and scan conversion (K4)
   run as one kernel each.
 
@@ -21,11 +23,16 @@ Randomness is explicit: ``render`` takes the frame's draws
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..config import SimConfig, validate
-from ..ops import imaging, physics, texture
+from ..ops import clusters, imaging, physics, texture
 from ..ops.cuda.intersect import intersect_closest_cuda
+from ..ops.cuda.intersect_culled import intersect_closest_culled
+from ..ops.cuda.intersect_listed import intersect_closest_listed
+from ..ops.cuda.intersect_staged import intersect_closest_staged
 from ..ops.cuda.march import march_cuda, pack_segments
 from ..ops.cuda.postproc import postproc_cuda
 from ..ops.cuda.scanconv import pack_scan_maps, scan_convert_cuda
@@ -35,17 +42,32 @@ from ..probe.transducer import element_layout
 from ..utils import convert
 
 
+#: the cluster kernels by intersect_mode ("grouped" is not ported yet)
+CLUSTER_INTERSECTS = {
+    "listed": intersect_closest_listed,
+    "culled": intersect_closest_culled,
+    "staged": intersect_closest_staged,
+}
+INTERSECT_MODES = ("listed", "culled", "staged", "grouped")
+
+
 def distance_in_mm(a, b, spacing):
     """World distance with per-axis spacing, x10 to mm (src/scene.cpp:281-290)."""
     return safe_norm(torch.abs(a - b) * spacing) * 10.0
 
 
 def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spacing,
-                starting_material: int, cfg: SimConfig) -> dict[str, torch.Tensor]:
+                starting_material: int, cfg: SimConfig, *, culled_tris=None,
+                intersect_tile_r: int = 128, sort_packets: bool = False) -> dict[str, torch.Tensor]:
     """Monte-Carlo path tracing of all elements x samples paths. Returns the
     segment dict, each field stacked over bounce depth (D, N, ...), plus
     ``rays``: the (D, 6, N) [origin; segment] closest-hit queries of every
-    bounce, as the intersect kernel received them."""
+    bounce, as the intersect kernel received them.
+
+    ``culled_tris=(packed, mode)`` runs the closest hit through the cluster
+    kernel of ``mode`` (``CLUSTER_INTERSECTS``) on ``intersect_tile_r``-ray
+    packets, coherence-sorted first if ``sort_packets``; ``None`` runs the
+    brute kernel over ``scene["tri_soa"]``."""
     n_samples = cfg.samples_per_element
     freq = cfg.transducer_frequency
     eps = cfg.intensity_epsilon
@@ -70,6 +92,10 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
     distance_mm = torch.zeros((n,), dtype=torch.float32, device=device)
     alive = torch.ones((n,), dtype=torch.bool, device=device)
 
+    if culled_tris is not None:
+        packed, mode = culled_tris
+        cluster_fn = functools.partial(CLUSTER_INTERSECTS[mode], tile_r=intersect_tile_r)
+
     segments = []
     for d in range(cfg.max_depth):
         bounce_draws = {k: v[d] for k, v in draws.items()}
@@ -83,7 +109,12 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
         seg_vec = (dest - origin) * alive_col
         origin = torch.where(alive_col, origin, 1e9)
 
-        hits = intersect_closest_cuda(origin, seg_vec, tri_soa, tri_mesh_id)
+        if culled_tris is None:
+            hits = intersect_closest_cuda(origin, seg_vec, tri_soa, tri_mesh_id)
+        elif sort_packets:
+            hits = clusters.intersect_sorted(cluster_fn, origin, seg_vec, packed)
+        else:
+            hits = cluster_fn(origin, seg_vec, packed)
         hit = hits["hit"] & alive
 
         # sub-surface penetration fuzz: q ~ |N(0, thickness_inside)| (src/scene.cpp:129-139)
@@ -181,14 +212,15 @@ def march_and_accumulate(segments, materials, volume, cfg: SimConfig, n_cols: in
 
 
 def render(draws, seeds, materials, probe_position, probe_angles_deg, scene, spacing,
-           starting_material: int, scan_table, cfg: SimConfig) -> dict[str, torch.Tensor]:
+           starting_material: int, scan_table, cfg: SimConfig, **trace_kw) -> dict[str, torch.Tensor]:
     """Full frame from explicit randomness: ``draws`` (the (D, N) fields of
-    ``physics.draw_bounce_randoms``) and the (2,) texture ``seeds``. Returns
+    ``physics.draw_bounce_randoms``) and the (2,) texture ``seeds``;
+    ``trace_kw`` (the closest-hit choice) go to ``trace_paths``. Returns
     ``bmode`` (bmode_rows, bmode_cols) and the intermediates the stages pass
     on: ``segments`` (with the per-bounce ``rays``), the packed ``soa``,
     ``rf_raw`` and ``rf_env``."""
     segments = trace_paths(draws, materials, probe_position, probe_angles_deg, scene,
-                           spacing, starting_material, cfg)
+                           spacing, starting_material, cfg, **trace_kw)
     soa = pack_segments(segments, materials, cfg, cfg.rf_cols)
     rf_raw = march_cuda(soa, seeds, cfg, cfg.rf_cols)
     rf_env = postproc_cuda(rf_raw, cfg)
@@ -203,17 +235,38 @@ class Simulator:
     """A compiled scene and config bound to a device.
 
     ``device="cuda"`` runs every stage through the CUDA kernels, ``"cpu"``
-    through their plain versions; nothing else differs. The texture seeds
-    come from a CPU generator seeded with ``seed ^ 0x5CA77E7`` (as the
-    reference derives its volume key), so the scatterer field is the same on
-    every device; each frame's draws come from a generator on ``device``
-    seeded with the frame's seed.
+    through their plain versions; nothing else differs.
+
+    The closest hit follows the reference's defaults
+    (``mcray_tpu/models/simulator.py:436-519``): scenes of 2,048 triangles
+    and up (``use_culled_intersect=None``) pack BVH-ordered triangle clusters
+    and run ``intersect_mode`` (default ``"listed"``; ``"culled"`` and
+    ``"staged"`` on request) on ``intersect_tile_r``-ray packets (default
+    512; 128 for the brute kernel), with 128-triangle clusters for listed and
+    256 for culled and staged. The reference takes that default only on a
+    TPU; the port takes it on every device, because the CPU runs the plain
+    versions of the same kernels. ``"grouped"`` is not ported yet (ROADMAP)
+    and raises NotImplementedError; an unknown mode raises ValueError.
+
+    The texture seeds come from a CPU generator seeded with
+    ``seed ^ 0x5CA77E7`` (as the reference derives its volume key), so the
+    scatterer field is the same on every device; each frame's draws come
+    from a generator on ``device`` seeded with the frame's seed.
     """
 
-    def __init__(self, pack, cfg: SimConfig, *, device="cpu", seed: int = 0):
+    def __init__(self, pack, cfg: SimConfig, *, device="cpu", seed: int = 0,
+                 use_culled_intersect: bool | None = None, intersect_mode: str | None = None,
+                 intersect_tile_r: int | None = None, sort_packets: bool = False):
         validate(cfg)
         if cfg.soft_row_binning:
             raise NotImplementedError("soft_row_binning is not ported yet")
+        intersect_mode = intersect_mode or "listed"
+        if intersect_mode not in INTERSECT_MODES:
+            raise ValueError(f"unknown intersect_mode {intersect_mode!r}; expected one of "
+                             f"{INTERSECT_MODES}")
+        if intersect_mode == "grouped":
+            raise NotImplementedError(
+                "intersect_mode='grouped' is not ported yet (ROADMAP queue 2, row 4)")
         self.cfg = cfg
         self.pack = pack
         self.device = torch.device(device)
@@ -229,6 +282,29 @@ class Simulator:
         maps = imaging.scan_conversion_maps(cfg)
         table = pack_scan_maps(maps[0], maps[1], cfg.rf_rows, cfg.rf_cols)
         self.scan_table = torch.from_numpy(table).to(self.device)
+
+        if use_culled_intersect is None:
+            use_culled_intersect = pack.n_triangles >= 2048
+        self.culled_tris = None
+        if use_culled_intersect and pack.n_triangles > 0:
+            bvh = getattr(pack, "bvh", None)
+            packed = clusters.pack_tris_culled(
+                pack.tris, pack.tri_mesh_id, bvh.tri_order if bvh is not None else None,
+                sort_origin=pack.transducer_position,
+                tile_t=128 if intersect_mode == "listed" else clusters.TILE_T,
+                device=self.device,
+            )
+            self.culled_tris = (packed, intersect_mode)
+        if intersect_tile_r is None:
+            intersect_tile_r = 512 if self.culled_tris is not None else 128
+        self.intersect_tile_r = intersect_tile_r
+        self.sort_packets = sort_packets
+
+    @property
+    def trace_kw(self) -> dict:
+        """The closest-hit choice, as ``render``/``trace_paths`` take it."""
+        return {"culled_tris": self.culled_tris, "intersect_tile_r": self.intersect_tile_r,
+                "sort_packets": self.sort_packets}
 
     def _tensor(self, x, default):
         return default if x is None else torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -247,6 +323,7 @@ class Simulator:
             self._tensor(position, self.position),
             self._tensor(angles, self.angles),
             self.scene, self.spacing, self.starting_material, self.scan_table, self.cfg,
+            **self.trace_kw,
         )
 
     def render_batch(self, seeds, materials=None, position=None, angles=None) -> torch.Tensor:

@@ -5,9 +5,11 @@ Each module holds one kernel's wrapper, its plain PyTorch version and a
 calls the plain version only for CPU tensors; anything else raises.
 """
 
-from . import intersect, march, postproc, scanconv
+from . import (intersect, intersect_culled, intersect_listed, intersect_staged, march, postproc,
+               scanconv)
 
-KERNELS = (intersect, march, postproc, scanconv)
+KERNELS = (intersect, intersect_listed, intersect_culled, intersect_staged, march, postproc,
+           scanconv)
 
 
 def reset_launch_counts() -> None:

@@ -2,10 +2,12 @@
 
 ``library()`` compiles every ``mcray_tpu_torch/csrc/*.cu`` into one shared
 library with a plain C interface the first time a kernel is launched, and
-loads it with ``ctypes``:
+loads it with ``ctypes``. Each source compiles in its own ``nvcc`` process,
+all started together, and one more links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/mcray_tpu_torch/libmcray_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -I csrc -c csrc/<name>.cu -o <name>.o   (each, in parallel)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o build/mcray_tpu_torch/libmcray_<hash>.so *.o
 
 ``-fmad=false`` keeps every multiply and add separately rounded, as plain
 PyTorch on CUDA computes them (one op per kernel, no contraction), so the
@@ -32,18 +34,17 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "mcray_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 # C signatures of the entry points (all return cudaError_t as int; the last
 # argument is the CUDA stream)
 SIGNATURES = {
     "mcray_intersect_closest": [P, I, P, I, P, P, P],
+    "mcray_intersect_listed": [P, I, I, P, P, P, I, P, P, P, I, P, P, P],
+    "mcray_intersect_culled": [P, I, I, P, I, I, P, P, P],
+    "mcray_intersect_staged": [P, I, I, P, I, I, P, P, I, P, P, P],
     "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, P, P],
     "mcray_postproc": [P, I, I, P, I, P, I, I, P, P],
     "mcray_scan_convert": [P, I, I, P, I, I, I, P, P],
@@ -69,6 +70,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmcray_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; raise with nvcc's stderr if one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+    return [err for _, err in outs]
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has none."""
@@ -76,16 +88,22 @@ def library() -> ctypes.CDLL:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
+        nvcc = _nvcc()
+        cu = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [str(tmp.with_name(f"{tmp.name}.{src.stem}.o")) for src in cu]
+        compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", obj]
+                    for src, obj in zip(cu, objs)]
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *objs]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
+        try:
+            logs = _run_all(compiles) + _run_all([link])
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+        cmds = "\n".join(f"# {' '.join(c)}" for c in [*compiles, link])
         path.with_suffix(".log").write_text(
-            f"# {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n{proc.stderr}"
+            f"{cmds}\n# {time.perf_counter() - t0:.1f} s\n{''.join(logs)}"
         )
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))

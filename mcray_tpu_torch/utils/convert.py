@@ -7,7 +7,9 @@ the ``(M, 8)`` material table, the two texture seeds
 of ``physics.draw_bounce_randoms`` — and returns the port's tensors on
 ``device``. With the same draws and seeds the port computes the
 reference's frame; with draws from its own generator it computes a
-statistically equivalent one (threefry is not ported).
+statistically equivalent one (threefry is not ported). A ``CulledTris``
+the reference packed (``ops/pallas/intersect.py:pack_tris_culled``) comes
+across as the port's ``clusters.CulledTris``, table for table.
 """
 
 from __future__ import annotations
@@ -15,10 +17,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import clusters
 from ..ops.geometry import triangle_soa
 
 
-def from_reference(pack_or_arrays, materials, volume_seeds, draws=None, *, device="cpu"):
+def culled_from_reference(packed, *, device="cpu") -> clusters.CulledTris:
+    """The port's ``CulledTris`` holding the tables of the reference's."""
+    tables = {f: getattr(packed, f) for f in clusters._ARRAY_FIELDS + clusters._STATIC_FIELDS}
+    return clusters.CulledTris.from_arrays(tables, tables, device)
+
+
+def from_reference(pack_or_arrays, materials, volume_seeds, draws=None, *, culled=None,
+                   device="cpu"):
     """``pack_or_arrays`` is a ScenePack (of either package) or a dict with
     its fields: tris, tri_mesh_id, mesh_mat_inside, mesh_mat_outside,
     mesh_is_vascular, spacing, starting_material, transducer_position and
@@ -26,7 +36,8 @@ def from_reference(pack_or_arrays, materials, volume_seeds, draws=None, *, devic
     triangles as a (9, T) v0/e1/e2 SoA), ``materials``, ``spacing``,
     ``starting_material`` (int), ``position``, ``angles``, ``seeds`` (a (2,)
     int64 tensor kept on the CPU: the kernels read it on the host) and, if
-    given, ``draws`` (dict of (D, N) float32 tensors)."""
+    given, ``draws`` (dict of (D, N) float32 tensors) and ``culled`` (the
+    reference's ``CulledTris`` as the port's)."""
     src = pack_or_arrays
     get = src.__getitem__ if isinstance(src, dict) else lambda k: getattr(src, k)
 
@@ -50,4 +61,6 @@ def from_reference(pack_or_arrays, materials, volume_seeds, draws=None, *, devic
     }
     if draws is not None:
         out["draws"] = {k: tensor(v, torch.float32) for k, v in draws.items()}
+    if culled is not None:
+        out["culled"] = culled_from_reference(culled, device=device)
     return out

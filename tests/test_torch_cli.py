@@ -28,3 +28,15 @@ def test_render_command_writes_the_frame(tmp_path, capsys):
     assert summary["device"] == "cpu" and summary["rays_per_s"] > 0
     # PNG with pillow, else the PGM fallback of image_io.save_png
     assert out.exists() or (tmp_path / "frame.png.pgm").exists()
+
+
+@pytest.mark.parametrize("mode", ["culled", "grouped"])
+def test_render_command_intersect_mode(tmp_path, capsys, mode):
+    argv = [SPHERE_SCENE, "--elements", "16", "--samples", "2", "--intersect-mode", mode,
+            "--intersect-tile-r", "256", "--out", str(tmp_path / "frame.png")]
+    if mode == "grouped":
+        with pytest.raises(NotImplementedError, match="grouped"):
+            cli.main(argv)
+        return
+    assert cli.main(argv) == 0
+    assert "intersect culled" in capsys.readouterr().out.splitlines()[0]

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain versions, on an NVIDIA GPU.
+"""The CUDA kernels against their plain versions, on an NVIDIA GPU.
 
 These tests need the card and the CUDA toolkit (the kernels are built with
 nvcc at first use); without a GPU they skip. They import no JAX, so they
@@ -6,10 +6,11 @@ also run where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerances are those of chip_smoke.py: the closest hit bitwise (FMA
-contraction is off in the kernels, and plain PyTorch on CUDA rounds every
-op), the march at rtol 1e-4 / atol 1e-5, the postproc at 1e-5 / 1e-6 and
-the scan conversion at 1e-6 / 1e-6.
+Tolerances are those of chip_smoke.py: the closest hits (K1, and the
+cluster kernels K5 listed, K6 culled, K7 staged) bitwise in t and winning
+index (FMA contraction is off in the kernels, and plain PyTorch on CUDA
+rounds every op), the march at rtol 1e-4 / atol 1e-5, the postproc at
+1e-5 / 1e-6 and the scan conversion at 1e-6 / 1e-6.
 """
 
 import numpy as np
@@ -19,8 +20,9 @@ import torch
 from _torch_port import SPHERE_SCENE, random_segments, random_triangles, to_torch
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models.simulator import Simulator
-from mcray_tpu_torch.ops import geometry, imaging
-from mcray_tpu_torch.ops.cuda import intersect, march, postproc, scanconv
+from mcray_tpu_torch.ops import clusters, geometry, imaging
+from mcray_tpu_torch.ops.cuda import (intersect, intersect_culled, intersect_listed,
+                                      intersect_staged, march, postproc, scanconv)
 from mcray_tpu_torch.scene.compile import load_and_compile
 
 pytestmark = pytest.mark.cuda
@@ -45,6 +47,58 @@ def test_intersect_kernel_matches_plain(cuda):
     assert intersect.launches == before + 1
     assert bool((t_p < 1.5).any())
     assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+
+
+def _cluster_cases(cuda):
+    """(name, rays (6, N)) on the card: the sphere's bounce-0 rays (1,024,
+    two 512-ray packets), its first 1,000 bounce-1 rays with every 7th
+    parked dead (a ragged last packet), and 600 all-dead rays."""
+    pack = load_and_compile(SPHERE_SCENE)
+    cfg = small_test_config(transducer_elements=256, samples_per_element=4)
+    rays = Simulator(pack, cfg, device=cuda, use_culled_intersect=False).render_frame(0)[
+        "segments"]["rays"]
+    ragged = rays[1][:, :1000].clone()
+    ragged[0:3, ::7], ragged[3:6, ::7] = 1e9, 0.0
+    dead = torch.cat([torch.full((3, 600), 1e9), torch.zeros((3, 600))]).to(cuda)
+    return pack, [("sphere bounce 0", rays[0]), ("ragged", ragged), ("all dead", dead)]
+
+
+@pytest.mark.parametrize("mode", ["listed", "culled", "staged"])
+def test_cluster_kernels_match_plain(cuda, mode):
+    pack, cases = _cluster_cases(cuda)
+    tile_t = 128 if mode == "listed" else 256
+    packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
+                                       sort_origin=pack.transducer_position, tile_t=tile_t,
+                                       device=cuda)
+    tri_soa = geometry.triangle_soa(to_torch(pack.tris)).to(cuda)
+    mod = {"listed": intersect_listed, "culled": intersect_culled, "staged": intersect_staged}[mode]
+    closest = getattr(mod, f"intersect_closest_{mode}")
+    for name, rays in cases:
+        o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, 512)
+        before = mod.launches
+        if mode == "listed":
+            lists = clusters.packet_cluster_lists(o, s, packed, 512)
+            live = torch.abs(s).sum(dim=1) > 0
+            t0 = torch.where(live, geometry.NO_HIT_T, 0.0)
+            i0 = torch.zeros_like(t0, dtype=torch.int32)
+            t_k, i_k = mod.listed_best(padded, *lists, t0, i0, packed)
+            t_p, i_p = mod.listed_best_plain(padded, *lists, t0, i0, packed)
+        else:
+            best, plain = ((mod.culled_best, mod.culled_best_plain) if mode == "culled"
+                           else (mod.staged_best, mod.staged_best_plain))
+            t_k, i_k = best(padded, packed, 512)
+            t_p, i_p = plain(padded, packed, 512)
+        assert mod.launches == before + 1, name
+        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
+        # hit and t equal the brute kernel's
+        got = closest(rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, tile_r=512)
+        bt, bi = intersect.intersect_best(rays.contiguous(), tri_soa)
+        assert torch.equal(got["hit"], bt < 1.5), name
+        assert torch.equal(got["t"], bt), name
+        if name == "all dead":
+            assert not bool(got["hit"].any())
+        else:
+            assert int(got["hit"].sum()) > 20, name
 
 
 def test_frame_kernels_match_plain(cuda):

@@ -1,0 +1,137 @@
+"""The plain versions of K5 (listed), K6 (culled) and K7 (staged) against
+the reference's Pallas kernels in interpret mode, and against the port's
+brute closest hit.
+
+``intersect_closest_{listed,culled,staged}(..., interpret=True)`` runs the
+reference TPU kernels on the CPU, as ``tests/test_pallas_intersect.py``
+does. Hit/miss must be equal. t is formula-identical up to XLA's FMA
+contraction: rtol 1e-5, atol 1e-7 (the note of test_torch_intersect.py).
+Where the winning t is unique the winner must be the same triangle (equal
+mesh id and oriented normal); on an exact tie the cluster kernels keep the
+first cluster they visit, so only hit and t are compared there.
+
+Inside the port, every cluster path must give the brute plain version's
+hit and t bitwise: skips and early stops drop only clusters that could at
+best tie, and a strict ``<`` never takes a tie. The CUDA kernels
+themselves are held against these plain versions on the card
+(chip_smoke.py, tests/test_torch_cuda.py).
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import SPHERE_SCENE, random_segments, random_triangles, to_np, to_torch
+from mcray_tpu.ops.bvh import build_bvh as ref_build_bvh
+from mcray_tpu.ops.pallas import intersect as ref
+from mcray_tpu_torch.config import small_test_config
+from mcray_tpu_torch.models.simulator import Simulator
+from mcray_tpu_torch.ops import clusters, geometry
+from mcray_tpu_torch.ops.cuda import intersect_culled, intersect_listed, intersect_staged
+from mcray_tpu_torch.scene.compile import load_and_compile
+
+TILE_R = 128
+MODES = {
+    "listed": (intersect_listed.intersect_closest_listed, ref.intersect_closest_listed, {}),
+    "listed-2pass": (intersect_listed.intersect_closest_listed, ref.intersect_closest_listed,
+                     {"passes": 2, "front_k": 2}),
+    "culled": (intersect_culled.intersect_closest_culled, ref.intersect_closest_culled, {}),
+    "staged": (intersect_staged.intersect_closest_staged, ref.intersect_closest_staged, {}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _case(case):
+    """(tris, mesh ids, probe position, origins, segments) as numpy."""
+    if case == "sphere":
+        pack = load_and_compile(SPHERE_SCENE)
+        cfg = small_test_config(transducer_elements=32, samples_per_element=2)
+        rays = Simulator(pack, cfg, use_culled_intersect=False).render_frame(4)["segments"]["rays"]
+        q = to_np(torch.cat([rays[0], rays[1]], dim=1)).T  # bounces 0 and 1: 128 rays
+        return pack.tris, pack.tri_mesh_id, pack.transducer_position, q[:, :3], q[:, 3:]
+    tris, mid = random_triangles(np.random.default_rng(5), 900)
+    o, s = random_segments(np.random.default_rng(6), 150)  # 150 rays: a ragged last packet
+    if case == "dead":
+        o[:], s[:] = 1e9, 0.0
+    else:
+        o[::11], s[::11] = 1e9, 0.0  # parked dead rays among live ones
+    return tris, mid, np.array([0.0, -9.0, 0.0], np.float32), o, s
+
+
+def _packs(tris, mid, probe, mode):
+    tile_t = 128 if mode.startswith("listed") else 256
+    order = ref_build_bvh(tris).tri_order
+    want = ref.pack_tris_culled(tris, mid, order, sort_origin=probe, tile_t=tile_t)
+    got = clusters.pack_tris_culled(tris, mid, order, sort_origin=probe, tile_t=tile_t)
+    return want, got
+
+
+def _unique_winner(tris, o, s, t_best, hit):
+    """Rays whose best t no other triangle comes within 1e-5 (relative) of."""
+    tri_soa = geometry.triangle_soa(to_torch(tris))
+    t_all, ok = geometry._moller_trumbore(to_torch(o)[:, None], to_torch(s)[:, None], *(
+        tri_soa[i : i + 3].T[None] for i in (0, 3, 6)))
+    t_all = to_np(torch.where(ok, t_all, 2.0))
+    near = np.abs(t_all - t_best[:, None]) <= 1e-5 * t_best[:, None]
+    return hit & (near.sum(axis=1) == 1)
+
+
+@pytest.mark.parametrize("case", ["sphere", "random", "dead"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_cluster_plain_matches_pallas(mode, case):
+    tris, mid, probe, o, s = _case(case)
+    port_fn, ref_fn, kw = MODES[mode]
+    want_pack, pack = _packs(tris, mid, probe, mode)
+    want = {k: np.asarray(v) for k, v in ref_fn(
+        jnp.asarray(o), jnp.asarray(s), want_pack, interpret=True, tile_r=TILE_R, **kw).items()}
+    got = {k: to_np(v) for k, v in port_fn(to_torch(o), to_torch(s), pack, tile_r=TILE_R,
+                                           **kw).items()}
+    np.testing.assert_array_equal(got["hit"], want["hit"])
+    np.testing.assert_allclose(got["t"], want["t"], rtol=1e-5, atol=1e-7)
+    if case == "dead":
+        assert not got["hit"].any() and (got["mesh_id"] == -1).all()
+        return
+    assert got["hit"].sum() > 20
+    unique = _unique_winner(tris, o, s, got["t"], got["hit"])
+    assert unique.sum() > 20
+    np.testing.assert_array_equal(got["mesh_id"][unique], want["mesh_id"][unique])
+    np.testing.assert_allclose(got["normal"][unique], want["normal"][unique], atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["sphere", "random"])
+@pytest.mark.parametrize("mode", list(MODES) + ["listed-frustum", "listed-hier", "listed-sorted"])
+def test_cluster_plain_matches_port_brute(mode, case):
+    tris, mid, probe, o, s = _case(case)
+    _, pack = _packs(tris, mid, probe, mode)
+    if mode in ("listed-frustum", "listed-hier"):
+        port_fn, kw = intersect_listed.intersect_closest_listed, {"list_method": mode[7:]}
+    else:
+        port_fn, _, kw = MODES[mode.replace("-sorted", "")]
+    fn = functools.partial(port_fn, tile_r=TILE_R, **kw)
+    o_t, s_t = to_torch(o), to_torch(s)
+    if mode == "listed-sorted":
+        got = clusters.intersect_sorted(fn, o_t, s_t, pack)
+    else:
+        got = fn(o_t, s_t, pack)
+    best_t, _ = geometry.closest_hit(o_t, s_t, geometry.triangle_soa(to_torch(tris)))
+    assert int(got["hit"].sum()) > 20
+    assert torch.equal(got["hit"], best_t < 1.5)
+    assert torch.equal(got["t"], best_t)
+
+
+def test_wrappers_run_plain_on_cpu_without_counting():
+    tris, mid, probe, o, s = _case("random")
+    _, pack = _packs(tris, mid, probe, "listed")
+    _, _, rays = clusters.pad_rays(to_torch(o), to_torch(s), TILE_R)
+    before = intersect_listed.launches
+    lists = clusters.packet_cluster_lists(rays[0:3].T, rays[3:6].T, pack, TILE_R)
+    t0 = torch.full((rays.shape[1],), geometry.NO_HIT_T)
+    i0 = torch.zeros(rays.shape[1], dtype=torch.int32)
+    got = intersect_listed.listed_best(rays, *lists, t0, i0, pack)
+    want = intersect_listed.listed_best_plain(rays, *lists, t0, i0, pack)
+    assert intersect_listed.launches == before
+    assert got[1].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

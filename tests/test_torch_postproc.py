@@ -5,11 +5,14 @@ fused kernel on the CPU; ``imaging.envelope(imaging.convolve_psf(rf))`` is
 the reference's jnp form, whose semantics K3 follows. Same taps, same
 summation order, same closed-form envelope: rtol 1e-5, atol 1e-6.
 
-On a sparse RF image the reference's two forms disagree with each other:
-where the convolved column holds two equal values after a rise (a plateau
-peak), ``imaging.envelope`` puts the peak at the plateau's first row and
-the Pallas kernel does not (ROADMAP queue 3). The sparse case is therefore
-held against the jnp form; the dense cases against both.
+On a sparse RF image the reference's two forms disagree with each other
+(ROADMAP, reference-side defects): at a few cells where the jnp-convolved
+column holds a plateau after a rise, the Pallas kernel's fused output
+differs from ``imaging.envelope``. The port follows ``imaging.envelope``,
+which documents the C++ peak walk it unrolls (``imaging.py:247-257``): a
+peak fires at row i iff x[i-1] < x[i] >= x[i+1], so on a plateau at its
+first row. The sparse case is therefore held against the jnp form, the
+dense cases against both, and a hand-built plateau column pins the rule.
 """
 
 import jax
@@ -57,6 +60,24 @@ def test_postproc_plain_matches_jnp(rng, sparse):
         to_np(imaging.envelope(to_torch(np.asarray(conv)))), np.asarray(env), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(
         to_np(postproc.postproc_cuda(to_torch(rf), cfg)), np.asarray(env), rtol=1e-5, atol=1e-6)
+
+
+def test_plateau_peak_follows_jnp_envelope():
+    """Plateaus after a rise (2, 2 and 3, 3, 3): the peak is the plateau's
+    first row, rows before the first peak lerp from the raw first row, and
+    rows after the last peak keep their raw values."""
+    cfg = SimConfig()
+    col = np.array([0.0, 0.5, 2.0, 2.0, 1.0, 0.25, 3.0, 3.0, 3.0, 0.5, 0.1, 0.0], np.float32)
+    rf = np.tile(col[:, None], (1, 4))  # below the PSF span: postproc is the envelope alone
+    want = np.array([0.0, 1.0, 2.0, 2.25, 2.5, 2.75, 3.0, 3.0, 3.0, 0.5, 0.1, 0.0], np.float32)
+    ref_env = np.asarray(ref_imaging.envelope(jnp.asarray(rf)))
+    np.testing.assert_array_equal(ref_env[:, 0], want)
+    np.testing.assert_array_equal(to_np(imaging.envelope(to_torch(rf))), ref_env)
+    np.testing.assert_array_equal(to_np(postproc.postproc_cuda(to_torch(rf), cfg)), ref_env)
+    # fed the plateau directly, the reference's Pallas kernel applies the same rule
+    np.testing.assert_allclose(
+        np.asarray(convolve_envelope_pallas(jnp.asarray(rf), cfg, interpret=True)), ref_env,
+        rtol=1e-6)
 
 
 def test_unported_modes_raise():

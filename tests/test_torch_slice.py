@@ -3,7 +3,10 @@
 ``mcray_tpu.models.simulator.render`` with its CPU defaults (jnp brute
 intersect, jnp scatter march, jnp postproc, map_coordinates) renders the
 sphere under ``small_test_config()``; the port's ``render`` gets the same
-draws and texture seeds and runs its kernels' plain versions.
+draws and texture seeds and runs its kernels' plain versions. The listed
+frame does the same through the reference's default large-scene closest
+hit: its listed Pallas kernel in interpret mode on 512-ray packets and
+128-triangle clusters, against the port's listed path on the same packing.
 
 Discrete outputs (segment validity and media ids) must be equal path by
 path. One mechanism is allowed to break that, and each instance is checked:
@@ -33,10 +36,13 @@ import torch
 from _torch_port import SPHERE_SCENE, reference_draws, to_np
 from mcray_tpu.config import small_test_config
 from mcray_tpu.models import simulator as ref_sim
+from mcray_tpu.ops import geometry as ref_geometry
 from mcray_tpu.ops import imaging as ref_imaging
 from mcray_tpu.ops import texture as ref_texture
+from mcray_tpu.ops.pallas.intersect import intersect_closest_pallas, pack_tris_culled
 from mcray_tpu.scene.compile import load_and_compile
 from mcray_tpu_torch.models import simulator
+from mcray_tpu_torch.ops import clusters, geometry
 from mcray_tpu_torch.ops.cuda.scanconv import pack_scan_maps
 from mcray_tpu_torch.utils.convert import from_reference
 
@@ -51,9 +57,10 @@ def reference_setup():
     return cfg, pack
 
 
-def _reference_frame(cfg, pack, seed):
+def _reference_frame(cfg, pack, seed, **trace_kw):
     """The reference frame for ``seed`` and its segment tensor, from one
-    jitted program (as the reference's Simulator runs it)."""
+    jitted program (as the reference's Simulator runs it); ``trace_kw``
+    choose its closest hit."""
     scene = {k: jnp.asarray(v) for k, v in pack.trace_tables().items()}
     args = (jnp.asarray(pack.materials), jnp.asarray(pack.transducer_position),
             jnp.asarray(pack.transducer_angles), scene, jnp.asarray(pack.spacing),
@@ -63,8 +70,9 @@ def _reference_frame(cfg, pack, seed):
 
     @jax.jit
     def frame(key):
-        segments = ref_sim.trace_paths(jax.random.fold_in(key, 0), *args, cfg)
-        out = ref_sim.render(key, *args, volume, (jnp.asarray(maps[0]), jnp.asarray(maps[1])), cfg)
+        segments = ref_sim.trace_paths(jax.random.fold_in(key, 0), *args, cfg, **trace_kw)
+        out = ref_sim.render(key, *args, volume, (jnp.asarray(maps[0]), jnp.asarray(maps[1])), cfg,
+                             **trace_kw)
         return segments, {k: out[k] for k in ("rf_raw", "bmode")}
 
     segments, images = frame(jax.random.PRNGKey(seed))
@@ -95,16 +103,17 @@ def _grazes_an_edge(tris, ray, tol=1e-6) -> bool:
     return bool(np.any(ok & (t > 0) & (t < 1) & (np.abs(margin) < tol)))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_render_matches_reference(reference_setup, seed):
-    cfg, pack = reference_setup
-    ref_segments, ref_frame, seeds, maps = _reference_frame(cfg, pack, seed)
+def _check_frame(cfg, pack, seed, ref_trace_kw=None, port_trace_kw=None):
+    """Render ``seed`` in both packages and hold the port's frame to the
+    reference's under the edge-grazing rule of the module docstring."""
+    ref_segments, ref_frame, seeds, maps = _reference_frame(cfg, pack, seed, **(ref_trace_kw or {}))
     n = cfg.transducer_elements * cfg.samples_per_element
     state = from_reference(pack, pack.materials, seeds, reference_draws(seed, n, cfg.max_depth))
     table = pack_scan_maps(maps[0], maps[1], cfg.rf_rows, cfg.rf_cols)
     out = simulator.render(
         state["draws"], state["seeds"], state["materials"], state["position"], state["angles"],
         state["scene"], state["spacing"], state["starting_material"], torch.from_numpy(table), cfg,
+        **(port_trace_kw or {}),
     )
     segments = {k: to_np(v) for k, v in out["segments"].items()}
 
@@ -140,6 +149,64 @@ def test_render_matches_reference(reference_setup, seed):
         rtol=1e-4, atol=1e-5,
     )
     assert pix_ok.mean() > 0.8
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_render_matches_reference(reference_setup, seed):
+    cfg, pack = reference_setup
+    _check_frame(cfg, pack, seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_listed_render_matches_reference(reference_setup, seed):
+    cfg, pack = reference_setup
+    order = load_and_compile(SPHERE_SCENE, cfg, with_bvh=True).bvh.tri_order
+    args = (pack.tris, pack.tri_mesh_id, order)
+    kw = {"sort_origin": pack.transducer_position, "tile_t": 128}
+    _check_frame(
+        cfg, pack, seed,
+        ref_trace_kw={"culled_tris": (pack_tris_culled(*args, **kw), "listed"),
+                      "intersect_tile_r": 512, "intersect_interpret": True},
+        port_trace_kw={"culled_tris": (clusters.pack_tris_culled(*args, **kw), "listed"),
+                       "intersect_tile_r": 512},
+    )
+
+
+def test_edge_grazing_ray_splits_the_reference(reference_setup):
+    """The path that diverges under seed 1 (path 51, bounce 1) grazes the
+    shared edge of two sphere triangles. On that ray the reference decides
+    differently by execution mode: jitted (XLA contracts Möller–Trumbore's
+    multiply-adds into FMAs) it hits triangle 1032, as its Pallas kernel in
+    interpret mode does; op by op (``jax.disable_jit``) it misses 1032 and
+    hits triangle 10 further on. The port, which rounds every op, decides as
+    the reference's op-by-op mode does, bitwise."""
+    cfg, pack = reference_setup
+    n = cfg.transducer_elements * cfg.samples_per_element
+    state = from_reference(pack, pack.materials, np.zeros(2), reference_draws(1, n, cfg.max_depth))
+    segments = simulator.trace_paths(
+        state["draws"], state["materials"], state["position"], state["angles"], state["scene"],
+        state["spacing"], state["starting_material"], cfg)
+    ray = to_np(segments["rays"][1][:, 51])
+    assert _grazes_an_edge(pack.tris, ray)
+    o, s = jnp.asarray(ray[None, :3]), jnp.asarray(ray[None, 3:])
+    tris, mid = jnp.asarray(pack.tris), jnp.asarray(pack.tri_mesh_id)
+
+    def decide(out):
+        return bool(out["hit"][0]), float(out["t"][0]), int(out["mesh_id"][0])
+
+    jitted = decide(jax.jit(ref_geometry.intersect_closest)(o, s, tris, mid))
+    with jax.disable_jit():
+        op_by_op = decide(ref_geometry.intersect_closest(o, s, tris, mid))
+    pallas = decide(intersect_closest_pallas(o, s, tris, mid, interpret=True))
+    best_t, best_idx = geometry.closest_hit(torch.as_tensor(ray[None, :3]),
+                                            torch.as_tensor(ray[None, 3:]), state["scene"]["tri_soa"])
+    port = (bool(best_t[0] < 1.5), float(best_t[0]), int(pack.tri_mesh_id[int(best_idx[0])]))
+
+    assert port == op_by_op
+    assert int(best_idx[0]) == 10
+    assert jitted[0] and pallas[0] and jitted[1] < op_by_op[1]  # the nearer, grazed triangle
+    np.testing.assert_allclose(pallas[1], jitted[1], rtol=1e-6)
+    assert jitted != op_by_op
 
 
 def test_port_imports_no_jax(tmp_path):
