@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA kernels from mcray_tpu_torch/csrc (one nvcc per
+Builds the nine CUDA kernels from mcray_tpu_torch/csrc (one nvcc per
 source, all at once) and drives the port's paths at SimConfig() (512
 elements x 5 paths x 10 bounces, 465 x 512 RF, 400 x 500 B-mode), each
 with the launch counts set to 0 just before it and read just after:
@@ -13,14 +13,22 @@ with the launch counts set to 0 just before it and read just after:
   few requests (poses, seeds, a compound);
 - the sphere on the brute closest hit (K1);
 - the 123,224-triangle ircad_hd scene on its default (listed) set;
-- the culled (K6) and staged (K7) closest hits on both scenes.
+- the culled (K6) and staged (K7) closest hits on both scenes;
+- the differentiable material fit on the sphere in soft + trilinear mode:
+  the target frame, then 5 Adam steps of ``MaterialFitter`` on the doubled
+  LIVER attenuation, through K5, K2, K3, K4 forward and the march (K8) and
+  scan-conversion (K9) backward kernels.
 
 Every kernel is held against its plain PyTorch version at the shapes its
 path gave it (closest hits bitwise in t and slot, at every bounce; the
 cluster kernels' hit and t also against K1's bitwise), the CUDA path
-against the plain CPU path on a small config, and every frame's image is
-checked. Frames, stages and kernels (beside their plain versions) are
-timed with CUDA events.
+against the plain CPU path on a small config (the frame, and the loss and
+material gradient of one fit step), and every frame's image is checked.
+Frames, fit steps, stages and kernels (beside their plain versions and,
+where one PyTorch call computes the same function, beside that call) are
+timed with CUDA events; each kernel's bound (the least time the card could
+take: bytes over 3.35 TB/s or operations over 67 TFLOP/s of plain f32,
+whichever is larger) is computed from the run's own inputs.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
@@ -31,6 +39,7 @@ device it fails at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -42,7 +51,8 @@ import torch
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models import simulator
 from mcray_tpu_torch.models.simulator import CLUSTER_INTERSECTS, Simulator
-from mcray_tpu_torch.ops import clusters
+from mcray_tpu_torch.models.trainer import MaterialFitter
+from mcray_tpu_torch.ops import clusters, imaging, physics
 from mcray_tpu_torch.ops import cuda as kernels
 from mcray_tpu_torch.ops.cuda import (_build, intersect, intersect_culled, intersect_listed,
                                       intersect_staged, march, postproc, scanconv)
@@ -54,12 +64,39 @@ SPHERE_SCENE = os.path.join(REPO, "assets", "sphere", "sphere.scene")
 IRCAD_HD_SCENE = os.path.join(REPO, "assets", "ircad11_hd", "santi-liver-hd.scene")
 # the ircad_hd phantom meshes are generated here (git ignores build/)
 IRCAD_HD_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_hd")
-TIMED_FRAMES = {"sphere": 25, "sphere brute": 5, "ircad_hd": 10}
+TIMED_FRAMES = {"sphere": 15, "sphere brute": 5, "ircad_hd": 8}
+FIT_STEPS = 5
 TOLERANCES = {  # (rtol, atol) of kernel vs plain at the frame's shapes
     "march": (1e-4, 1e-5),
     "postproc": (1e-5, 1e-6),
     "scanconv": (1e-6, 1e-6),
+    # soft + trilinear: 8 corners and a sigmoid per step, expf differs by an ulp
+    "march soft+trilinear": (1e-4, 1e-5),
+    # sums of a few w * g terms in another order (the plain scatter-add uses atomics)
+    "scanconv_bwd": (1e-5, 1e-6),
 }
+# K8 sums up to ~466 steps per field in another order than the plain
+# version's row reduction: per field, max |kernel - plain| <= this x max |plain|
+MARCH_BWD_TOL = 1e-4
+# one fit step on the card against the CPU plain path (small config, same
+# draws): the loss, and the material gradient relative to its largest entry
+# (the trace's backward amplifies the ulp differences of exp/log/pow/sin
+# between the two devices; the reference's own kernel-vs-plain gradient
+# test allows 2e-3 in trilinear mode)
+FIT_LOSS_RTOL, FIT_GRAD_TOL = 1e-4, 5e-3
+
+# the card's published peaks (H100 SXM data sheet): device memory and plain
+# f32 outside the tensor cores, which is what every kernel here computes in
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# operation counts per unit of work, from the formulas in the sources
+OPS_MOLLER_TRUMBORE = 50          # per ray-triangle test (2 cross, 4 dot, 1 div, compares)
+OPS_HASH_PAIR = 40                # two lowbias32 hashes + two bitsum normals of one voxel
+OPS_MARCH_STEP = {False: OPS_HASH_PAIR + 30,            # nearest: index, gate, exp, accumulate
+                  True: 8 * (OPS_HASH_PAIR + 12) + 60}   # trilinear: 8 corners + weights
+OPS_MARCH_BWD_STEP = {False: OPS_HASH_PAIR + 60, True: 8 * (OPS_HASH_PAIR + 36) + 120}
+OPS_POSTPROC_CELL = 2 * (7 + 13) + 10   # the two tap sums + the envelope lerp
+OPS_SCANCONV_PIXEL = 11                 # 4 weight products, 4 multiplies, 3 adds
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "intersect": ("mcray_tpu_torch/csrc/intersect.cu", "mcray_tpu/ops/pallas/intersect.py:41"),
     "intersect_listed": ("mcray_tpu_torch/csrc/intersect_listed.cu",
@@ -71,6 +108,9 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "march": ("mcray_tpu_torch/csrc/march.cu", "mcray_tpu/ops/pallas/march.py:233"),
     "postproc": ("mcray_tpu_torch/csrc/postproc.cu", "mcray_tpu/ops/pallas/postproc.py:26"),
     "scanconv": ("mcray_tpu_torch/csrc/scanconv.cu", "mcray_tpu/ops/pallas/scanconv.py:447"),
+    "march_bwd": ("mcray_tpu_torch/csrc/march_bwd.cu", "mcray_tpu/ops/pallas/march.py:334"),
+    "scanconv_bwd": ("mcray_tpu_torch/csrc/scanconv_bwd.cu",
+                     "mcray_tpu/ops/pallas/scanconv.py:482"),
 }
 CLUSTER_KERNEL = {"listed": "intersect_listed", "culled": "intersect_culled",
                   "staged": "intersect_staged"}
@@ -117,7 +157,7 @@ def check_bmode(name: str, sim, bmode: torch.Tensor) -> None:
     """Finite, non-negative B-mode of the right shape: zero outside the fan,
     texture inside."""
     cfg = sim.cfg
-    table = sim.scan_table[:, :, : cfg.bmode_cols]
+    table = sim.scan_maps.table[:, :, : cfg.bmode_cols]
     outside = ((table[:, 1] == 0) & (table[:, 2] == 0)) | ((table[:, 4] == 0) & (table[:, 5] == 0))
     if tuple(bmode.shape) != (cfg.bmode_rows, cfg.bmode_cols):
         raise AssertionError(f"{name}: bmode shape {tuple(bmode.shape)}")
@@ -213,12 +253,240 @@ def time_stages(name: str, sim, out) -> dict[str, float]:
             march.pack_segments(out["segments"], sim.materials, cfg, cfg.rf_cols),
             sim.seeds, cfg, cfg.rf_cols), 10),
         "postproc": cuda_ms(lambda: postproc.postproc_cuda(out["rf_raw"], cfg), 20),
-        "scanconv": cuda_ms(lambda: scanconv.scan_convert_cuda(out["rf_env"], sim.scan_table,
-                                                               cfg.bmode_cols), 20),
+        "scanconv": cuda_ms(lambda: scanconv.scan_convert_cuda(out["rf_env"], sim.scan_maps), 20),
     }
     print(f"  {name} stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
           + " (march includes pack_segments)")
     return stage_ms
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes over the card's memory rate
+    and operations over its plain-f32 rate."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def brute_bound(bounce_rays, tri_soa) -> tuple[float, str]:
+    """K1 per launch, mean over the bounces: every live ray (a parked dead
+    ray has a zero segment and needs no test) against every triangle."""
+    n_b = n_o = 0
+    for rays in bounce_rays:
+        live = int((rays[3:6].abs().sum(dim=0) > 0).sum())
+        n_b += nbytes(rays, tri_soa) + 8 * rays.shape[1]
+        n_o += live * tri_soa.shape[1] * OPS_MOLLER_TRUMBORE
+    return bound(n_b / len(bounce_rays), n_o / len(bounce_rays))
+
+
+def cluster_bound(sim, calls) -> tuple[float, str]:
+    """A cluster kernel per launch, mean over the bounces, for this run's
+    rays: a packet needs the clusters whose earliest slab entry (the exact
+    prepass key) lies before the packet's final worst t, each tested by the
+    packet's live rays and read once."""
+    packed, mode = sim.culled_tris
+    tile_r = sim.intersect_tile_r
+    n_b = n_o = 0
+    for kernel, _, args in calls:
+        padded = args[0]
+        best_t, _ = kernel(*args)
+        o, s = padded[0:3].T.contiguous(), padded[3:6].T.contiguous()
+        counts, ids, keys = (args[1:4] if mode == "listed"
+                             else clusters.packet_cluster_lists(o, s, packed, tile_r))
+        live = (s.abs().sum(dim=1) > 0).reshape(-1, tile_r)
+        worst = torch.where(live, best_t.reshape(-1, tile_r), 0.0).amax(dim=1)
+        slot = torch.arange(keys.shape[1], device=keys.device)[None, :]
+        need = (slot < counts[:, None]) & (keys < worst[:, None])
+        n_o += int((need.sum(dim=1) * live.sum(dim=1)).sum()) * packed.tile_t * OPS_MOLLER_TRUMBORE
+        n_b += (nbytes(padded) + 8 * padded.shape[1]
+                + int(torch.unique(ids[need]).numel()) * clusters.SOA_ROWS * packed.tile_t * 4)
+        if mode == "listed":
+            n_b += nbytes(counts, ids, keys)
+    return bound(n_b / len(calls), n_o / len(calls))
+
+
+def matched_steps(soa: torch.Tensor, cfg, n_cols: int) -> int:
+    """March steps of this SoA that land inside the time window: the work
+    the march kernels need for these segments."""
+    t0, steps = soa[:, march.F_T0, :n_cols], soa[:, march.F_STEPS, :n_cols]
+    valid = soa[:, march.F_VALID, :n_cols] > 0.5
+    in_window = torch.ceil((float(cfg.max_travel_time_us) - t0) / cfg.march_dt_us).clamp(min=0.0)
+    return int((torch.minimum(steps, in_window) * valid).sum())
+
+
+def grid_sample_call(sim):
+    """The one PyTorch call that computes K4's function: ``grid_sample`` over
+    the polar->Cartesian maps (its coordinate normalisation adds a rounding,
+    so it is a yardstick, not a check). Returns a function of the RF image."""
+    cfg = sim.cfg
+    map_row, map_col = (torch.from_numpy(m).to(sim.device) for m in imaging.scan_conversion_maps(cfg))
+    grid = torch.stack([2.0 * map_col / (cfg.rf_cols - 1) - 1.0,
+                        2.0 * map_row / (cfg.rf_rows - 1) - 1.0], dim=-1)[None]
+    return lambda rf: torch.nn.functional.grid_sample(
+        rf[None, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True)[0, 0]
+
+
+def check_march_bwd(got: torch.Tensor, want: torch.Tensor) -> float:
+    """K8 against its plain version, field by field (all 16)."""
+    worst = 0.0
+    for f in range(march.N_FIELDS):
+        err = float((got[:, f] - want[:, f]).abs().max())
+        scale = float(want[:, f].abs().max())
+        if err > MARCH_BWD_TOL * scale:
+            raise AssertionError(f"march_bwd field {f}: max abs err {err} vs max |plain| {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    zero = [march.F_T0, march.F_STEPS, march.F_B_ROW, march.F_VALID]
+    if float(got[:, zero].abs().max()) != 0.0 or not float(got.abs().max()) > 0.0:
+        raise AssertionError("march_bwd: a piecewise-constant field has a gradient, or all are zero")
+    print(f"  march_bwd: 16 fields, worst max abs err / max |plain| {worst:.3e} "
+          f"(limit {MARCH_BWD_TOL}) ok")
+    return float((got - want).abs().max())
+
+
+def profile_fit_steps(fit, draws, step_ms: float, n: int = 3) -> None:
+    """The device's view of ``n`` fit steps by ``torch.profiler``: busy time
+    (the union of the device events' intervals) per step, its share of the
+    unprofiled median step ``step_ms``, device operations per step and the
+    largest kernels. Raises if the profiler saw no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fit.step(draws)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise AssertionError("fit step profile: the profiler recorded no device event")
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name: dict[str, float] = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    busy_ms = busy / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"  fit step profile over {n} steps: device busy {busy_ms:.3f} ms per step "
+          f"({busy_ms / step_ms:.1%} of the unprofiled median step, idle "
+          f"{1 - busy_ms / step_ms:.1%}); {len(device) / n:.0f} device operations per step")
+    for name, us in top:
+        print(f"    {us / 1e3 / n:8.3f} ms per step  {name[:90]}")
+
+
+def fit_phase(pack, smi: str) -> dict:
+    """The differentiable material fit at full width on the card: the target
+    frame, FIT_STEPS Adam steps on the doubled LIVER attenuation with fixed
+    randomness, the launch counts of that run, then step timings."""
+    cfg = SimConfig(soft_scattering=True, trilinear_texture=True)
+    sim = Simulator(pack, cfg, device="cuda", seed=0)
+    row, col = 3, physics.ATTENUATION  # LIVER, the box medium
+    draws = sim.draws(0)
+    with torch.no_grad():
+        frame = sim.render_frame(draws=draws)
+    check_bmode("fit target", sim, frame["bmode"])
+    perturbed = pack.materials.copy()
+    perturbed[row, col] *= 2.0
+
+    def fitter():
+        return MaterialFitter.from_simulator(sim, perturbed, frame["bmode"], trainable=(col,),
+                                             trainable_rows=[row], fixed_frame=draws)
+
+    fit = fitter()
+    print(f"[fit] sphere, soft + trilinear, {FIT_STEPS} steps on materials[{row}, {col}] "
+          f"(true {pack.materials[row, col]:.4g}, start {perturbed[row, col]:.4g})")
+    kernels.reset_launch_counts()
+    losses, grads = [], []
+    for _ in range(FIT_STEPS):
+        losses.append(fit.step(draws))
+        grads.append(fit.last_grad.clone())
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    per_step = {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1, "scanconv": 1,
+                "march_bwd": 1, "scanconv_bwd": 1}
+    want = {k: per_step.get(k, 0) * len(losses) for k in counts}
+    print(f"  launches over {len(losses)} steps: {counts}")
+    if counts != want:
+        raise AssertionError(f"fit launch counts {counts} != {want}")
+    fitted = float(fit.state.materials[row, col])
+    print(f"  losses {[f'{v:.6g}' for v in losses]}; fitted {fitted:.5g}; "
+          f"gradient on the trained entry {[f'{float(g[row, col]):.4g}' for g in grads]}")
+    off = torch.ones_like(grads[0], dtype=torch.bool)
+    off[row, col] = False
+    for g in grads:
+        if not bool(torch.isfinite(g).all()) or float(g[row, col]) == 0.0 or bool((g[off] != 0).any()):
+            raise AssertionError("fit gradient: not finite, zero on the trained entry, or "
+                                 "non-zero on a masked one")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fit losses {losses}: not finite, or the last is not below the first")
+    untouched = fit.state.materials.cpu().numpy()
+    untouched[row, col] = pack.materials[row, col]
+    if not (untouched == pack.materials).all():
+        raise AssertionError("the fit moved an untrained material entry")
+
+    # timing: whole steps, then forward and backward apart, on a fresh fitter
+    fit = fitter()
+    fit.step(draws)
+    step_ms, fwd_ms, bwd_ms = [], [], []
+    for _ in range(FIT_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fit.step(draws)
+        ev[1].record()
+        ev[1].synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    mats = fit.state.materials.requires_grad_(True)
+    for _ in range(FIT_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = fit.loss(mats, draws)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        ev[2].synchronize()
+        fwd_ms.append(ev[0].elapsed_time(ev[1]))
+        bwd_ms.append(ev[1].elapsed_time(ev[2]))
+    g_rf = torch.randn(frame["rf_raw"].shape, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(3))
+    pp_bwd = cuda_ms(lambda: postproc.postproc_bwd_plain(frame["rf_raw"], g_rf, cfg), 5)
+    print(f"  [{smi}] fit step: median {statistics.median(step_ms):.3f} ms "
+          f"(min {min(step_ms):.3f}, max {max(step_ms):.3f}) over {FIT_STEPS} steps; forward "
+          f"{statistics.median(fwd_ms):.3f} ms, backward {statistics.median(bwd_ms):.3f} ms; "
+          f"postproc backward (plain PyTorch autograd, no kernel) {pp_bwd:.3f} ms")
+    profile_fit_steps(fit, draws, statistics.median(step_ms))
+    return {"sim": sim, "frame": frame, "counts": counts, "steps": len(losses), "cfg": cfg}
+
+
+def fit_cuda_vs_cpu(pack) -> None:
+    """One fit step at a small soft + trilinear config with the same draws:
+    loss and material gradient on the card against the CPU plain path."""
+    small = small_test_config(soft_scattering=True, trilinear_texture=True)
+    cpu_sim = Simulator(pack, small, device="cpu", seed=5)
+    gpu_sim = Simulator(pack, small, device="cuda", seed=5)
+    draws = cpu_sim.draws(5)
+    perturbed = pack.materials.copy()
+    perturbed[3, physics.ATTENUATION] *= 2.0
+    result = {}
+    for name, sim in (("cpu", cpu_sim), ("cuda", gpu_sim)):
+        d = {k: v.to(sim.device) for k, v in draws.items()}
+        with torch.no_grad():
+            target = sim.render_frame(draws=d)["bmode"]
+        mats = torch.tensor(perturbed, device=sim.device, requires_grad=True)
+        loss = torch.mean((sim.render_frame(materials=mats, draws=d)["bmode"] - target) ** 2)
+        loss.backward()
+        result[name] = (float(loss.detach()), mats.grad.cpu())
+    (l_c, g_c), (l_g, g_g) = result["cpu"], result["cuda"]
+    scale = float(g_c.abs().max())
+    err = float((g_g - g_c).abs().max()) / scale
+    print(f"[cuda vs cpu] fit step, small soft + trilinear config: loss {l_g:.8g} vs {l_c:.8g}; "
+          f"material gradient max abs err / max |cpu| {err:.3e} (limits {FIT_LOSS_RTOL}, "
+          f"{FIT_GRAD_TOL})")
+    if not (abs(l_g - l_c) <= FIT_LOSS_RTOL * abs(l_c) and err <= FIT_GRAD_TOL
+            and bool(torch.isfinite(g_g).all()) and scale > 0):
+        raise AssertionError("the fit step on the card disagrees with the CPU plain path")
 
 
 def main() -> int:
@@ -296,6 +564,9 @@ def main() -> int:
     if served != want:
         raise AssertionError(f"request launch counts {served} != {want}")
 
+    # the fit path: target, FIT_STEPS steps, counts set to 0 just before them
+    fit = fit_phase(sphere, smi)
+
     # 3. every kernel against its plain version at its path's own inputs
     print("[kernels vs plain]")
     brute_rays = outs["sphere brute"]["segments"]["rays"]
@@ -320,15 +591,31 @@ def main() -> int:
         cluster_calls[name] = check_cluster_bounces(
             name, sims[name], outs[name]["segments"]["rays"], tri_soa[scene])
         errs[CLUSTER_KERNEL[sims[name].culled_tris[1]]] = 0.0
-    out = outs["sphere"]
+    out, maps = outs["sphere"], sim.scan_maps
     soa, rf_raw, rf_env = out["soa"], out["rf_raw"], out["rf_env"]
     errs["march"] = check_close("march", march.march_cuda(soa, sim.seeds, cfg, cfg.rf_cols),
                                 march.march_plain(soa, sim.seeds, cfg, cfg.rf_cols))
     errs["postproc"] = check_close("postproc", postproc.postproc_cuda(rf_raw, cfg),
                                    postproc.postproc_plain(rf_raw, cfg))
     errs["scanconv"] = check_close(
-        "scanconv", scanconv.scan_convert_cuda(rf_env, sim.scan_table, cfg.bmode_cols),
-        scanconv.scan_convert_plain(rf_env, sim.scan_table, cfg.bmode_cols))
+        "scanconv", scanconv.scan_convert_cuda(rf_env, maps),
+        scanconv.scan_convert_plain(rf_env, maps.table, cfg.bmode_cols))
+    # the fit path's kernels on the fit frame's SoA and seeded cotangents
+    fit_sim, fit_cfg = fit["sim"], fit["cfg"]
+    fit_soa = fit["frame"]["soa"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g_rf = torch.randn((cfg.rf_rows, cfg.rf_cols), device="cuda", generator=gen)
+    g_bm = torch.randn((cfg.bmode_rows, cfg.bmode_cols), device="cuda", generator=gen)
+    errs["march soft+trilinear"] = check_close(
+        "march soft+trilinear", march.march_forward(fit_soa, fit_sim.seeds, fit_cfg, cfg.rf_cols),
+        march.march_plain(fit_soa, fit_sim.seeds, fit_cfg, cfg.rf_cols))
+    errs["march_bwd"] = check_march_bwd(
+        march.march_backward(fit_soa, fit_sim.seeds, g_rf, fit_cfg),
+        march.march_bwd_plain(fit_soa, fit_sim.seeds, g_rf, fit_cfg))
+    errs["scanconv_bwd"] = check_close(
+        "scanconv_bwd",
+        scanconv.scan_convert_backward(g_bm, maps),
+        scanconv.scan_convert_bwd_plain(g_bm, maps.table, cfg.rf_rows, cfg.rf_cols))
 
     # 4. the whole CUDA path against the whole plain CPU path, same randomness
     small = small_test_config()
@@ -338,10 +625,10 @@ def main() -> int:
     on_gpu = simulator.render(
         {k: v.cuda() for k, v in draws.items()}, gpu_sim.seeds, gpu_sim.materials,
         gpu_sim.position, gpu_sim.angles, gpu_sim.scene, gpu_sim.spacing,
-        gpu_sim.starting_material, gpu_sim.scan_table, small, **gpu_sim.trace_kw)
+        gpu_sim.starting_material, gpu_sim.scan_maps, small, **gpu_sim.trace_kw)
     on_cpu = simulator.render(
         draws, cpu_sim.seeds, cpu_sim.materials, cpu_sim.position, cpu_sim.angles, cpu_sim.scene,
-        cpu_sim.spacing, cpu_sim.starting_material, cpu_sim.scan_table, small, **cpu_sim.trace_kw)
+        cpu_sim.spacing, cpu_sim.starting_material, cpu_sim.scan_maps, small, **cpu_sim.trace_kw)
     valid_equal = torch.equal(on_gpu["segments"]["valid"].cpu(), on_cpu["segments"]["valid"])
     rf_err = float((on_gpu["rf_raw"].cpu() - on_cpu["rf_raw"]).abs().max())
     bm_err = float((on_gpu["bmode"].cpu() - on_cpu["bmode"]).abs().max())
@@ -351,6 +638,7 @@ def main() -> int:
             and torch.allclose(on_gpu["rf_raw"].cpu(), on_cpu["rf_raw"], rtol=1e-4, atol=1e-5)
             and torch.allclose(on_gpu["bmode"].cpu(), on_cpu["bmode"], rtol=1e-4, atol=1e-5)):
         raise AssertionError("the CUDA path disagrees with the plain CPU path")
+    fit_cuda_vs_cpu(sphere)
 
     # 5. timing (CUDA events, after the warm-up above)
     print(f"[timing] {smi}")
@@ -374,14 +662,25 @@ def main() -> int:
             calls = cluster_calls[name]
             timed[scene][CLUSTER_KERNEL[sims[name].culled_tris[1]]] = (
                 lambda c=calls: [k(*a) for k, _, a in c], lambda c=calls: [p(*a) for _, p, a in c])
+    # the kernels' own wrappers (*_forward, *_backward), without the autograd
+    # Function around them: its host time would swamp a 10-microsecond kernel
     timed["sphere"].update({
-        "march": (lambda: march.march_cuda(soa, sim.seeds, cfg, cfg.rf_cols),
+        "march": (lambda: march.march_forward(soa, sim.seeds, cfg, cfg.rf_cols),
                   lambda: march.march_plain(soa, sim.seeds, cfg, cfg.rf_cols)),
-        "postproc": (lambda: postproc.postproc_cuda(rf_raw, cfg),
+        "postproc": (lambda: postproc.postproc_forward(rf_raw, cfg),
                      lambda: postproc.postproc_plain(rf_raw, cfg)),
-        "scanconv": (lambda: scanconv.scan_convert_cuda(rf_env, sim.scan_table, cfg.bmode_cols),
-                     lambda: scanconv.scan_convert_plain(rf_env, sim.scan_table, cfg.bmode_cols)),
+        "scanconv": (lambda: scanconv.scan_convert_forward(rf_env, maps),
+                     lambda: scanconv.scan_convert_plain(rf_env, maps.table, cfg.bmode_cols)),
+        "march soft+trilinear": (
+            lambda: march.march_forward(fit_soa, fit_sim.seeds, fit_cfg, cfg.rf_cols),
+            lambda: march.march_plain(fit_soa, fit_sim.seeds, fit_cfg, cfg.rf_cols)),
+        "march_bwd": (lambda: march.march_backward(fit_soa, fit_sim.seeds, g_rf, fit_cfg),
+                      lambda: march.march_bwd_plain(fit_soa, fit_sim.seeds, g_rf, fit_cfg)),
+        "scanconv_bwd": (
+            lambda: scanconv.scan_convert_backward(g_bm, maps),
+            lambda: scanconv.scan_convert_bwd_plain(g_bm, maps.table, cfg.rf_rows, cfg.rf_cols)),
     })
+    slow_plain = ("march soft+trilinear", "march_bwd")  # seconds per call: timed once
     per_call = {k: cfg.max_depth for k in CLUSTER_KERNEL.values()} | {"intersect": cfg.max_depth}
     ms = {"sphere": {}, "ircad_hd": {}}
     for scene, fns in timed.items():
@@ -390,11 +689,54 @@ def main() -> int:
             if plain_fn is None:
                 ms[scene][name] = (cuda_ms(kernel_fn, 3) / n, None)
             else:
-                ms[scene][name] = paired_ms(kernel_fn, plain_fn, n,
-                                            p_reps=1 if scene == "ircad_hd" else 3)
+                ms[scene][name] = paired_ms(
+                    kernel_fn, plain_fn, n,
+                    p_reps=1 if scene == "ircad_hd" or name in slow_plain else 3)
             k_ms, p_ms = ms[scene][name]
             plain = f"plain {p_ms:.4f} ms ({p_ms / k_ms:.1f}x)" if p_ms else "plain not timed"
             print(f"  {scene} {name}: kernel {k_ms:.4f} ms, {plain} per launch")
+
+    # the one PyTorch call that computes the same function, where there is one
+    grid_sample = grid_sample_call(sim)
+    transposed = torch.sparse_csr_tensor(
+        maps.row_ptr, maps.pixel, maps.weight, size=(cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols))
+    library_ms = {
+        "scanconv": cuda_ms(lambda: grid_sample(rf_env), 20),
+        "scanconv_bwd": cuda_ms(lambda: torch.mv(transposed, g_bm.reshape(-1)), 20),
+    }
+    gs_err = float((grid_sample(rf_env) - scanconv.scan_convert_forward(
+        rf_env, maps)).abs().max())
+    mv_err = float((torch.mv(transposed, g_bm.reshape(-1)).reshape(cfg.rf_rows, cfg.rf_cols)
+                    - scanconv.scan_convert_backward(g_bm, maps)).abs().max())
+    print(f"  library calls: grid_sample {library_ms['scanconv']:.4f} ms (max |diff| to K4 "
+          f"{gs_err:.3e}), sparse CSR mv {library_ms['scanconv_bwd']:.4f} ms (max |diff| to K9 "
+          f"{mv_err:.3e}); no single PyTorch call computes K1-K3, K5-K8")
+
+    # the least time the card could take for each kernel's work on this run's inputs
+    n_rf, n_bm = cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols
+    steps_frame, steps_fit = matched_steps(soa, cfg, cfg.rf_cols), matched_steps(
+        fit_soa, fit_cfg, cfg.rf_cols)
+    bounds = {
+        "intersect": brute_bound([brute_rays[d].contiguous() for d in range(cfg.max_depth)],
+                                 tri_soa["sphere"]),
+        "intersect_listed": cluster_bound(sims["sphere"], cluster_calls["sphere"]),
+        "intersect_culled": cluster_bound(sims["sphere culled"], cluster_calls["sphere culled"]),
+        "intersect_staged": cluster_bound(sims["sphere staged"], cluster_calls["sphere staged"]),
+        "march": bound(nbytes(soa) + 4 * n_rf, steps_frame * OPS_MARCH_STEP[False]),
+        "march soft+trilinear": bound(nbytes(fit_soa) + 4 * n_rf,
+                                      steps_fit * OPS_MARCH_STEP[True]),
+        "march_bwd": bound(2 * nbytes(fit_soa) + 4 * n_rf, steps_fit * OPS_MARCH_BWD_STEP[True]),
+        "postproc": bound(2 * 4 * n_rf, n_rf * OPS_POSTPROC_CELL),
+        # the remap and its transpose are functions of one image and the two
+        # f32 coordinate maps (out_rows, out_cols); the packed table and the CSR
+        # lists the kernels read are the port's own, larger, representations
+        "scanconv": bound(4 * n_rf + 2 * 4 * n_bm + 4 * n_bm, n_bm * OPS_SCANCONV_PIXEL),
+        "scanconv_bwd": bound(4 * n_bm + 2 * 4 * n_bm + 4 * n_rf, 2 * maps.pixel.numel()),
+    }
+    print(f"  march steps inside the window: frame {steps_frame}, fit frame {steps_fit}; "
+          f"transposed remap taps {maps.pixel.numel()}; bytes the scan kernels read beyond their "
+          f"bound's: table {nbytes(maps.table) - 2 * 4 * n_bm}, CSR lists "
+          f"{nbytes(maps.row_ptr, maps.pixel, maps.weight) - 2 * 4 * n_bm}")
 
     path_of = {"intersect": "sphere brute", "intersect_listed": "sphere",
                "intersect_culled": "sphere culled", "intersect_staged": "sphere staged",
@@ -402,12 +744,26 @@ def main() -> int:
     record = []
     for name, (src, replaces) in SOURCES.items():
         k_ms, p_ms = ms["sphere"][name]
+        # per run of the kernel's main path: one frame, or one fit step for K8
+        # and K9 (the fit run's count over the steps it ran, checked whole above)
+        fit_launches = fit["counts"][name] // fit["steps"]
+        launches = counts[path_of[name]][name] if name in path_of else fit_launches
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": counts[path_of[name]][name], "max_abs_err": errs[name],
-                 "ms": k_ms, "plain_ms": p_ms}
+                 "launches": launches, "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                 "library_ms": library_ms.get(name),
+                 "fit_step_launches": fit_launches}
         if name in ms["ircad_hd"]:
             entry["ircad_hd_ms"], entry["ircad_hd_plain_ms"] = ms["ircad_hd"][name]
+        if name == "march":  # the fit runs K2 in soft + trilinear mode: its own numbers
+            mode = "march soft+trilinear"
+            entry.update({"fit_mode_ms": ms["sphere"][mode][0],
+                          "fit_mode_plain_ms": ms["sphere"][mode][1],
+                          "fit_mode_bound_ms": bounds[mode][0], "fit_mode_bound_by": bounds[mode][1],
+                          "fit_mode_max_abs_err": errs[mode]})
         record.append(entry)
+        print(f"  {name}: {k_ms:.4f} ms, bound {bounds[name][0]:.5f} ms by {bounds[name][1]} "
+              f"({bounds[name][0] / k_ms:.1%} of the kernel's time)")
 
     print(json.dumps({"kernels": record}))
     print(smi)

@@ -4,8 +4,9 @@ The JAX package ``mcray_tpu`` is the reference. This package renders the
 same frame (trace -> march -> PSF + envelope -> scan conversion) with plain
 PyTorch on the CPU and with hand-written CUDA kernels for Hopper
 (``csrc/*.cu``, bound through ``ops/cuda``) on an NVIDIA GPU. It imports
-``torch`` and never ``jax``; from ``mcray_tpu`` it imports only the
-JAX-free modules (config, scene loader/OBJ/primitives, image IO).
+``torch`` and never ``jax``, and nothing of ``mcray_tpu``: it keeps its own
+copies of the config, the scene loader/OBJ/primitives, the native bridge and
+the image IO.
 """
 
 from .config import DEFAULT_CONFIG, SimConfig, small_test_config, validate

@@ -7,51 +7,28 @@
 //   1. finds the march step k whose row floor((t0 + k*dt)/rdt) is r, with
 //      the reference's four-candidate check (_match_rows);
 //   2. if one matches, evaluates the hashed scatterer field at that step
-//      (bitsum normals, nearest voxel, hard gate) and adds
-//      I0 * exp(ln_att * k) * scat;
+//      (march_common.cuh: bitsum normals; nearest voxel or 8-corner
+//      trilinear lookup, hard or soft-sigmoid gate — the four modes the
+//      reference's kernel computes) and adds I0 * exp(ln_att * k) * scat;
 //   3. adds the segment's boundary echo if its row is r.
 // One fixed accumulation order per pixel, no atomics.
 //
 // Bound: instruction issue (two 32-bit hashes, popcounts and ~40 f32 ops
-// per matched step); the (SD, 16, C_pad) SoA is re-read by every row of
-// pixels and is small enough to stay in L2.
+// per matched step in nearest mode, eight times the hashing in trilinear
+// mode); the (SD, 16, C_pad) SoA is re-read by every row of pixels and is
+// small enough to stay in L2.
 // Compiled with -fmad=false so the row match equals the plain version's.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "march_common.cuh"
 
 namespace {
 
-enum Field {
-  F_FROM_X, F_FROM_Y, F_FROM_Z, F_DIR_X, F_DIR_Y, F_DIR_Z, F_T0, F_STEPS,
-  F_LN_ATT, F_I0, F_MU0, F_MU1, F_SIGMA, F_B_ROW, F_B_VAL, F_VALID, N_FIELDS
-};
+using namespace march;
 
-// lowbias32, bit-identical to mcray_tpu.ops.texture.hash_u32
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// dithered binomial ~N(0,1): popcount of the high 16 bits + 16-bit dither
-__device__ __forceinline__ float bitsum_normal(uint32_t bits, float scale) {
-  const float pc = (float)__popc(bits >> 16);
-  const float u = ((float)(bits & 0xFFFFu) + 0.5f) * (1.0f / 65536.0f);
-  return (pc + u - 8.5f) * scale;
-}
-
-__device__ __forceinline__ uint32_t wrap_index(float x, float res, int size) {
-  return (uint32_t)((int)truncf(x / res) & (size - 1));
-}
-
+template <bool TRILINEAR, bool SOFT>
 __global__ void march_kernel(const float* __restrict__ soa, int sd, int c_pad, int n_cols,
-                             int rf_rows, uint32_t seed0, uint32_t seed1, float rdt,
-                             float dt, float inv_a, float t_window, float axres, float res,
-                             int size, float bitsum_scale, float* __restrict__ out) {
+                             int rf_rows, Texture tx, float rdt, float dt, float inv_a,
+                             float t_window, float axres, float* __restrict__ out) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (c >= n_cols || r >= rf_rows) return;
@@ -80,16 +57,10 @@ __global__ void march_kernel(const float* __restrict__ soa, int sd, int c_pad, i
       const float px = f[F_FROM_X * c_pad] + scale * f[F_DIR_X * c_pad];
       const float py = f[F_FROM_Y * c_pad] + scale * f[F_DIR_Y * c_pad];
       const float pz = f[F_FROM_Z * c_pad] + scale * f[F_DIR_Z * c_pad];
-      const uint32_t vid =
-          (wrap_index(px, res, size) * (uint32_t)size + wrap_index(py, res, size)) *
-              (uint32_t)size +
-          wrap_index(pz, res, size);
-      const float noise = bitsum_normal(hash_u32(vid ^ seed0), bitsum_scale);
-      const float prob = bitsum_normal(hash_u32(vid ^ seed1), bitsum_scale);
-      const float value = noise * f[F_SIGMA * c_pad] + f[F_MU0 * c_pad];
-      const float scat = prob >= f[F_MU1 * c_pad] ? value : 0.0f;
+      const Scat s = scat_eval<TRILINEAR, SOFT, false>(
+          px, py, pz, f[F_MU0 * c_pad], f[F_MU1 * c_pad], f[F_SIGMA * c_pad], tx);
       const float intens = f[F_I0 * c_pad] * expf(f[F_LN_ATT * c_pad] * k_sel);
-      acc = acc + intens * scat;
+      acc = acc + intens * s.scat;
     }
     if (rows_f == f[F_B_ROW * c_pad]) acc = acc + f[F_B_VAL * c_pad];
   }
@@ -101,13 +72,17 @@ __global__ void march_kernel(const float* __restrict__ soa, int sd, int c_pad, i
 extern "C" int mcray_march(const float* soa, int sd, int c_pad, int n_cols, int rf_rows,
                            uint32_t seed0, uint32_t seed1, float rdt, float dt, float inv_a,
                            float t_window, float axres, float res, int size,
-                           float bitsum_scale, float* out, cudaStream_t stream) {
+                           float bitsum_scale, int trilinear, int soft, float tau, float* out,
+                           cudaStream_t stream) {
   if (n_cols > 0 && rf_rows > 0) {
     const dim3 block(32, 8);
     const dim3 grid((n_cols + block.x - 1) / block.x, (rf_rows + block.y - 1) / block.y);
-    march_kernel<<<grid, block, 0, stream>>>(soa, sd, c_pad, n_cols, rf_rows, seed0, seed1,
-                                             rdt, dt, inv_a, t_window, axres, res, size,
-                                             bitsum_scale, out);
+    const Texture tx = {seed0, seed1, res, size, bitsum_scale, tau};
+#define LAUNCH(TRI, SOFT)                                                               \
+  march_kernel<TRI, SOFT><<<grid, block, 0, stream>>>(soa, sd, c_pad, n_cols, rf_rows, tx, \
+                                                      rdt, dt, inv_a, t_window, axres, out)
+    MARCH_DISPATCH_MODES(trilinear, soft, LAUNCH);
+#undef LAUNCH
   }
   return (int)cudaGetLastError();
 }

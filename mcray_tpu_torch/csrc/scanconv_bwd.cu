@@ -1,0 +1,43 @@
+// K9: backward of the scan conversion — the transposed bilinear remap.
+//
+// Replaces mcray_tpu/ops/pallas/scanconv.py:_scanconv_bwd_kernel and
+// _scanconv_banded_bwd_kernel (transposed one-hot matrix products there).
+// The maps are static, so the host transposes them once into CSR form
+// (ops/cuda/scanconv.py:invert_scan_table): for each RF cell the output
+// pixels that read it, ascending, with the weights w_r * w_c the forward
+// applied. One thread per RF cell sums w * g[pixel] over its list: a
+// gather with one writer per cell and one summation order, no atomics.
+//
+// Bound: bytes — each (pixel, weight) pair is read once (8 bytes per tap,
+// ~4 taps per output pixel) against one multiply-add; neighbouring cells
+// read neighbouring stretches of the lists, the cotangent stays in L2.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void scanconv_bwd_kernel(const int* __restrict__ row_ptr,
+                                    const int* __restrict__ pixel,
+                                    const float* __restrict__ weight,
+                                    const float* __restrict__ g, int n_cells,
+                                    float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_cells) return;
+  float acc = 0.0f;
+  const int end = row_ptr[i + 1];
+  for (int p = row_ptr[i]; p < end; ++p) acc = acc + weight[p] * g[pixel[p]];
+  out[i] = acc;
+}
+
+}  // namespace
+
+extern "C" int mcray_scan_convert_bwd(const int* row_ptr, const int* pixel, const float* weight,
+                                      const float* g, int n_cells, float* out,
+                                      cudaStream_t stream) {
+  if (n_cells > 0) {
+    const int block = 256;
+    scanconv_bwd_kernel<<<(n_cells + block - 1) / block, block, 0, stream>>>(
+        row_ptr, pixel, weight, g, n_cells, out);
+  }
+  return (int)cudaGetLastError();
+}

@@ -2,9 +2,10 @@
 
 Port of ``mcray_tpu/ops/bvh.py:35-102``: the native binned-SAH construction of
 ``native/libmcray_native.so`` when it is built, else the same numpy
-median-split fallback. Both packages call ``mcray_tpu.utils.native.get_native``
-(JAX-free), so on one machine they produce the same ``tri_order``, which the
-cluster packing (``ops/clusters.py``) orders its triangles by.
+median-split fallback. Both packages load the same library (each through its
+own ``utils/native.py``), so on one machine they produce the same
+``tri_order``, which the cluster packing (``ops/clusters.py``) orders its
+triangles by.
 
 Layout (pointerless, depth-first):
 
@@ -23,7 +24,7 @@ import sys
 
 import numpy as np
 
-from mcray_tpu.utils.native import get_native
+from ..utils.native import get_native
 
 
 @dataclasses.dataclass

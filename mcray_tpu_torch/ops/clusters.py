@@ -152,10 +152,8 @@ def winner_hits(origins, seg_vecs, packed: CulledTris, best_slot, hit, eps: floa
     ``slot_all``; ``t`` is recomputed from the winning triangle (the paths
     built on clusters return it, not the kernel's)."""
     rows = packed.slot_all.index_select(0, best_slot.long())
-    v0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
-    t_win, _ = _moller_trumbore(origins, seg_vecs, v0, e1, e2, eps=eps)
-    return hit_record(origins, seg_vecs, hit, torch.where(hit, t_win, NO_HIT_T), e1, e2,
-                      rows[:, 9])
+    return hit_record(origins, seg_vecs, hit, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9],
+                      rows[:, 9], eps=eps)
 
 
 def pad_rays(origins, seg_vecs, tile_r: int):
@@ -192,7 +190,8 @@ def packet_sort_keys(origins, seg_vecs, packed: CulledTris):
 
 def intersect_sorted(intersect_fn, origins, seg_vecs, packed: CulledTris):
     """Run ``intersect_fn`` on coherence-sorted rays and unsort its results."""
-    perm = torch.argsort(packet_sort_keys(origins, seg_vecs, packed), stable=True)
+    perm = torch.argsort(packet_sort_keys(origins.detach(), seg_vecs.detach(), packed),
+                         stable=True)
     hits = intersect_fn(origins[perm], seg_vecs[perm], packed)
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)

@@ -45,9 +45,11 @@ SIGNATURES = {
     "mcray_intersect_listed": [P, I, I, P, P, P, I, P, P, P, I, P, P, P],
     "mcray_intersect_culled": [P, I, I, P, I, I, P, P, P],
     "mcray_intersect_staged": [P, I, I, P, I, I, P, P, I, P, P, P],
-    "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, P, P],
+    "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, F, P, P],
+    "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, F, P, P],
     "mcray_postproc": [P, I, I, P, I, P, I, I, P, P],
     "mcray_scan_convert": [P, I, I, P, I, I, I, P, P],
+    "mcray_scan_convert_bwd": [P, P, P, P, I, P, P],
 }
 
 

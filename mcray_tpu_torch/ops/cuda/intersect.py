@@ -17,7 +17,9 @@ version's.
 
 The winner tail (point, oriented normal, mesh id) is computed from the
 winner in plain torch (``geometry.winner_hits``), as the reference wrapper
-does. Dead rays are parked at 1e9 with a zero segment: det == 0, so they miss.
+does; it recomputes the winner's t, so gradients flow through the hit point
+while the kernel sees detached rays (it makes the discrete choice only).
+Dead rays are parked at 1e9 with a zero segment: det == 0, so they miss.
 """
 
 from __future__ import annotations
@@ -60,6 +62,6 @@ def intersect_best(rays: torch.Tensor, tri_soa: torch.Tensor):
 
 def intersect_closest_cuda(origins, seg_vecs, tri_soa, tri_mesh_id):
     """Closest hit of each segment: the kernel's winner, then the plain tail."""
-    rays = torch.cat([origins, seg_vecs], dim=1).T.contiguous()
+    rays = torch.cat([origins, seg_vecs], dim=1).detach().T.contiguous()
     best_t, best_idx = intersect_best(rays, tri_soa)
     return geometry.winner_hits(origins, seg_vecs, tri_soa, tri_mesh_id, best_t, best_idx)

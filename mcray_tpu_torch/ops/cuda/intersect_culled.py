@@ -70,7 +70,8 @@ def intersect_closest_culled(origins, seg_vecs, packed: clusters.CulledTris, *,
                              tile_r: int = TILE_R, eps: float = 1e-9):
     """Closest hit of each segment over the cluster-culled tiles."""
     n = origins.shape[0]
-    _, _, rays = clusters.pad_rays(origins, seg_vecs, tile_r)
+    # the kernel makes the discrete choice only: it sees detached rays
+    _, _, rays = clusters.pad_rays(origins.detach(), seg_vecs.detach(), tile_r)
     best_t, best_slot = culled_best(rays, packed, tile_r)
     hit = best_t[:n] < 1.5
     best_slot = torch.clamp(best_slot[:n], max=packed.n_slots - 1)

@@ -97,7 +97,9 @@ def intersect_closest_listed(origins, seg_vecs, packed: clusters.CulledTris, *,
     then lists again with each ray's pruning bound cut from the segment end
     to its pass-1 best t, excluding the clusters already visited."""
     n = origins.shape[0]
-    o, s, rays = clusters.pad_rays(origins, seg_vecs, tile_r)
+    # the prepass and the kernel make the discrete choice only: they see
+    # detached rays, and gradients flow through the winner tail alone
+    o, s, rays = clusters.pad_rays(origins.detach(), seg_vecs.detach(), tile_r)
     counts, ids, keys = clusters.packet_cluster_lists(o, s, packed, tile_r, method=list_method)
     # inert lanes (zero segment: padding and parked dead rays) start at
     # t = 0 so they cannot hold the kernel's early stop open; `hit`

@@ -83,7 +83,8 @@ def intersect_closest_staged(origins, seg_vecs, packed: clusters.CulledTris, *,
     if packed.tile_t != clusters.TILE_T:
         raise ValueError(f"the staged kernel needs tile_t {clusters.TILE_T}, got {packed.tile_t}")
     n = origins.shape[0]
-    _, _, rays = clusters.pad_rays(origins, seg_vecs, tile_r)
+    # the kernel makes the discrete choice only: it sees detached rays
+    _, _, rays = clusters.pad_rays(origins.detach(), seg_vecs.detach(), tile_r)
     best_t, best_slot = staged_best(rays, packed, tile_r)
     hit = best_t[:n] < 1.5
     best_slot = torch.clamp(best_slot[:n], max=packed.n_slots - 1)

@@ -1,4 +1,5 @@
-"""K2: output-stationary segment march into the RF image (``csrc/march.cu``).
+"""K2 and K8: the segment march into the RF image and its backward
+(``csrc/march.cu``, ``csrc/march_bwd.cu``).
 
 Replaces ``mcray_tpu/ops/pallas/march.py:_march_kernel`` (op ``_march_op``,
 wrapper ``march_and_accumulate_pallas``). Each RF pixel (row r, column c)
@@ -19,9 +20,26 @@ match identical to the plain version. The reference's per-tile span lists
 (``_touch_tables``) are an optimisation for later: without them every
 pixel visits every segment of its column, which changes no output.
 
-Kernel modes: the CUDA kernel computes the default field only — bitsum
-normals, nearest voxel, hard gate, power-of-two volume. Other modes raise
-NotImplementedError for CUDA tensors; the plain version computes them all.
+K8 replaces ``mcray_tpu/ops/pallas/march.py:_march_bwd_kernel``: the
+gradient of every SoA field from the RF cotangent, by rematerialisation
+(nothing is saved but the SoA). The reference accumulates per (column tile,
+row tile) into a revisited output block; on the card the loop is
+segment-stationary instead: one thread per (segment, column) walks its own
+march steps, bins each into its row with the forward's formula and guards,
+and sums the twelve non-zero field gradients in registers — one writer per
+output element, no atomics, one summation order. ``march_bwd_plain`` holds
+the same hand-derived formulas on (rows, C) slabs per segment.
+
+``march_cuda`` is a ``torch.autograd.Function`` over both: K2 / K8 for CUDA
+tensors, ``march_plain`` / ``march_bwd_plain`` for CPU tensors, in forward
+and in backward. Gradients then flow through ``pack_segments`` (plain
+torch) into the material table and the traced segments.
+
+Kernel modes: bitsum normals on a power-of-two volume, with the nearest or
+the 8-corner trilinear lookup and the hard or the soft-sigmoid gate — the
+four combinations the reference's kernel computes. Box–Muller normals and
+other volume sizes raise NotImplementedError for CUDA tensors; the plain
+versions compute them all.
 """
 
 from __future__ import annotations
@@ -41,8 +59,10 @@ F_FROM_X, F_FROM_Y, F_FROM_Z, F_DIR_X, F_DIR_Y, F_DIR_Z, F_T0, F_STEPS, \
 N_FIELDS = 16
 TILE_C = 128
 
-#: kernel launches since the last reset (one per call on a CUDA tensor)
+#: forward kernel (K2) launches since the last reset (one per call on a CUDA tensor)
 launches = 0
+#: backward kernel (K8) launches since the last reset
+launches_bwd = 0
 
 
 def pack_segments(segments, materials, cfg: SimConfig, n_cols: int) -> torch.Tensor:
@@ -123,45 +143,188 @@ def march_plain(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols: 
     return acc[:, :n_cols]
 
 
+def _scat_partials(volume, px, py, pz, mu0, mu1, sigma, cfg: SimConfig) -> dict:
+    """``texture.get_scattering`` at the points (px, py, pz) together with
+    its partial derivatives w.r.t. mu0, mu1, sigma and the point, derived by
+    hand (the reference's ``_scat_eval(..., want_grads=True)``). The point
+    partials are zero in nearest mode (floor and truncation have zero
+    derivative almost everywhere), d_mu1 is zero with the hard gate."""
+    res = cfg.resolution_um / 1000.0
+    size = cfg.volume_size
+
+    def fetch(ix, iy, iz):
+        return texture.procedural_fields(ix, iy, iz, volume["seeds"], size, rng=cfg.scatter_rng)
+
+    zero = torch.zeros_like(px)
+    dn, dp = [zero, zero, zero], [zero, zero, zero]
+    if cfg.trilinear_texture:
+        f = [fdiv(p, res) - 0.5 for p in (px, py, pz)]
+        i0 = [torch.floor(x) for x in f]
+        w = [x - fl for x, fl in zip(f, i0)]
+        i0 = [x.long() for x in i0]
+        noise, prob = zero, zero
+        for ox in (0, 1):
+            for oy in (0, 1):
+                for oz in (0, 1):
+                    n_t, p_t = fetch(*(texture._wrap_mod(i + o, size)
+                                       for i, o in zip(i0, (ox, oy, oz))))
+                    wfx, wfy, wfz = (wa if o else 1.0 - wa for wa, o in zip(w, (ox, oy, oz)))
+                    wt = wfx * wfy * wfz
+                    noise = noise + n_t * wt
+                    prob = prob + p_t * wt
+                    sx, sy, sz = (1.0 if o else -1.0 for o in (ox, oy, oz))
+                    dn = [dn[0] + n_t * sx * wfy * wfz, dn[1] + n_t * sy * wfx * wfz,
+                          dn[2] + n_t * sz * wfx * wfy]
+                    dp = [dp[0] + p_t * sx * wfy * wfz, dp[1] + p_t * sy * wfx * wfz,
+                          dp[2] + p_t * sz * wfx * wfy]
+    else:
+        noise, prob = fetch(*(texture._wrap_index(p, res, size) for p in (px, py, pz)))
+
+    value = noise * sigma + mu0
+    if cfg.soft_scattering:
+        gate = torch.sigmoid(fdiv(prob - mu1, cfg.soft_scattering_tau))
+        dgate = fdiv(gate * (1.0 - gate), cfg.soft_scattering_tau)
+    else:
+        gate = (prob >= mu1).float()
+        dgate = None
+    out = {"scat": value * gate, "d_mu0": gate, "d_sigma": noise * gate,
+           "d_mu1": -value * dgate if dgate is not None else zero,
+           "d_px": zero, "d_py": zero, "d_pz": zero}
+    if cfg.trilinear_texture:
+        d_noise = sigma * gate
+        for axis, name in enumerate(("d_px", "d_py", "d_pz")):
+            g = d_noise * dn[axis]
+            if dgate is not None:
+                g = g + (value * dgate) * dp[axis]
+            out[name] = fdiv(g, res)
+    return out
+
+
+def march_bwd_plain(soa: torch.Tensor, seeds: torch.Tensor, g: torch.Tensor,
+                    cfg: SimConfig) -> torch.Tensor:
+    """Plain version of the march backward: the (SD, 16, C_pad) gradient of
+    ``soa`` from the RF cotangent ``g`` (rf_rows, n_cols), per segment on
+    (rows, C) slabs with the forward's row match, by the hand-derived
+    formulas the kernel sums. Twelve fields are non-zero; t0, steps, b_row
+    and valid (piecewise-constant uses only) get zero."""
+    c_pad = soa.shape[2]
+    g = torch.nn.functional.pad(g, (0, c_pad - g.shape[1]))
+    rows_f = torch.arange(cfg.rf_rows, dtype=torch.float32, device=soa.device)[:, None]
+    volume = {"seeds": seeds.to(soa.device)}
+    gout = torch.zeros_like(soa)
+    for f, go in zip(soa, gout):
+        matched, k_sel = _match_rows(rows_f, f[F_T0], f[F_STEPS], f[F_VALID] > 0.5, cfg)
+        scale = k_sel * cfg.axial_resolution_mm
+        s = _scat_partials(
+            volume, f[F_FROM_X] + scale * f[F_DIR_X], f[F_FROM_Y] + scale * f[F_DIR_Y],
+            f[F_FROM_Z] + scale * f[F_DIR_Z], f[F_MU0], f[F_MU1], f[F_SIGMA], cfg)
+        decay = torch.exp(f[F_LN_ATT] * k_sel)
+        gm = torch.where(matched, g, 0.0)
+        gi = gm * (f[F_I0] * decay)  # the cotangent routed through intens * scat
+        go[F_I0] = (gm * decay * s["scat"]).sum(dim=0)
+        go[F_LN_ATT] = (gi * k_sel * s["scat"]).sum(dim=0)
+        go[F_MU0] = (gi * s["d_mu0"]).sum(dim=0)
+        go[F_MU1] = (gi * s["d_mu1"]).sum(dim=0)
+        go[F_SIGMA] = (gi * s["d_sigma"]).sum(dim=0)
+        for axis, name in enumerate(("d_px", "d_py", "d_pz")):
+            gp = gi * s[name]
+            go[F_FROM_X + axis] = gp.sum(dim=0)
+            go[F_DIR_X + axis] = (gp * scale).sum(dim=0)
+        go[F_B_VAL] = torch.where(rows_f == f[F_B_ROW], g, 0.0).sum(dim=0)
+    return gout
+
+
 def _check_kernel_modes(cfg: SimConfig) -> None:
     unsupported = []
     if cfg.scatter_rng != "bitsum":
         unsupported.append(f"scatter_rng={cfg.scatter_rng!r}")
-    if cfg.trilinear_texture:
-        unsupported.append("trilinear_texture")
-    if cfg.soft_scattering:
-        unsupported.append("soft_scattering")
     if cfg.volume_size & (cfg.volume_size - 1):
         unsupported.append(f"volume_size={cfg.volume_size} (not a power of two)")
     if unsupported:
         raise NotImplementedError(
-            "the CUDA march kernel computes bitsum + nearest + hard gate only; "
-            "not ported yet: " + ", ".join(unsupported)
+            "the CUDA march kernels compute bitsum normals on a power-of-two volume "
+            "only; not ported yet: " + ", ".join(unsupported)
         )
 
 
-def march_cuda(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols: int) -> torch.Tensor:
-    """RF image (rf_rows, n_cols) from the packed SoA: the CUDA kernel for a
-    CUDA ``soa``, the plain version for a CPU one. ``seeds`` is the (2,)
-    texture seed tensor (read on the host)."""
-    global launches
-    if soa.device.type == "cpu":
-        return march_plain(soa, seeds, cfg, n_cols)
+def _kernel_args(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols: int):
+    """Check ``soa`` for the kernels and return (sd, c_pad, seed0, seed1)."""
     sd, _, c_pad = soa.shape
     _build.require(soa, "soa", torch.float32, (sd, N_FIELDS, c_pad))
     if not n_cols <= c_pad:
         raise ValueError(f"n_cols={n_cols} exceeds the SoA width {c_pad}")
     _check_kernel_modes(cfg)
     seed0, seed1 = (int(v) & 0xFFFFFFFF for v in seeds.tolist())
+    return sd, c_pad, seed0, seed1
+
+
+def _texture_args(cfg: SimConfig):
+    f32 = ctypes.c_float
+    return (f32(cfg.resolution_um / 1000.0), cfg.volume_size, f32(texture.BITSUM_SCALE),
+            int(cfg.trilinear_texture), int(cfg.soft_scattering), f32(cfg.soft_scattering_tau))
+
+
+def march_forward(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols: int) -> torch.Tensor:
+    """K2 for a CUDA ``soa``, ``march_plain`` for a CPU one (no autograd)."""
+    global launches
+    if soa.device.type == "cpu":
+        return march_plain(soa, seeds, cfg, n_cols)
+    sd, c_pad, seed0, seed1 = _kernel_args(soa, seeds, cfg, n_cols)
     out = torch.empty((cfg.rf_rows, n_cols), dtype=torch.float32, device=soa.device)
     f32 = ctypes.c_float
     code = _build.library().mcray_march(
         soa.data_ptr(), sd, c_pad, n_cols, cfg.rf_rows, seed0, seed1,
         f32(cfg.rf_row_dt_us), f32(cfg.march_dt_us), f32(cfg.rf_row_dt_us / cfg.march_dt_us),
         f32(float(cfg.max_travel_time_us)), f32(cfg.axial_resolution_mm),
-        f32(cfg.resolution_um / 1000.0), cfg.volume_size, f32(texture.BITSUM_SCALE),
-        out.data_ptr(), _build.stream_of(soa),
+        *_texture_args(cfg), out.data_ptr(), _build.stream_of(soa),
     )
     _build.check(code, "mcray_march")
     launches += 1
     return out
+
+
+def march_backward(soa: torch.Tensor, seeds: torch.Tensor, g: torch.Tensor,
+                   cfg: SimConfig) -> torch.Tensor:
+    """K8 for a CUDA ``soa``, ``march_bwd_plain`` for a CPU one: the SoA's
+    gradient (SD, 16, C_pad) from the RF cotangent ``g`` (rf_rows, n_cols)."""
+    global launches_bwd
+    if soa.device.type == "cpu":
+        return march_bwd_plain(soa, seeds, g, cfg)
+    n_cols = g.shape[1]
+    sd, c_pad, seed0, seed1 = _kernel_args(soa, seeds, cfg, n_cols)
+    _build.require(g, "g", torch.float32, (cfg.rf_rows, n_cols))
+    gout = torch.empty_like(soa)
+    f32 = ctypes.c_float
+    code = _build.library().mcray_march_bwd(
+        soa.data_ptr(), g.data_ptr(), sd, c_pad, n_cols, cfg.rf_rows, seed0, seed1,
+        f32(cfg.rf_row_dt_us), f32(cfg.march_dt_us), f32(float(cfg.max_travel_time_us)),
+        f32(cfg.axial_resolution_mm), *_texture_args(cfg), gout.data_ptr(),
+        _build.stream_of(soa),
+    )
+    _build.check(code, "mcray_march_bwd")
+    launches_bwd += 1
+    return gout
+
+
+class _March(torch.autograd.Function):
+    """The march with its hand-written backward (no saved intermediates
+    beyond the SoA: the backward rematerialises the forward's terms)."""
+
+    @staticmethod
+    def forward(ctx, soa, seeds, cfg, n_cols):
+        ctx.save_for_backward(soa, seeds)
+        ctx.cfg = cfg
+        return march_forward(soa, seeds, cfg, n_cols)
+
+    @staticmethod
+    def backward(ctx, g):
+        soa, seeds = ctx.saved_tensors
+        return march_backward(soa, seeds, g.contiguous(), ctx.cfg), None, None, None
+
+
+def march_cuda(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols: int) -> torch.Tensor:
+    """RF image (rf_rows, n_cols) from the packed SoA, differentiable in
+    ``soa``: the CUDA kernels (K2 forward, K8 backward) for a CUDA ``soa``,
+    the plain versions for a CPU one. ``seeds`` is the (2,) texture seed
+    tensor (read on the host)."""
+    return _March.apply(soa, seeds, cfg, n_cols)

@@ -17,6 +17,13 @@ thread of 8).
 
 Modes: reference envelope with uncentered PSF only; the centered PSF and
 the Hilbert envelope raise NotImplementedError for CUDA tensors.
+
+Backward: ``postproc_cuda`` is a ``torch.autograd.Function`` whose backward
+is the VJP of ``postproc_plain`` recomputed on the saved input — what the
+reference does (``postproc.py:_postproc_op``: ``jax.vjp`` of the plain
+convolution + envelope, outside any Pallas kernel). So on the card this
+backward is plain PyTorch (autograd over ``postproc_plain``); it replaces no
+kernel.
 """
 
 from __future__ import annotations
@@ -47,9 +54,38 @@ def _taps(cfg: SimConfig, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(taps).to(device)
 
 
+def postproc_bwd_plain(rf: torch.Tensor, g: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """The gradient of ``postproc_plain`` at ``rf`` for the cotangent ``g``,
+    by autograd over the plain version (rematerialised: nothing is saved
+    from the forward but ``rf``)."""
+    with torch.enable_grad():
+        x = rf.detach().requires_grad_(True)
+        y = postproc_plain(x, cfg)
+    return torch.autograd.grad(y, x, g)[0]
+
+
+class _Postproc(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rf, cfg):
+        ctx.save_for_backward(rf)
+        ctx.cfg = cfg
+        return postproc_forward(rf, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rf,) = ctx.saved_tensors
+        return postproc_bwd_plain(rf, g, ctx.cfg), None
+
+
 def postproc_cuda(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    """Convolved + enveloped RF image of the same (rows, cols) shape: the
-    CUDA kernel for a CUDA ``rf``, the plain version for a CPU one."""
+    """Convolved + enveloped RF image of the same (rows, cols) shape,
+    differentiable in ``rf``: the CUDA kernel for a CUDA ``rf``, the plain
+    version for a CPU one; the backward is ``postproc_bwd_plain`` on both."""
+    return _Postproc.apply(rf, cfg)
+
+
+def postproc_forward(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """K3 for a CUDA ``rf``, ``postproc_plain`` for a CPU one (no autograd)."""
     global launches
     if rf.device.type == "cpu":
         return postproc_plain(rf, cfg)

@@ -1,4 +1,5 @@
-"""K4: bilinear polar -> Cartesian scan conversion (``csrc/scanconv.cu``).
+"""K4 and K9: bilinear polar -> Cartesian scan conversion and its backward
+(``csrc/scanconv.cu``, ``csrc/scanconv_bwd.cu``).
 
 Replaces both ``mcray_tpu/ops/pallas/scanconv.py:_scanconv_kernel`` and
 ``_scanconv_banded_kernel`` (op ``_scanconv_banded_op``, wrapper
@@ -11,9 +12,29 @@ rounding is not reproduced; the contract is ``imaging.scan_convert``.
 
 Bound: the latency of 4 independent gathers per pixel; the (out_rows, 8,
 W_pad) table and the RF image are small enough to stay in L2.
+
+K9 replaces ``_scanconv_bwd_kernel`` and ``_scanconv_banded_bwd_kernel``
+(one kernel for both, as K4: the banded/full split only shortens the TPU's
+matrix contraction): the transposed remap, B-mode cotangent (out_rows,
+out_cols) -> RF gradient (rows, cols). The maps are static, so the
+transposition is done once on the host (``invert_scan_table``): for each RF
+cell the list of (output pixel, weight) that read it, in CSR form with
+ascending pixels. One thread per RF cell then sums ``w * g[pixel]`` over its
+list — a gather again: no atomics, one summation order. Zero-weight and
+out-of-range taps are left out (BORDER_CONSTANT). The kernel reads the CSR
+lists once, about three times the bytes the function itself needs (the
+cotangent, the two coordinate maps, the gradient). ``scan_convert_bwd_plain``
+is the four transposed taps as ``index_put_(accumulate=True)``.
+
+The table and its transpose are one static object, ``ScanMaps``, built
+together by ``scan_maps``. ``scan_convert_cuda`` is a
+``torch.autograd.Function`` over both kernels: K4 / K9 for CUDA tensors, the
+plain versions for CPU tensors.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -23,8 +44,10 @@ from . import _build
 
 LANES = 128
 
-#: kernel launches since the last reset (one per call on a CUDA tensor)
+#: forward kernel (K4) launches since the last reset (one per call on a CUDA tensor)
 launches = 0
+#: backward kernel (K9) launches since the last reset
+launches_bwd = 0
 
 
 def pack_scan_maps(map_row: np.ndarray, map_col: np.ndarray, rf_rows: int, rf_cols: int):
@@ -64,18 +87,127 @@ def scan_convert_plain(rf: torch.Tensor, table: torch.Tensor, out_cols: int) -> 
     return imaging.bilinear_gather(rf, t[:, 0].long(), t[:, 1], t[:, 2], t[:, 3].long(), t[:, 4], t[:, 5])
 
 
-def scan_convert_cuda(rf: torch.Tensor, table: torch.Tensor, out_cols: int) -> torch.Tensor:
-    """B-mode image (out_rows, out_cols) from the enveloped RF image: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+def invert_scan_table(table: np.ndarray, rf_rows: int, rf_cols: int, out_cols: int):
+    """The transposed remap of a packed table (host side): per RF cell the
+    output pixels that read it and their weights, as CSR arrays ``row_ptr``
+    (rf_rows * rf_cols + 1,) i32, ``pixel`` (nnz,) i32 (flat index into the
+    (out_rows, out_cols) image, ascending within a cell) and ``weight``
+    (nnz,) f32 — the products ``w_r * w_c`` the forward multiplies each tap
+    by. Taps with zero weight or outside the RF image are left out."""
+    t = np.asarray(table, np.float32)[:, :, :out_cols]
+    out_rows = t.shape[0]
+    r0, c0 = t[:, 0].astype(np.int64), t[:, 3].astype(np.int64)
+    pixel = np.arange(out_rows * out_cols, dtype=np.int64).reshape(out_rows, out_cols)
+    cells, pixels, weights = [], [], []
+    for dr, w_r in ((0, t[:, 1]), (1, t[:, 2])):
+        for dc, w_c in ((0, t[:, 4]), (1, t[:, 5])):
+            r, c, w = r0 + dr, c0 + dc, w_r * w_c
+            ok = (r >= 0) & (r < rf_rows) & (c >= 0) & (c < rf_cols) & (w != 0.0)
+            cells.append((r * rf_cols + c)[ok])
+            pixels.append(pixel[ok])
+            weights.append(w[ok])
+    cells, pixels, weights = (np.concatenate(x) for x in (cells, pixels, weights))
+    order = np.lexsort((pixels, cells))
+    row_ptr = np.zeros(rf_rows * rf_cols + 1, np.int64)
+    np.cumsum(np.bincount(cells, minlength=rf_rows * rf_cols), out=row_ptr[1:])
+    return (row_ptr.astype(np.int32), pixels[order].astype(np.int32),
+            weights[order].astype(np.float32))
+
+
+def scan_convert_bwd_plain(g: torch.Tensor, table: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Plain version of the backward: the RF gradient (rows, cols) from the
+    B-mode cotangent ``g`` (out_rows, out_cols), the four taps transposed
+    into scatter-adds."""
+    t = table[:, :, : g.shape[1]]
+    r0, c0 = t[:, 0].long(), t[:, 3].long()
+    grf = torch.zeros(rows * cols, dtype=g.dtype, device=g.device)
+    for dr, w_r in ((0, t[:, 1]), (1, t[:, 2])):
+        for dc, w_c in ((0, t[:, 4]), (1, t[:, 5])):
+            r, c = r0 + dr, c0 + dc
+            ok = (r >= 0) & (r < rows) & (c >= 0) & (c < cols)
+            index = r.clamp(0, rows - 1) * cols + c.clamp(0, cols - 1)
+            grf.index_put_((index.reshape(-1),),
+                           torch.where(ok, (w_r * w_c) * g, 0.0).reshape(-1), accumulate=True)
+    return grf.reshape(rows, cols)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanMaps:
+    """The static remap of one probe geometry on one device: the packed
+    per-pixel ``table`` (``pack_scan_maps``) that K4 reads and its transpose
+    (``invert_scan_table``: ``row_ptr``, ``pixel``, ``weight``) that K9 reads,
+    built together by ``scan_maps``."""
+
+    table: torch.Tensor    # (out_rows, 8, W_pad) f32
+    row_ptr: torch.Tensor  # (rf_rows * rf_cols + 1,) i32
+    pixel: torch.Tensor    # (nnz,) i32
+    weight: torch.Tensor   # (nnz,) f32
+    rf_rows: int
+    rf_cols: int
+    out_cols: int
+
+
+def scan_maps(map_row: np.ndarray, map_col: np.ndarray, rf_rows: int, rf_cols: int,
+              device="cpu") -> ScanMaps:
+    """``ScanMaps`` on ``device`` from the (out_rows, out_cols) coordinate
+    maps of ``imaging.scan_conversion_maps`` (host side, once per geometry)."""
+    out_cols = np.shape(map_row)[1]
+    table = pack_scan_maps(map_row, map_col, rf_rows, rf_cols)
+    inverse = invert_scan_table(table, rf_rows, rf_cols, out_cols)
+    return ScanMaps(*(torch.from_numpy(a).to(device) for a in (table, *inverse)),
+                    rf_rows, rf_cols, out_cols)
+
+
+def scan_convert_backward(g: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
+    """RF gradient (rf_rows, rf_cols) from the B-mode cotangent ``g``: K9 for
+    CUDA tensors, ``scan_convert_bwd_plain`` for CPU tensors."""
+    global launches_bwd
+    rows, cols = maps.rf_rows, maps.rf_cols
+    if g.device.type == "cpu" and maps.table.device.type == "cpu":
+        return scan_convert_bwd_plain(g, maps.table, rows, cols)
+    n_cells = rows * cols
+    _build.require(g, "g", torch.float32, (maps.table.shape[0], maps.out_cols))
+    _build.require(maps.row_ptr, "row_ptr", torch.int32, (n_cells + 1,))
+    _build.require(maps.pixel, "pixel", torch.int32)
+    _build.require(maps.weight, "weight", torch.float32, tuple(maps.pixel.shape))
+    out = torch.empty((rows, cols), dtype=torch.float32, device=g.device)
+    code = _build.library().mcray_scan_convert_bwd(
+        maps.row_ptr.data_ptr(), maps.pixel.data_ptr(), maps.weight.data_ptr(), g.data_ptr(),
+        n_cells, out.data_ptr(), _build.stream_of(g),
+    )
+    _build.check(code, "mcray_scan_convert_bwd")
+    launches_bwd += 1
+    return out
+
+
+class _ScanConvert(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rf, maps):
+        ctx.maps = maps
+        return scan_convert_forward(rf, maps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scan_convert_backward(g.contiguous(), ctx.maps), None
+
+
+def scan_convert_cuda(rf: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
+    """B-mode image (out_rows, out_cols) from the enveloped RF image,
+    differentiable in ``rf``: the CUDA kernels (K4 forward, K9 backward) for
+    CUDA tensors, the plain versions for CPU tensors."""
+    return _ScanConvert.apply(rf, maps)
+
+
+def scan_convert_forward(rf: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
+    """K4 for CUDA tensors, ``scan_convert_plain`` for CPU tensors (no autograd)."""
     global launches
+    table, out_cols = maps.table, maps.out_cols
     if rf.device.type == "cpu" and table.device.type == "cpu":
         return scan_convert_plain(rf, table, out_cols)
-    rows, cols = rf.shape
+    rows, cols = maps.rf_rows, maps.rf_cols
     out_rows, _, w_pad = table.shape
     _build.require(rf, "rf", torch.float32, (rows, cols))
     _build.require(table, "table", torch.float32, (out_rows, 8, w_pad))
-    if not out_cols <= w_pad:
-        raise ValueError(f"out_cols={out_cols} exceeds the table width {w_pad}")
     out = torch.empty((out_rows, out_cols), dtype=torch.float32, device=rf.device)
     code = _build.library().mcray_scan_convert(
         rf.data_ptr(), rows, cols, table.data_ptr(), out_rows, out_cols, w_pad,

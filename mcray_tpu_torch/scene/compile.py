@@ -15,11 +15,10 @@ import os
 
 import numpy as np
 
-from mcray_tpu.scene import primitives
-from mcray_tpu.scene.loader import SceneSpec, load_scene
-from mcray_tpu.scene.obj import load_obj
-
 from ..ops.bvh import FlatBVH, build_bvh
+from . import primitives
+from .loader import SceneSpec, load_scene
+from .obj import load_obj
 
 
 @dataclasses.dataclass
@@ -67,7 +66,7 @@ def compile_scene(spec: SceneSpec, *, asset_dir: str | None = None,
         if not os.path.exists(path):
             raise FileNotFoundError(
                 f"mesh asset {path} not found; generate fixtures with "
-                "mcray_tpu.scene.primitives.ensure_assets / ensure_ircad_assets"
+                "mcray_tpu_torch.scene.primitives.ensure_assets / ensure_ircad_assets"
             )
         verts, faces = load_obj(path)
         s = spec.scaling

@@ -5,9 +5,9 @@ arrays — the scene tables of ``ScenePack.trace_tables()``, the probe pose,
 the ``(M, 8)`` material table, the two texture seeds
 (``make_texture_volume(...)["seeds"]``) and optionally the per-bounce draws
 of ``physics.draw_bounce_randoms`` — and returns the port's tensors on
-``device``. With the same draws and seeds the port computes the
-reference's frame; with draws from its own generator it computes a
-statistically equivalent one (threefry is not ported). A ``CulledTris``
+``device`` (a required keyword: nothing picks the CPU on its own). With
+the same draws and seeds the port computes the reference's frame; with
+draws from its own generator it computes a statistically equivalent one (threefry is not ported). A ``CulledTris``
 the reference packed (``ops/pallas/intersect.py:pack_tris_culled``) comes
 across as the port's ``clusters.CulledTris``, table for table.
 """
@@ -21,14 +21,14 @@ from ..ops import clusters
 from ..ops.geometry import triangle_soa
 
 
-def culled_from_reference(packed, *, device="cpu") -> clusters.CulledTris:
+def culled_from_reference(packed, *, device) -> clusters.CulledTris:
     """The port's ``CulledTris`` holding the tables of the reference's."""
     tables = {f: getattr(packed, f) for f in clusters._ARRAY_FIELDS + clusters._STATIC_FIELDS}
     return clusters.CulledTris.from_arrays(tables, tables, device)
 
 
 def from_reference(pack_or_arrays, materials, volume_seeds, draws=None, *, culled=None,
-                   device="cpu"):
+                   device):
     """``pack_or_arrays`` is a ScenePack (of either package) or a dict with
     its fields: tris, tri_mesh_id, mesh_mat_inside, mesh_mat_outside,
     mesh_is_vascular, spacing, starting_material, transducer_position and

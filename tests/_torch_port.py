@@ -22,7 +22,7 @@ def to_torch(x, dtype=None) -> torch.Tensor:
 
 
 def to_np(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def random_triangles(rng: np.random.Generator, t: int):
@@ -52,3 +52,60 @@ def reference_draws(seed: int, n: int, n_depth: int) -> dict[str, np.ndarray]:
         k_trace, jnp.arange(n, dtype=jnp.uint32)
     )
     return {k: np.asarray(v) for k, v in physics.draw_bounce_randoms(path_keys, n_depth).items()}
+
+
+def both_configs(small: bool = True, **overrides):
+    """(reference cfg, port cfg): each package's own ``SimConfig`` built from
+    the same keyword arguments (the reference caches its ops by its own
+    config object; the port imports nothing of the reference)."""
+    from mcray_tpu import config as ref_config
+    from mcray_tpu_torch import config as port_config
+
+    if small:
+        return ref_config.small_test_config(**overrides), port_config.small_test_config(**overrides)
+    return ref_config.SimConfig(**overrides), port_config.SimConfig(**overrides)
+
+
+def reference_render_fn(ref_cfg, pack, seed: int):
+    """``render(key, materials) -> bmode`` through the reference's plain
+    pipeline on the CPU, with the texture volume the port's ``Simulator``
+    would derive for ``seed``; also returns that volume's seeds."""
+    import jax
+    import jax.numpy as jnp
+
+    from mcray_tpu.models import simulator as ref_sim
+    from mcray_tpu.ops import imaging as ref_imaging
+    from mcray_tpu.ops import texture as ref_texture
+
+    scene = {k: jnp.asarray(v) for k, v in pack.trace_tables().items()}
+    volume = ref_texture.make_texture_volume(jax.random.PRNGKey(seed ^ 0x5CA77E7), ref_cfg)
+    maps = tuple(jnp.asarray(m) for m in ref_imaging.scan_conversion_maps(ref_cfg))
+    pose = (jnp.asarray(pack.transducer_position), jnp.asarray(pack.transducer_angles))
+
+    def render(key, materials):
+        out = ref_sim.render(key, materials, *pose, scene, jnp.asarray(pack.spacing),
+                             jnp.int32(pack.starting_material), volume, maps, ref_cfg)
+        # the port clamps the B-mode at 0, as the reference's kernel path does
+        return jnp.maximum(out["bmode"], 0.0)
+
+    return render, np.asarray(volume["seeds"])
+
+
+def port_render_fn(port_cfg, pack, seeds, draws):
+    """``render(frame, materials) -> bmode`` through the port on the CPU from
+    the reference's texture seeds and draws (``frame`` is ignored: fixed
+    randomness)."""
+    from mcray_tpu_torch.models import simulator
+    from mcray_tpu_torch.ops import imaging
+    from mcray_tpu_torch.ops.cuda.scanconv import scan_maps
+    from mcray_tpu_torch.utils.convert import from_reference
+
+    state = from_reference(pack, pack.materials, seeds, draws, device="cpu")
+    maps = scan_maps(*imaging.scan_conversion_maps(port_cfg), port_cfg.rf_rows, port_cfg.rf_cols)
+
+    def render(frame, materials):
+        return simulator.render(
+            state["draws"], state["seeds"], materials, state["position"], state["angles"],
+            state["scene"], state["spacing"], state["starting_material"], maps, port_cfg)["bmode"]
+
+    return render

@@ -19,7 +19,7 @@ def test_validate_rejects_unknown_modes(field):
 def test_render_command_writes_the_frame(tmp_path, capsys):
     out = tmp_path / "frame.png"
     argv = [SPHERE_SCENE, "--elements", "16", "--samples", "2", "--frames", "2", "--seed", "3",
-            "--out", str(out)]
+            "--device", "cpu", "--out", str(out)]
     assert cli.main(argv) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("scene: 2220 triangles")
@@ -33,7 +33,7 @@ def test_render_command_writes_the_frame(tmp_path, capsys):
 @pytest.mark.parametrize("mode", ["culled", "grouped"])
 def test_render_command_intersect_mode(tmp_path, capsys, mode):
     argv = [SPHERE_SCENE, "--elements", "16", "--samples", "2", "--intersect-mode", mode,
-            "--intersect-tile-r", "256", "--out", str(tmp_path / "frame.png")]
+            "--intersect-tile-r", "256", "--device", "cpu", "--out", str(tmp_path / "frame.png")]
     if mode == "grouped":
         with pytest.raises(NotImplementedError, match="grouped"):
             cli.main(argv)

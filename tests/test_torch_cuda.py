@@ -9,8 +9,11 @@ also run where JAX is not installed:
 Tolerances are those of chip_smoke.py: the closest hits (K1, and the
 cluster kernels K5 listed, K6 culled, K7 staged) bitwise in t and winning
 index (FMA contraction is off in the kernels, and plain PyTorch on CUDA
-rounds every op), the march at rtol 1e-4 / atol 1e-5, the postproc at
-1e-5 / 1e-6 and the scan conversion at 1e-6 / 1e-6.
+rounds every op), the march at rtol 1e-4 / atol 1e-5 in each of its four
+texture modes, the postproc at 1e-5 / 1e-6 and the scan conversion at
+1e-6 / 1e-6; the march backward (K8) per SoA field within 1e-4 of the field's
+largest plain entry, the scan-conversion backward (K9) at 1e-5 / 1e-6, and a
+whole fit step's loss and material gradient against the CPU plain path.
 """
 
 import numpy as np
@@ -113,9 +116,81 @@ def test_frame_kernels_match_plain(cuda):
         postproc.postproc_cuda(out["rf_raw"], cfg).cpu(),
         postproc.postproc_plain(out["rf_raw"], cfg).cpu(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(
-        scanconv.scan_convert_cuda(out["rf_env"], sim.scan_table, cfg.bmode_cols).cpu(),
-        scanconv.scan_convert_plain(out["rf_env"], sim.scan_table, cfg.bmode_cols).cpu(),
+        scanconv.scan_convert_cuda(out["rf_env"], sim.scan_maps).cpu(),
+        scanconv.scan_convert_plain(out["rf_env"], sim.scan_maps.table, cfg.bmode_cols).cpu(),
         rtol=1e-6, atol=1e-6)
+
+
+MODES = {
+    "hard_nearest": {},
+    "soft_nearest": {"soft_scattering": True},
+    "hard_trilinear": {"trilinear_texture": True},
+    "soft_trilinear": {"soft_scattering": True, "trilinear_texture": True},
+}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_march_kernels_match_plain_in_every_mode(cuda, mode):
+    """K2 and K8 against their plain versions, and the ``Function`` routes
+    its forward and backward through them (one launch each)."""
+    cfg = small_test_config(**MODES[mode])
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda)
+    soa, seeds = sim.render_frame(1)["soa"], sim.seeds
+    g = torch.randn((cfg.rf_rows, cfg.rf_cols), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    before = (march.launches, march.launches_bwd)
+    x = soa.clone().requires_grad_(True)
+    rf = march.march_cuda(x, seeds, cfg, cfg.rf_cols)
+    (got,) = torch.autograd.grad(rf, x, g)
+    assert (march.launches, march.launches_bwd) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_allclose(rf.detach().cpu(),
+                               march.march_plain(soa, seeds, cfg, cfg.rf_cols).cpu(),
+                               rtol=1e-4, atol=1e-5)
+    want = march.march_bwd_plain(soa, seeds, g, cfg)
+    assert float(want.abs().max()) > 0
+    for f in range(march.N_FIELDS):
+        err = float((got[:, f] - want[:, f]).abs().max())
+        assert err <= 1e-4 * float(want[:, f].abs().max()), (f, err)
+
+
+def test_scan_convert_backward_kernel_matches_plain(cuda):
+    cfg = small_test_config()
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    rf = torch.randn((cfg.rf_rows, cfg.rf_cols), device=cuda, generator=gen).requires_grad_(True)
+    g = torch.randn((cfg.bmode_rows, cfg.bmode_cols), device=cuda, generator=gen)
+    before = scanconv.launches_bwd
+    out = scanconv.scan_convert_cuda(rf, sim.scan_maps)
+    (got,) = torch.autograd.grad(out, rf, g)
+    assert scanconv.launches_bwd == before + 1
+    want = scanconv.scan_convert_bwd_plain(g, sim.scan_maps.table, cfg.rf_rows, cfg.rf_cols)
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-5, atol=1e-6)
+
+
+def test_fit_step_matches_the_cpu_plain_path(cuda):
+    """One fit step's loss (rtol 1e-4) and material gradient (5e-3 of its
+    largest entry: the trace's backward amplifies the devices' ulp
+    differences) on the card against the CPU, same draws."""
+    cfg = small_test_config(soft_scattering=True, trilinear_texture=True)
+    pack = load_and_compile(SPHERE_SCENE)
+    sims = {"cpu": Simulator(pack, cfg, device="cpu", seed=5),
+            "cuda": Simulator(pack, cfg, device=cuda, seed=5)}
+    draws = sims["cpu"].draws(5)
+    start = pack.materials.copy()
+    start[3, 1] *= 2.0
+    result = {}
+    for name, sim in sims.items():
+        d = {k: v.to(sim.device) for k, v in draws.items()}
+        with torch.no_grad():
+            target = sim.render_frame(draws=d)["bmode"]
+        mats = torch.tensor(start, device=sim.device, requires_grad=True)
+        loss = torch.mean((sim.render_frame(materials=mats, draws=d)["bmode"] - target) ** 2)
+        loss.backward()
+        result[name] = (float(loss.detach()), mats.grad.cpu().numpy())
+    (l_c, g_c), (l_g, g_g) = result["cpu"], result["cuda"]
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-4)
+    np.testing.assert_allclose(g_g, g_c, rtol=0, atol=5e-3 * np.abs(g_c).max())
+    assert np.abs(g_c).max() > 0
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -125,10 +200,9 @@ def test_wrappers_reject_bad_inputs(cuda):
         postproc.postproc_cuda(rf.double(), cfg)
     with pytest.raises(ValueError):
         postproc.postproc_cuda(rf.T, cfg)  # not contiguous
-    table = torch.from_numpy(scanconv.pack_scan_maps(
-        *imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols))
+    on_cpu = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols)
     with pytest.raises(ValueError):
-        scanconv.scan_convert_cuda(rf, table, cfg.bmode_cols)  # table left on the CPU
+        scanconv.scan_convert_cuda(rf, on_cpu)  # maps left on the CPU
     soa = torch.zeros((4, march.N_FIELDS, 128), device=cuda)
     with pytest.raises(NotImplementedError):
         march.march_cuda(soa, torch.zeros(2, dtype=torch.int64),

@@ -14,8 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import random_segments, random_triangles, to_np, to_torch
-from mcray_tpu.config import small_test_config
+from _torch_port import both_configs, random_segments, random_triangles, to_np, to_torch
 from mcray_tpu.ops import geometry as ref
 from mcray_tpu.probe import transducer as ref_probe
 from mcray_tpu_torch.ops import geometry
@@ -65,10 +64,10 @@ def test_parked_dead_rays_miss(rng):
 
 @pytest.mark.parametrize("probe", ["convex", "linear", "phased"])
 def test_element_layout_matches(probe):
-    cfg = small_test_config(probe_type=probe)
+    ref_cfg, cfg = both_configs(probe_type=probe)
     pos = np.array([0.5, -1.0, 2.0], np.float32)
     ang = np.array([10.0, -20.0, 35.0], np.float32)
-    want = ref_probe.element_layout(jnp.asarray(pos), jnp.asarray(ang), cfg)
+    want = ref_probe.element_layout(jnp.asarray(pos), jnp.asarray(ang), ref_cfg)
     got = transducer.element_layout(to_torch(pos), to_torch(ang), cfg)
     for g, w in zip(got, want):
         assert tuple(g.shape) == (cfg.transducer_elements, 3)

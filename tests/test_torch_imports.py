@@ -1,0 +1,91 @@
+"""The port stands alone: no module of ``mcray_tpu_torch`` (nor
+``chip_smoke.py``) imports ``jax`` or anything of ``mcray_tpu``, and the
+copies it keeps of the reference's JAX-free modules agree with them."""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from _torch_port import SPHERE_SCENE, both_configs
+from mcray_tpu import config as ref_config
+from mcray_tpu.scene import compile as ref_compile
+from mcray_tpu_torch import config as port_config
+from mcray_tpu_torch.scene import compile as port_compile
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "mcray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "mcray_tpu")
+DERIVED = ("axial_resolution_mm", "axial_resolution_um", "max_travel_time_us", "rf_rows",
+           "rf_cols", "rf_row_dt_us", "march_dt_us", "max_march_steps",
+           "transducer_amplitude_rad", "element_separation_mm")
+
+
+def _imported_names(path: pathlib.Path):
+    """Every absolute module name the file imports, at any depth."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_file_imports_no_jax_and_no_reference(path):
+    bad = [name for name in _imported_names(path) if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_module_imports_with_jax_and_reference_blocked(tmp_path):
+    """In a fresh interpreter whose import system raises on ``jax`` and
+    ``mcray_tpu``, every module of the port imports."""
+    modules = [".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PORT_FILES[:-1]]
+    modules = [m.removesuffix(".__init__") for m in modules]
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"assert not [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        f"print(len({modules!r}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) == len(modules) > 30
+
+
+@pytest.mark.parametrize("small", [False, True], ids=["SimConfig", "small_test_config"])
+def test_config_copy_matches_reference(small):
+    ref, port = both_configs(small=small)
+    assert type(ref) is not type(port)
+    assert [f.name for f in dataclasses.fields(ref)] == [f.name for f in dataclasses.fields(port)]
+    assert dataclasses.asdict(ref) == dataclasses.asdict(port)
+    for name in DERIVED:
+        assert getattr(ref, name) == getattr(port, name), name
+    assert dataclasses.asdict(ref_config.DEFAULT_CONFIG) == dataclasses.asdict(
+        port_config.DEFAULT_CONFIG)
+    assert hash(port) == hash(dataclasses.replace(port))  # hashable: ops cache by it
+
+
+def test_loader_copy_compiles_the_same_sphere():
+    ref_cfg, _ = both_configs()
+    want = ref_compile.load_and_compile(SPHERE_SCENE, ref_cfg, with_bvh=True)
+    got = port_compile.load_and_compile(SPHERE_SCENE, with_bvh=True)
+    for field in ("tris", "tri_mesh_id", "materials", "mesh_mat_inside", "mesh_mat_outside",
+                  "mesh_is_vascular", "transducer_position", "transducer_angles", "spacing"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
+    assert got.starting_material == want.starting_material
+    np.testing.assert_array_equal(got.bvh.tri_order, want.bvh.tri_order)

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from _torch_port import SPHERE_SCENE, random_segments, random_triangles, to_np, to_torch
-from mcray_tpu.config import small_test_config
 from mcray_tpu.ops.pallas.intersect import intersect_closest_pallas
+from mcray_tpu_torch.config import small_test_config
 from mcray_tpu_torch.models.simulator import Simulator
 from mcray_tpu_torch.ops import geometry
 from mcray_tpu_torch.ops.cuda import intersect
@@ -27,7 +27,7 @@ def _sphere_rays():
     """The port's own bounce-0 and bounce-1 closest-hit queries on the sphere."""
     pack = load_and_compile(SPHERE_SCENE)
     cfg = small_test_config(transducer_elements=32, samples_per_element=2)
-    rays = Simulator(pack, cfg).render_frame(4)["segments"]["rays"]
+    rays = Simulator(pack, cfg, device="cpu").render_frame(4)["segments"]["rays"]
     return pack.tris, pack.tri_mesh_id, torch.cat([rays[0], rays[1]], dim=1).T
 
 

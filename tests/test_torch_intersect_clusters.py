@@ -49,7 +49,8 @@ def _case(case):
     if case == "sphere":
         pack = load_and_compile(SPHERE_SCENE)
         cfg = small_test_config(transducer_elements=32, samples_per_element=2)
-        rays = Simulator(pack, cfg, use_culled_intersect=False).render_frame(4)["segments"]["rays"]
+        sim = Simulator(pack, cfg, device="cpu", use_culled_intersect=False)
+        rays = sim.render_frame(4)["segments"]["rays"]
         q = to_np(torch.cat([rays[0], rays[1]], dim=1)).T  # bounces 0 and 1: 128 rays
         return pack.tris, pack.tri_mesh_id, pack.transducer_position, q[:, :3], q[:, 3:]
     tris, mid = random_triangles(np.random.default_rng(5), 900)

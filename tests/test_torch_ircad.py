@@ -27,10 +27,10 @@ def ircad_hd(tmp_path_factory):
 def test_ircad_hd_listed_frame_equals_brute(ircad_hd):
     assert ircad_hd.n_triangles == 123_224
     cfg = small_test_config(transducer_elements=16, samples_per_element=2)
-    listed = Simulator(ircad_hd, cfg)
+    listed = Simulator(ircad_hd, cfg, device="cpu")
     assert listed.culled_tris[1] == "listed" and listed.intersect_tile_r == 512
     assert listed.culled_tris[0].tile_t == 128
-    brute = Simulator(ircad_hd, cfg, use_culled_intersect=False)
+    brute = Simulator(ircad_hd, cfg, device="cpu", use_culled_intersect=False)
     a, b = listed.render_frame(7), brute.render_frame(7)
     assert int(b["segments"]["valid"].sum()) > 50
     for key in ("valid", "media_id"):
@@ -43,14 +43,14 @@ def test_ircad_hd_listed_frame_equals_brute(ircad_hd):
 def test_simulator_picks_the_reference_default():
     pack = load_and_compile(SPHERE_SCENE)  # 2,220 triangles: over the 2,048 threshold
     cfg = small_test_config(transducer_elements=16, samples_per_element=2)
-    sim = Simulator(pack, cfg)
+    sim = Simulator(pack, cfg, device="cpu")
     assert sim.culled_tris[1] == "listed" and sim.intersect_tile_r == 512
     for mode in ("culled", "staged"):
-        sim = Simulator(pack, cfg, intersect_mode=mode)
+        sim = Simulator(pack, cfg, device="cpu", intersect_mode=mode)
         assert sim.culled_tris[1] == mode and sim.culled_tris[0].tile_t == 256
-    sim = Simulator(pack, cfg, use_culled_intersect=False)
+    sim = Simulator(pack, cfg, device="cpu", use_culled_intersect=False)
     assert sim.culled_tris is None and sim.intersect_tile_r == 128
     with pytest.raises(NotImplementedError, match="grouped"):
-        Simulator(pack, cfg, intersect_mode="grouped")
+        Simulator(pack, cfg, device="cpu", intersect_mode="grouped")
     with pytest.raises(ValueError, match="intersect_mode"):
-        Simulator(pack, cfg, intersect_mode="lsited")
+        Simulator(pack, cfg, device="cpu", intersect_mode="lsited")

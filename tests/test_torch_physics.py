@@ -6,14 +6,12 @@ outputs compare at rtol 1e-5 (pow/sqrt/sin/cos round their last ulp
 differently in XLA and torch), atol 1e-6 for components near zero.
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import reference_draws, to_np, to_torch
+from _torch_port import both_configs, reference_draws, to_np, to_torch
 from mcray_tpu.ops import physics as ref
 from mcray_tpu_torch.ops import physics
 
@@ -23,8 +21,8 @@ EXACT_OUT = ("new_media_id", "new_media_outside_id", "chose_reflection")
 
 @pytest.mark.parametrize("bug_compat", [False, True], ids=["id-transition", "bug-compat"])
 def test_hit_boundary_matches(rng, sphere_pack, bug_compat):
-    pack, cfg = sphere_pack
-    cfg = dataclasses.replace(cfg, bug_compat_material_transition=bug_compat)
+    pack, _ = sphere_pack
+    ref_cfg, cfg = both_configs(bug_compat_material_transition=bug_compat)
     n = 512
     m, k = pack.n_materials, pack.mesh_mat_inside.shape[0]
     d = rng.standard_normal((n, 3)).astype(np.float32)
@@ -46,7 +44,7 @@ def test_hit_boundary_matches(rng, sphere_pack, bug_compat):
 
     want = ref.hit_boundary(
         None, *(jnp.asarray(v) for v in inputs.values()), *(jnp.asarray(t) for t in tables),
-        cfg, draws={key: jnp.asarray(v) for key, v in draws.items()},
+        ref_cfg, draws={key: jnp.asarray(v) for key, v in draws.items()},
     )
     got = physics.hit_boundary(
         *(to_torch(v) for v in inputs.values()), *(to_torch(t) for t in tables), cfg,

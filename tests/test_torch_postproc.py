@@ -20,8 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_port import to_np, to_torch
-from mcray_tpu.config import SimConfig, small_test_config
+from _torch_port import both_configs, to_np, to_torch
 from mcray_tpu.ops import imaging as ref_imaging
 from mcray_tpu.ops.pallas.postproc import convolve_envelope_pallas
 from mcray_tpu_torch.ops import imaging
@@ -41,18 +40,18 @@ def _sparse_rf(rng, rows, cols):
     "shape", [(465, 64), (60, 128), (12, 16)], ids=["full-height", "short", "below-kernel-span"]
 )
 def test_postproc_plain_matches_pallas(rng, shape):
-    cfg = SimConfig()
+    ref_cfg, cfg = both_configs(small=False)
     rf = rng.standard_normal(shape).astype(np.float32)
-    want = np.asarray(convolve_envelope_pallas(jnp.asarray(rf), cfg, interpret=True))
+    want = np.asarray(convolve_envelope_pallas(jnp.asarray(rf), ref_cfg, interpret=True))
     got = to_np(postproc.postproc_cuda(to_torch(rf), cfg))  # CPU tensor: the plain version
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
 def test_postproc_plain_matches_jnp(rng, sparse):
-    cfg = SimConfig()
+    ref_cfg, cfg = both_configs(small=False)
     rf = _sparse_rf(rng, 465, 48) if sparse else rng.standard_normal((465, 48)).astype(np.float32)
-    conv = jax.jit(lambda x: ref_imaging.convolve_psf(x, cfg))(jnp.asarray(rf))
+    conv = jax.jit(lambda x: ref_imaging.convolve_psf(x, ref_cfg))(jnp.asarray(rf))
     env = jax.jit(ref_imaging.envelope)(conv)
     got_conv = imaging.convolve_psf(to_torch(rf), cfg)
     np.testing.assert_allclose(to_np(got_conv), np.asarray(conv), rtol=1e-5, atol=1e-6)
@@ -66,7 +65,7 @@ def test_plateau_peak_follows_jnp_envelope():
     """Plateaus after a rise (2, 2 and 3, 3, 3): the peak is the plateau's
     first row, rows before the first peak lerp from the raw first row, and
     rows after the last peak keep their raw values."""
-    cfg = SimConfig()
+    ref_cfg, cfg = both_configs(small=False)
     col = np.array([0.0, 0.5, 2.0, 2.0, 1.0, 0.25, 3.0, 3.0, 3.0, 0.5, 0.1, 0.0], np.float32)
     rf = np.tile(col[:, None], (1, 4))  # below the PSF span: postproc is the envelope alone
     want = np.array([0.0, 1.0, 2.0, 2.25, 2.5, 2.75, 3.0, 3.0, 3.0, 0.5, 0.1, 0.0], np.float32)
@@ -76,13 +75,13 @@ def test_plateau_peak_follows_jnp_envelope():
     np.testing.assert_array_equal(to_np(postproc.postproc_cuda(to_torch(rf), cfg)), ref_env)
     # fed the plateau directly, the reference's Pallas kernel applies the same rule
     np.testing.assert_allclose(
-        np.asarray(convolve_envelope_pallas(jnp.asarray(rf), cfg, interpret=True)), ref_env,
+        np.asarray(convolve_envelope_pallas(jnp.asarray(rf), ref_cfg, interpret=True)), ref_env,
         rtol=1e-6)
 
 
 def test_unported_modes_raise():
     rf = to_torch(np.zeros((40, 20), np.float32))
     with pytest.raises(NotImplementedError):
-        imaging.apply_envelope(rf, small_test_config(envelope_mode="hilbert"))
+        imaging.apply_envelope(rf, both_configs(envelope_mode="hilbert")[1])
     with pytest.raises(NotImplementedError):
-        imaging.convolve_psf(rf, small_test_config(centered_psf=True))
+        imaging.convolve_psf(rf, both_configs(centered_psf=True)[1])

@@ -11,8 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_port import to_np, to_torch
-from mcray_tpu.config import SimConfig, small_test_config
+from _torch_port import both_configs, to_np, to_torch
 from mcray_tpu.ops import imaging as ref_imaging
 from mcray_tpu.ops.pallas.scanconv import pack_scan_maps as ref_pack
 from mcray_tpu.ops.pallas.scanconv import pack_scan_maps_banded, scan_convert_banded
@@ -22,16 +21,17 @@ from mcray_tpu_torch.ops.cuda import scanconv
 
 @pytest.mark.parametrize("probe", ["convex", "linear", "phased"])
 def test_scan_convert_plain_matches_reference(rng, probe):
-    cfg = SimConfig(probe_type=probe) if probe == "convex" else small_test_config(probe_type=probe)
+    ref_cfg, cfg = both_configs(small=probe != "convex", probe_type=probe)
     maps = imaging.scan_conversion_maps(cfg)
-    ref_maps = ref_imaging.scan_conversion_maps(cfg)
+    ref_maps = ref_imaging.scan_conversion_maps(ref_cfg)
     for m, r in zip(maps, ref_maps):
         np.testing.assert_array_equal(m, r)
     table = scanconv.pack_scan_maps(*maps, cfg.rf_rows, cfg.rf_cols)
     np.testing.assert_array_equal(table, ref_pack(*maps, cfg.rf_rows, cfg.rf_cols))
 
     rf = rng.standard_normal((cfg.rf_rows, cfg.rf_cols)).astype(np.float32)
-    got = to_np(scanconv.scan_convert_cuda(to_torch(rf), to_torch(table), cfg.bmode_cols))
+    got = to_np(scanconv.scan_convert_cuda(
+        to_torch(rf), scanconv.scan_maps(*maps, cfg.rf_rows, cfg.rf_cols)))
     want_gather = np.asarray(ref_imaging.scan_convert(jnp.asarray(rf), *map(jnp.asarray, maps)))
     np.testing.assert_allclose(got, want_gather, rtol=1e-5, atol=1e-6)
     tb, j_w, band_k, split = pack_scan_maps_banded(*maps, cfg.rf_rows, cfg.rf_cols)
@@ -47,7 +47,7 @@ def test_scan_convert_plain_matches_reference(rng, probe):
 
 
 def test_scan_convert_border_is_zero():
-    cfg = SimConfig()
+    _, cfg = both_configs(small=False)
     map_row, map_col = imaging.scan_conversion_maps(cfg)
     table = scanconv.pack_scan_maps(map_row, map_col, cfg.rf_rows, cfg.rf_cols)
     out = to_np(scanconv.scan_convert_plain(

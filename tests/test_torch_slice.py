@@ -33,8 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import SPHERE_SCENE, reference_draws, to_np
-from mcray_tpu.config import small_test_config
+from _torch_port import SPHERE_SCENE, both_configs, reference_draws, to_np
 from mcray_tpu.models import simulator as ref_sim
 from mcray_tpu.ops import geometry as ref_geometry
 from mcray_tpu.ops import imaging as ref_imaging
@@ -43,7 +42,7 @@ from mcray_tpu.ops.pallas.intersect import intersect_closest_pallas, pack_tris_c
 from mcray_tpu.scene.compile import load_and_compile
 from mcray_tpu_torch.models import simulator
 from mcray_tpu_torch.ops import clusters, geometry
-from mcray_tpu_torch.ops.cuda.scanconv import pack_scan_maps
+from mcray_tpu_torch.ops.cuda.scanconv import scan_maps
 from mcray_tpu_torch.utils.convert import from_reference
 
 VECTOR_FIELDS = ("from", "to", "direction")
@@ -52,9 +51,9 @@ SCALAR_FIELDS = ("reflected", "initial", "attenuation", "distance")
 
 @pytest.fixture(scope="module")
 def reference_setup():
-    cfg = small_test_config()
-    pack = load_and_compile(SPHERE_SCENE, cfg, with_bvh=False)
-    return cfg, pack
+    ref_cfg, cfg = both_configs()
+    pack = load_and_compile(SPHERE_SCENE, ref_cfg, with_bvh=False)
+    return (ref_cfg, cfg), pack
 
 
 def _reference_frame(cfg, pack, seed, **trace_kw):
@@ -103,16 +102,20 @@ def _grazes_an_edge(tris, ray, tol=1e-6) -> bool:
     return bool(np.any(ok & (t > 0) & (t < 1) & (np.abs(margin) < tol)))
 
 
-def _check_frame(cfg, pack, seed, ref_trace_kw=None, port_trace_kw=None):
-    """Render ``seed`` in both packages and hold the port's frame to the
-    reference's under the edge-grazing rule of the module docstring."""
-    ref_segments, ref_frame, seeds, maps = _reference_frame(cfg, pack, seed, **(ref_trace_kw or {}))
+def _check_frame(cfgs, pack, seed, ref_trace_kw=None, port_trace_kw=None):
+    """Render ``seed`` in both packages (each with its own config of
+    ``cfgs``) and hold the port's frame to the reference's under the
+    edge-grazing rule of the module docstring."""
+    ref_cfg, cfg = cfgs
+    ref_segments, ref_frame, seeds, maps = _reference_frame(ref_cfg, pack, seed,
+                                                            **(ref_trace_kw or {}))
     n = cfg.transducer_elements * cfg.samples_per_element
-    state = from_reference(pack, pack.materials, seeds, reference_draws(seed, n, cfg.max_depth))
-    table = pack_scan_maps(maps[0], maps[1], cfg.rf_rows, cfg.rf_cols)
+    state = from_reference(pack, pack.materials, seeds, reference_draws(seed, n, cfg.max_depth),
+                           device="cpu")
+    port_maps = scan_maps(maps[0], maps[1], cfg.rf_rows, cfg.rf_cols)
     out = simulator.render(
         state["draws"], state["seeds"], state["materials"], state["position"], state["angles"],
-        state["scene"], state["spacing"], state["starting_material"], torch.from_numpy(table), cfg,
+        state["scene"], state["spacing"], state["starting_material"], port_maps, cfg,
         **(port_trace_kw or {}),
     )
     segments = {k: to_np(v) for k, v in out["segments"].items()}
@@ -141,7 +144,7 @@ def _check_frame(cfg, pack, seed, ref_trace_kw=None, port_trace_kw=None):
     )
     # the lateral PSF reads columns c..c+L-1, so env column c' sees raw c' .. c'+L-1
     env_ok = np.array([rf_cols[c : c + cfg.psf_lateral_size].all() for c in range(cfg.rf_cols)])
-    c0 = table[:, 3, : cfg.bmode_cols].astype(int)
+    c0 = to_np(port_maps.table)[:, 3, : cfg.bmode_cols].astype(int)
     pix_ok = env_ok[np.clip(c0, 0, cfg.rf_cols - 1)] & env_ok[np.clip(c0 + 1, 0, cfg.rf_cols - 1)]
     # the port clamps the B-mode at 0, as the reference's kernel path does
     np.testing.assert_allclose(
@@ -153,18 +156,18 @@ def _check_frame(cfg, pack, seed, ref_trace_kw=None, port_trace_kw=None):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_render_matches_reference(reference_setup, seed):
-    cfg, pack = reference_setup
-    _check_frame(cfg, pack, seed)
+    cfgs, pack = reference_setup
+    _check_frame(cfgs, pack, seed)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_listed_render_matches_reference(reference_setup, seed):
-    cfg, pack = reference_setup
-    order = load_and_compile(SPHERE_SCENE, cfg, with_bvh=True).bvh.tri_order
+    cfgs, pack = reference_setup
+    order = load_and_compile(SPHERE_SCENE, cfgs[0], with_bvh=True).bvh.tri_order
     args = (pack.tris, pack.tri_mesh_id, order)
     kw = {"sort_origin": pack.transducer_position, "tile_t": 128}
     _check_frame(
-        cfg, pack, seed,
+        cfgs, pack, seed,
         ref_trace_kw={"culled_tris": (pack_tris_culled(*args, **kw), "listed"),
                       "intersect_tile_r": 512, "intersect_interpret": True},
         port_trace_kw={"culled_tris": (clusters.pack_tris_culled(*args, **kw), "listed"),
@@ -180,9 +183,10 @@ def test_edge_grazing_ray_splits_the_reference(reference_setup):
     interpret mode does; op by op (``jax.disable_jit``) it misses 1032 and
     hits triangle 10 further on. The port, which rounds every op, decides as
     the reference's op-by-op mode does, bitwise."""
-    cfg, pack = reference_setup
+    (_, cfg), pack = reference_setup
     n = cfg.transducer_elements * cfg.samples_per_element
-    state = from_reference(pack, pack.materials, np.zeros(2), reference_draws(1, n, cfg.max_depth))
+    state = from_reference(pack, pack.materials, np.zeros(2), reference_draws(1, n, cfg.max_depth),
+                           device="cpu")
     segments = simulator.trace_paths(
         state["draws"], state["materials"], state["position"], state["angles"], state["scene"],
         state["spacing"], state["starting_material"], cfg)
@@ -219,7 +223,7 @@ def test_port_imports_no_jax(tmp_path):
         "from mcray_tpu_torch.scene.compile import load_and_compile\n"
         f"pack = load_and_compile({SPHERE_SCENE!r})\n"
         "cfg = small_test_config(transducer_elements=16, samples_per_element=2)\n"
-        "b = Simulator(pack, cfg).render_frame(3)['bmode']\n"
+        "b = Simulator(pack, cfg, device='cpu').render_frame(3)['bmode']\n"
         "assert b.shape == (cfg.bmode_rows, cfg.bmode_cols) and bool(torch.isfinite(b).all())\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('ok')\n"

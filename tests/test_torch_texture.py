@@ -11,8 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import to_np, to_torch
-from mcray_tpu.config import small_test_config
+from _torch_port import both_configs, to_np, to_torch
 from mcray_tpu.ops import texture as ref
 from mcray_tpu_torch.ops import texture
 
@@ -48,13 +47,13 @@ def test_procedural_fields_bits_match(rng, rng_mode):
     ids=["bitsum-nearest-hard", "boxmuller", "trilinear-soft", "non-pow2-size"],
 )
 def test_get_scattering_matches(rng, overrides):
-    cfg = small_test_config(**overrides)
+    ref_cfg, cfg = both_configs(**overrides)
     n = 2048
     points = rng.uniform(-12, 12, (n, 3)).astype(np.float32)
     density, mu, sigma = (rng.uniform(-1, 1, n).astype(np.float32) for _ in range(3))
     want = np.asarray(ref.get_scattering(
         {"seeds": jnp.asarray(SEEDS)}, jnp.asarray(density), jnp.asarray(mu),
-        jnp.asarray(sigma), jnp.asarray(points), cfg))
+        jnp.asarray(sigma), jnp.asarray(points), ref_cfg))
     got = to_np(texture.get_scattering(
         {"seeds": to_torch(SEEDS.astype(np.int64))}, to_torch(density), to_torch(mu),
         to_torch(sigma), to_torch(points), cfg))
@@ -62,11 +61,11 @@ def test_get_scattering_matches(rng, overrides):
 
 
 def test_make_texture_volume_seeds():
-    cfg = small_test_config()
+    _, cfg = both_configs()
     a = texture.make_texture_volume(torch.Generator().manual_seed(7), cfg)["seeds"]
     b = texture.make_texture_volume(torch.Generator().manual_seed(7), cfg)["seeds"]
     assert a.shape == (2,) and a.dtype == torch.int64
     assert torch.equal(a, b)
     assert ((a >= 0) & (a < 2**31 - 1)).all()
     with pytest.raises(NotImplementedError):
-        texture.make_texture_volume(torch.Generator(), small_test_config(texture_mode="table"))
+        texture.make_texture_volume(torch.Generator(), both_configs(texture_mode="table")[1])
