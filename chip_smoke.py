@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the nine CUDA kernels from mcray_tpu_torch/csrc (one nvcc per
+Builds the ten CUDA kernels from mcray_tpu_torch/csrc (one nvcc per
 source, all at once) and drives the port's paths at SimConfig() (512
 elements x 5 paths x 10 bounces, 465 x 512 RF, 400 x 500 B-mode), each
 with the launch counts set to 0 just before it and read just after:
@@ -14,6 +14,11 @@ with the launch counts set to 0 just before it and read just after:
 - the sphere on the brute closest hit (K1);
 - the 123,224-triangle ircad_hd scene on its default (listed) set;
 - the culled (K6) and staged (K7) closest hits on both scenes;
+- the ~615k-triangle ircad11_mega scene in grouped mode (K10 and its
+  residual K5 pass, then K2, K3, K4) and in listed mode: one seed, so the
+  two frames must agree;
+- the isotropic 2,560-ray query on a 200,000-triangle synthetic scene that
+  the grouped kernel was built for, and the same scene's coherent fan;
 - the differentiable material fit on the sphere in soft + trilinear mode:
   the target frame, then 5 Adam steps of ``MaterialFitter`` on the doubled
   LIVER attenuation, through K5, K2, K3, K4 forward and the march (K8) and
@@ -21,9 +26,11 @@ with the launch counts set to 0 just before it and read just after:
 
 Every kernel is held against its plain PyTorch version at the shapes its
 path gave it (closest hits bitwise in t and slot, at every bounce; the
-cluster kernels' hit and t also against K1's bitwise), the CUDA path
+cluster paths' hit and t also against K1's bitwise), the CUDA path
 against the plain CPU path on a small config (the frame, and the loss and
-material gradient of one fit step), and every frame's image is checked.
+material gradient of one fit step), the keyed randomness on the card
+against the CPU (bits equal, normals allclose), and every frame's image is
+checked.
 Frames, fit steps, stages and kernels (beside their plain versions and,
 where one PyTorch call computes the same function, beside that call) are
 timed with CUDA events; each kernel's bound (the least time the card could
@@ -50,21 +57,35 @@ import torch
 
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models import simulator
-from mcray_tpu_torch.models.simulator import CLUSTER_INTERSECTS, Simulator
+from mcray_tpu_torch.models.simulator import Simulator
 from mcray_tpu_torch.models.trainer import MaterialFitter
-from mcray_tpu_torch.ops import clusters, imaging, physics
+from mcray_tpu_torch.ops import clusters, geometry, imaging, physics
 from mcray_tpu_torch.ops import cuda as kernels
-from mcray_tpu_torch.ops.cuda import (_build, intersect, intersect_culled, intersect_listed,
-                                      intersect_staged, march, postproc, scanconv)
+from mcray_tpu_torch.ops.bvh import build_bvh
+from mcray_tpu_torch.ops.cuda import (_build, intersect, intersect_culled, intersect_grouped,
+                                      intersect_listed, intersect_staged, march, postproc,
+                                      scanconv)
 from mcray_tpu_torch.ops.geometry import NO_HIT_T
+from mcray_tpu_torch.scene import stress
 from mcray_tpu_torch.scene.compile import load_and_compile
+from mcray_tpu_torch.utils import rng
+from mcray_tpu_torch.utils.native import get_native
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SPHERE_SCENE = os.path.join(REPO, "assets", "sphere", "sphere.scene")
 IRCAD_HD_SCENE = os.path.join(REPO, "assets", "ircad11_hd", "santi-liver-hd.scene")
 # the ircad_hd phantom meshes are generated here (git ignores build/)
 IRCAD_HD_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_hd")
-TIMED_FRAMES = {"sphere": 15, "sphere brute": 5, "ircad_hd": 8}
+MEGA_SCENE = os.path.join(REPO, "assets", "ircad11_mega", "santi-liver-mega.scene")
+MEGA_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_mega")
+TIMED_FRAMES = {"sphere": 10, "sphere brute": 5, "ircad_hd": 5, "mega listed": 5,
+                "mega grouped": 5}
+MEGA_LATE_BOUNCE = 5          # the bounce timed beside bounce 0 (coherent fan) on the mega frame
+ISOTROPIC_TRIS, ISOTROPIC_RAYS = 200_000, 2560
+# the two mega frames (one seed, two closest-hit modes) against each other
+MEGA_FRAME_RTOL, MEGA_FRAME_ATOL = 1e-3, 1e-4
+# the normal draw goes through each device's erfinv
+NORMAL_RTOL, NORMAL_ATOL = 1e-5, 1e-6
 FIT_STEPS = 5
 TOLERANCES = {  # (rtol, atol) of kernel vs plain at the frame's shapes
     "march": (1e-4, 1e-5),
@@ -105,6 +126,8 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
                          "mcray_tpu/ops/pallas/intersect.py:1461"),
     "intersect_staged": ("mcray_tpu_torch/csrc/intersect_staged.cu",
                          "mcray_tpu/ops/pallas/intersect.py:460"),
+    "intersect_grouped": ("mcray_tpu_torch/csrc/intersect_grouped.cu",
+                          "mcray_tpu/ops/pallas/intersect.py:1151"),
     "march": ("mcray_tpu_torch/csrc/march.cu", "mcray_tpu/ops/pallas/march.py:233"),
     "postproc": ("mcray_tpu_torch/csrc/postproc.cu", "mcray_tpu/ops/pallas/postproc.py:26"),
     "scanconv": ("mcray_tpu_torch/csrc/scanconv.cu", "mcray_tpu/ops/pallas/scanconv.py:447"),
@@ -113,7 +136,7 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
                      "mcray_tpu/ops/pallas/scanconv.py:482"),
 }
 CLUSTER_KERNEL = {"listed": "intersect_listed", "culled": "intersect_culled",
-                  "staged": "intersect_staged"}
+                  "staged": "intersect_staged", "grouped": "intersect_grouped"}
 
 
 def nvidia_smi() -> str:
@@ -190,32 +213,62 @@ def drive(name: str, sim, expected: dict[str, int], seed: int = 0):
     return out, counts
 
 
+def listed_args(o, s, packed, tile_r: int) -> tuple:
+    """K5's arguments for one ray set: padded rays, the packets' lists, the
+    running best's start (inert lanes at t = 0)."""
+    op, sp, padded = clusters.pad_rays(o, s, tile_r)
+    live = torch.abs(sp).sum(dim=1) > 0.0
+    return (padded, *clusters.packet_cluster_lists(op, sp, packed, tile_r),
+            torch.where(live, NO_HIT_T, 0.0), torch.zeros_like(live, dtype=torch.int32), packed)
+
+
+def grouped_args(o, s, packed, tile_r: int) -> tuple[tuple, dict]:
+    """K10's arguments for one ray set (padded rays, each cluster's ray
+    table) and what the prepass found: live rays, (ray, cluster) incidences,
+    how many the tables hold, and the share of clusters that dropped a ray."""
+    op, sp, padded = clusters.pad_rays(o, s, tile_r, 1e9)
+    hit_m, live = clusters.ray_cluster_hits(op, sp, packed)
+    ray_ids, counts, overflow = clusters.cluster_ray_tables(
+        hit_m, intersect_grouped.GROUP_G, intersect_grouped.CHUNK_G)
+    n_live = int(live.sum())
+    stats = {"live": n_live, "incidences": int(hit_m.sum()), "in_table": int(counts.sum()),
+             "clusters_with_rays": int((counts > 0).sum()),
+             "overflow_share": float(overflow.float().mean()),
+             "per_ray": int(hit_m.sum()) / max(n_live, 1)}
+    return (padded, ray_ids, counts, packed), stats
+
+
+def cluster_call(mode: str, o, s, packed, tile_r: int):
+    """(kernel, plain, arguments) of ``mode``'s cluster kernel for one ray set."""
+    if mode == "grouped":
+        return (intersect_grouped.grouped_best, intersect_grouped.grouped_best_plain,
+                grouped_args(o, s, packed, tile_r)[0])
+    if mode == "listed":
+        return (intersect_listed.listed_best, intersect_listed.listed_best_plain,
+                listed_args(o, s, packed, tile_r))
+    mod = intersect_culled if mode == "culled" else intersect_staged
+    padded = clusters.pad_rays(o, s, tile_r)[2]
+    return getattr(mod, f"{mode}_best"), getattr(mod, f"{mode}_best_plain"), (padded, packed, tile_r)
+
+
 def check_cluster_bounces(name: str, sim, rays: torch.Tensor, tri_soa) -> list:
     """The path's cluster kernel against its plain version (t and slot
-    bitwise) and the cluster path's hit and t against K1's (bitwise), at
-    every bounce's rays of the frame; returns the per-bounce (kernel,
-    plain, arguments)."""
+    bitwise; for K10 on every slot of the cluster tables) and the whole
+    cluster closest hit's hit and t against K1's (bitwise), at every
+    bounce's rays of the frame; returns the per-bounce (kernel, plain,
+    arguments)."""
     packed, mode = sim.culled_tris
     tile_r = sim.intersect_tile_r
+    closest = simulator.cluster_intersect(mode, tile_r)
     calls = []
     differing = vs_brute = 0
     for d in range(rays.shape[0]):
         o, s = rays[d][0:3].T.contiguous(), rays[d][3:6].T.contiguous()
-        op, sp, padded = clusters.pad_rays(o, s, tile_r)
-        if mode == "listed":
-            live = torch.abs(sp).sum(dim=1) > 0.0
-            args = (padded, *clusters.packet_cluster_lists(op, sp, packed, tile_r),
-                    torch.where(live, NO_HIT_T, 0.0), torch.zeros_like(live, dtype=torch.int32),
-                    packed)
-            kernel, plain = intersect_listed.listed_best, intersect_listed.listed_best_plain
-        else:
-            mod = intersect_culled if mode == "culled" else intersect_staged
-            args = (padded, packed, tile_r)
-            kernel, plain = getattr(mod, f"{mode}_best"), getattr(mod, f"{mode}_best_plain")
+        kernel, plain, args = cluster_call(mode, o, s, packed, tile_r)
         t_k, i_k = kernel(*args)
         t_p, i_p = plain(*args)
         differing += int((t_k != t_p).sum() + (i_k != i_p).sum())
-        got = CLUSTER_INTERSECTS[mode](o, s, packed, tile_r=tile_r)
+        got = closest(o, s, packed)
         bt, _ = intersect.intersect_best(rays[d].contiguous(), tri_soa)
         vs_brute += int((got["hit"] != (bt < 1.5)).sum() + (got["t"] != bt).sum())
         calls.append((kernel, plain, args))
@@ -309,6 +362,19 @@ def cluster_bound(sim, calls) -> tuple[float, str]:
     return bound(n_b / len(calls), n_o / len(calls))
 
 
+def grouped_bound(calls) -> tuple[float, str]:
+    """K10 per launch, mean over the given calls, for this run's tables:
+    every (ray, cluster) incidence in a table tested against the cluster's
+    triangles; rows v0/e1/e2 of each cluster that holds a ray read once, the
+    rays, tables and counts read once, the two result tables written once."""
+    n_b = n_o = 0
+    for _, _, (padded, ray_ids, counts, packed) in calls:
+        n_o += int(counts.sum()) * packed.tile_t * OPS_MOLLER_TRUMBORE
+        n_b += (nbytes(padded, ray_ids, counts) + 2 * nbytes(ray_ids)
+                + int((counts > 0).sum()) * 9 * packed.tile_t * 4)
+    return bound(n_b / len(calls), n_o / len(calls))
+
+
 def matched_steps(soa: torch.Tensor, cfg, n_cols: int) -> int:
     """March steps of this SoA that land inside the time window: the work
     the march kernels need for these segments."""
@@ -347,20 +413,21 @@ def check_march_bwd(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max())
 
 
-def profile_fit_steps(fit, draws, step_ms: float, n: int = 3) -> None:
-    """The device's view of ``n`` fit steps by ``torch.profiler``: busy time
-    (the union of the device events' intervals) per step, its share of the
-    unprofiled median step ``step_ms``, device operations per step and the
-    largest kernels. Raises if the profiler saw no device event."""
+def device_view(label: str, fn, unit_ms: float, n: int = 3, top: int = 8) -> dict:
+    """The device's view of ``n`` calls of ``fn`` by ``torch.profiler``: busy
+    time (the union of the device events' intervals) per call, its share of
+    the unprofiled median ``unit_ms``, device operations per call and the
+    largest kernels. Returns busy ms, operations and ms by kernel name, per
+    call. Raises if the profiler saw no device event."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            fit.step(draws)
+            fn()
         torch.cuda.synchronize()
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
-        raise AssertionError("fit step profile: the profiler recorded no device event")
+        raise AssertionError(f"{label} profile: the profiler recorded no device event")
     busy, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
         busy += max(0.0, stop - max(start, end))
@@ -368,13 +435,14 @@ def profile_fit_steps(fit, draws, step_ms: float, n: int = 3) -> None:
     by_name: dict[str, float] = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    by_name = {k: v / 1e3 / n for k, v in by_name.items()}
     busy_ms = busy / 1e3 / n
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"  fit step profile over {n} steps: device busy {busy_ms:.3f} ms per step "
-          f"({busy_ms / step_ms:.1%} of the unprofiled median step, idle "
-          f"{1 - busy_ms / step_ms:.1%}); {len(device) / n:.0f} device operations per step")
-    for name, us in top:
-        print(f"    {us / 1e3 / n:8.3f} ms per step  {name[:90]}")
+    print(f"  {label} profile over {n} calls: device busy {busy_ms:.3f} ms per call "
+          f"({busy_ms / unit_ms:.1%} of the unprofiled median {unit_ms:.3f} ms, idle "
+          f"{1 - busy_ms / unit_ms:.1%}); {len(device) / n:.0f} device operations per call")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {ms:8.3f} ms per call  {name[:90]}")
+    return {"busy_ms": busy_ms, "operations": len(device) / n, "by_name": by_name}
 
 
 def fit_phase(pack, smi: str) -> dict:
@@ -456,7 +524,7 @@ def fit_phase(pack, smi: str) -> dict:
           f"(min {min(step_ms):.3f}, max {max(step_ms):.3f}) over {FIT_STEPS} steps; forward "
           f"{statistics.median(fwd_ms):.3f} ms, backward {statistics.median(bwd_ms):.3f} ms; "
           f"postproc backward (plain PyTorch autograd, no kernel) {pp_bwd:.3f} ms")
-    profile_fit_steps(fit, draws, statistics.median(step_ms))
+    device_view("fit step", lambda: fit.step(draws), statistics.median(step_ms))
     return {"sim": sim, "frame": frame, "counts": counts, "steps": len(losses), "cfg": cfg}
 
 
@@ -489,6 +557,123 @@ def fit_cuda_vs_cpu(pack) -> None:
         raise AssertionError("the fit step on the card disagrees with the CPU plain path")
 
 
+def compare_mega_frames(grouped: dict, listed: dict) -> None:
+    """One seed through two closest-hit modes: the same closest hit at every
+    bounce, so the same rays and segments bitwise, and the same images."""
+    for key in ("rays", "valid", "media_id", "to", "reflected"):
+        if not torch.equal(grouped["segments"][key], listed["segments"][key]):
+            raise AssertionError(f"mega grouped vs listed: segments[{key!r}] differ")
+    diffs = {}
+    for key in ("rf_raw", "bmode"):
+        diffs[key] = float((grouped[key] - listed[key]).abs().max())
+        if not torch.allclose(grouped[key], listed[key], rtol=MEGA_FRAME_RTOL,
+                              atol=MEGA_FRAME_ATOL):
+            raise AssertionError(f"mega grouped vs listed: {key} max abs diff {diffs[key]}")
+    print(f"  mega grouped vs mega listed: rays and segments equal at all "
+          f"{grouped['segments']['valid'].shape[0]} bounces; max abs diff rf_raw "
+          f"{diffs['rf_raw']:.3e}, bmode {diffs['bmode']:.3e} (rtol {MEGA_FRAME_RTOL}, atol "
+          f"{MEGA_FRAME_ATOL})")
+
+
+def time_grouped_query(label: str, o, s, packed, tile_r: int) -> dict:
+    """One ray set: K10 beside its plain version, its bound and K5 (the
+    listed path's kernel) on the same rays, and the whole grouped query
+    (prepass, K10, winner, residual K5, tail) beside the whole listed query."""
+    g_args, stats = grouped_args(o, s, packed, tile_r)
+    l_args = listed_args(o, s, packed, tile_r)
+    k10, k10_plain = paired_ms(lambda: intersect_grouped.grouped_best(*g_args),
+                               lambda: intersect_grouped.grouped_best_plain(*g_args), 1,
+                               k_reps=20, p_reps=2)
+    k5 = cuda_ms(lambda: intersect_listed.listed_best(*l_args), 10)
+    whole_g = cuda_ms(lambda: intersect_grouped.intersect_closest_grouped(
+        o, s, packed, residual_tile_r=tile_r), 5)
+    whole_l = cuda_ms(lambda: intersect_listed.intersect_closest_listed(
+        o, s, packed, tile_r=tile_r), 5)
+    b_ms, b_by = grouped_bound([(None, None, g_args)])
+    lists = int(l_args[1].sum())
+    print(f"  {label}: {stats['live']} live rays, {stats['per_ray']:.2f} clusters per ray "
+          f"({stats['incidences']} incidences, {stats['in_table']} in the tables of "
+          f"{stats['clusters_with_rays']} clusters), {stats['overflow_share']:.1%} of clusters "
+          f"overflowed; listed packets list {lists} clusters in all")
+    print(f"    K10 {k10:.4f} ms (plain {k10_plain:.4f}, bound {b_ms:.5f} by {b_by}), K5 on the "
+          f"same rays {k5:.4f} ms; whole grouped query {whole_g:.3f} ms, whole listed query "
+          f"{whole_l:.3f} ms")
+    return {"k10_ms": k10, "k10_plain_ms": k10_plain, "bound_ms": b_ms, "bound_by": b_by,
+            "k5_ms": k5, "grouped_query_ms": whole_g, "listed_query_ms": whole_l, **stats}
+
+
+def isotropic_phase(smi: str) -> dict:
+    """The query the grouped kernel was built for: 2,560 isotropic rays (and
+    a 2,560-ray coherent fan) against a 200,000-triangle synthetic scene.
+    Grouped = listed = K1 bitwise in hit and t; then the timings."""
+    t0 = time.perf_counter()
+    tris, mids = stress.build_scene_arrays(ISOTROPIC_TRIS)
+    fan_o, fan_s, iso_o, iso_s = (torch.from_numpy(a).cuda()
+                                  for a in stress.make_rays(ISOTROPIC_RAYS))
+    packed = clusters.pack_tris_culled(tris, mids, build_bvh(tris).tri_order,
+                                       sort_origin=fan_o[0].cpu().numpy(), tile_t=128,
+                                       device="cuda")
+    tri_soa = geometry.triangle_soa(torch.from_numpy(tris).cuda())
+    tile_r = 512
+    print(f"[isotropic] {smi}: {tris.shape[0]} triangles in {packed.n_clusters} clusters "
+          f"(scene, BVH and packing {time.perf_counter() - t0:.1f} s), {ISOTROPIC_RAYS} rays, "
+          f"{tile_r}-ray packets")
+    result = {}
+    for name, (o, s) in {"fan": (fan_o, fan_s), "isotropic": (iso_o, iso_s)}.items():
+        kernels.reset_launch_counts()
+        got = intersect_grouped.intersect_closest_grouped(o, s, packed, residual_tile_r=tile_r)
+        counts = kernels.launch_counts()
+        listed = intersect_listed.intersect_closest_listed(o, s, packed, tile_r=tile_r)
+        bt, _ = intersect.intersect_best(torch.cat([o, s], dim=1).T.contiguous(), tri_soa)
+        torch.cuda.synchronize()
+        differing = int((got["hit"] != (bt < 1.5)).sum() + (got["t"] != bt).sum()
+                        + (listed["hit"] != (bt < 1.5)).sum() + (listed["t"] != bt).sum())
+        print(f"  {name}: {int(got['hit'].sum())} of {o.shape[0]} rays hit; {differing} differing "
+              f"(hit, t) among grouped, listed and K1; one grouped query launches K10 x "
+              f"{counts['intersect_grouped']}, K5 x {counts['intersect_listed']}")
+        if differing or counts["intersect_grouped"] != 1 or counts["intersect_listed"] != 1 \
+                or not int(got["hit"].sum()) > 100:
+            raise AssertionError(f"isotropic phase, {name} rays: grouped, listed and K1 disagree")
+        result[name] = time_grouped_query(f"{name} rays", o, s, packed, tile_r)
+        result[name]["k1_ms"] = cuda_ms(lambda: intersect.intersect_best(
+            torch.cat([o, s], dim=1).T.contiguous(), tri_soa), 3)
+        print(f"    K1 brute on the same rays {result[name]['k1_ms']:.3f} ms")
+    return result
+
+
+def rng_phase(sim, smi: str) -> dict:
+    """The keyed randomness on the card against the CPU (keys, bits,
+    uniforms and integers equal; the normal through each device's erfinv),
+    one seed giving one frame, and what a frame's draws cost."""
+    ids = torch.arange(sim.cfg.transducer_elements * sim.cfg.samples_per_element)
+    key = rng.prng_key(12)
+    on = {dev: rng.fold_in(rng.fold_in(key.to(dev), 0), ids.to(dev)) for dev in ("cpu", "cuda")}
+    equal = torch.equal(on["cuda"].cpu(), on["cpu"])
+    for fn in (lambda k: rng.split(k, 3), lambda k: rng.random_bits(k, (4,)), rng.uniform,
+               lambda k: rng.randint(k, (2,), 0, 2**31 - 1)):
+        equal = equal and torch.equal(fn(on["cuda"]).cpu(), fn(on["cpu"]))
+    draws = {dev: physics.draw_bounce_randoms(keys, sim.cfg.max_depth) for dev, keys in on.items()}
+    for name in ("angle_u", "axis_u", "radius_u", "roulette_u"):
+        equal = equal and torch.equal(draws["cuda"][name].cpu(), draws["cpu"][name])
+    q_err = float((draws["cuda"]["q_normal"].cpu() - draws["cpu"]["q_normal"]).abs().max())
+    q_ok = torch.allclose(draws["cuda"]["q_normal"].cpu(), draws["cpu"]["q_normal"],
+                          rtol=NORMAL_RTOL, atol=NORMAL_ATOL)
+    a, b = sim.render_frame(seed=31), sim.render_frame(seed=31)
+    same = torch.equal(a["bmode"], b["bmode"]) and torch.equal(a["rf_raw"], b["rf_raw"])
+    other = sim.render_frame(seed=32)["bmode"]
+    print(f"[rng] card vs CPU: keys, bits, uniforms and integers equal {equal}; normal max abs "
+          f"err {q_err:.3e} (rtol {NORMAL_RTOL}, atol {NORMAL_ATOL}) {q_ok}; render_frame(31) "
+          f"twice equal {same}, render_frame(32) differs {not torch.equal(other, a['bmode'])}")
+    if not (equal and q_ok and same) or torch.equal(other, a["bmode"]):
+        raise AssertionError("keyed randomness: the card disagrees with the CPU or with itself")
+    ms = cuda_ms(lambda: sim.draws(5), 10)
+    print(f"  [{smi}] one frame's draws ({sim.cfg.max_depth} x {ids.numel()} x 5 fields): "
+          f"{ms:.3f} ms")
+    view = device_view("frame draws", lambda: sim.draws(5), ms, n=3, top=3)
+    return {"draws_ms": ms, "draws_operations": view["operations"],
+            "draws_busy_ms": view["busy_ms"]}
+
+
 def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     if not torch.cuda.is_available():
@@ -508,14 +693,20 @@ def main() -> int:
 
     cfg = SimConfig()
     loop = {"march": 1, "postproc": 1, "scanconv": 1}
-    t0 = time.perf_counter()
-    sphere = load_and_compile(SPHERE_SCENE)
-    ircad = load_and_compile(IRCAD_HD_SCENE, asset_dir=IRCAD_HD_ASSETS)
-    print(f"[scenes] sphere {sphere.n_triangles}, ircad_hd {ircad.n_triangles} triangles "
-          f"(assets + BVH {time.perf_counter() - t0:.1f} s); {cfg.transducer_elements} elements x "
+    how = "native library" if get_native() is not None else "Python"
+    print(f"[scenes] BVH construction: {how}; OBJ parsing: {how}; {cfg.transducer_elements} elements x "
           f"{cfg.samples_per_element} paths x {cfg.max_depth} bounces")
-    if ircad.n_triangles != 123_224:
-        raise AssertionError(f"ircad_hd has {ircad.n_triangles} triangles")
+    packs = {}
+    for name, scene, assets in (("sphere", SPHERE_SCENE, None),
+                                ("ircad_hd", IRCAD_HD_SCENE, IRCAD_HD_ASSETS),
+                                ("mega", MEGA_SCENE, MEGA_ASSETS)):
+        t0 = time.perf_counter()
+        packs[name] = load_and_compile(scene, asset_dir=assets)
+        print(f"  {name}: {packs[name].n_triangles} triangles (meshes, parse and BVH "
+              f"{time.perf_counter() - t0:.1f} s)")
+    sphere, ircad, mega = packs["sphere"], packs["ircad_hd"], packs["mega"]
+    if ircad.n_triangles != 123_224 or mega.n_triangles != 615_176:
+        raise AssertionError(f"ircad_hd has {ircad.n_triangles}, mega {mega.n_triangles} triangles")
 
     # 2. the paths, each driven with the counts set to 0 just before it
     sims = {
@@ -527,6 +718,11 @@ def main() -> int:
         "sphere staged": Simulator(sphere, cfg, device="cuda", seed=0, intersect_mode="staged"),
         "ircad_hd staged": Simulator(ircad, cfg, device="cuda", seed=0, intersect_mode="staged"),
     }
+    for mode in ("grouped", "listed"):
+        t0 = time.perf_counter()
+        sims[f"mega {mode}"] = Simulator(mega, cfg, device="cuda", seed=0, intersect_mode=mode)
+        print(f"  mega {mode}: {sims[f'mega {mode}'].culled_tris[0].n_clusters} clusters packed "
+              f"and uploaded in {time.perf_counter() - t0:.1f} s")
     expected = {
         "sphere": {"intersect_listed": cfg.max_depth, **loop},
         "sphere brute": {"intersect": cfg.max_depth, **loop},
@@ -535,10 +731,14 @@ def main() -> int:
         "ircad_hd culled": {"intersect_culled": cfg.max_depth, **loop},
         "sphere staged": {"intersect_staged": cfg.max_depth, **loop},
         "ircad_hd staged": {"intersect_staged": cfg.max_depth, **loop},
+        "mega grouped": {"intersect_grouped": cfg.max_depth, "intersect_listed": cfg.max_depth,
+                         **loop},
+        "mega listed": {"intersect_listed": cfg.max_depth, **loop},
     }
     outs, counts = {}, {}
     for name, sim in sims.items():
         outs[name], counts[name] = drive(name, sim, expected[name])
+    compare_mega_frames(outs["mega grouped"], outs["mega listed"])
 
     # a few requests on the sphere's default set: three poses x two seeds, a compound of four
     sim = sims["sphere"]
@@ -571,7 +771,8 @@ def main() -> int:
     print("[kernels vs plain]")
     brute_rays = outs["sphere brute"]["segments"]["rays"]
     tri_soa = {"sphere": sims["sphere brute"].scene["tri_soa"],
-               "ircad_hd": sims["ircad_hd"].scene["tri_soa"]}
+               "ircad_hd": sims["ircad_hd"].scene["tri_soa"],
+               "mega": sims["mega listed"].scene["tri_soa"]}
     differing, t_err = 0, 0.0
     for d in range(cfg.max_depth):
         q = brute_rays[d].contiguous()
@@ -586,7 +787,7 @@ def main() -> int:
     errs = {"intersect": t_err}
     cluster_calls = {}
     for name in ("sphere", "ircad_hd", "sphere culled", "ircad_hd culled", "sphere staged",
-                 "ircad_hd staged"):
+                 "ircad_hd staged", "mega listed", "mega grouped"):
         scene = name.split()[0]
         cluster_calls[name] = check_cluster_bounces(
             name, sims[name], outs[name]["segments"]["rays"], tri_soa[scene])
@@ -639,13 +840,24 @@ def main() -> int:
             and torch.allclose(on_gpu["bmode"].cpu(), on_cpu["bmode"], rtol=1e-4, atol=1e-5)):
         raise AssertionError("the CUDA path disagrees with the plain CPU path")
     fit_cuda_vs_cpu(sphere)
+    drawn = rng_phase(sims["sphere"], smi)
+    queries = isotropic_phase(smi)
 
     # 5. timing (CUDA events, after the warm-up above)
     print(f"[timing] {smi}")
-    for name, n in TIMED_FRAMES.items():
-        time_frames(name, sims[name], n)
-    for name in ("sphere", "ircad_hd"):
+    frame_ms = {name: time_frames(name, sims[name], n) for name, n in TIMED_FRAMES.items()}
+    for name in ("sphere", "ircad_hd", "mega listed", "mega grouped"):
         time_stages(name, sims[name], outs[name])
+    views = {name: device_view(f"{name} frame", lambda sim=sims[name]: sim.render_frame(seed=7),
+                               frame_ms[name])
+             for name in ("sphere", "mega listed", "mega grouped")}
+    for name, view in views.items():
+        ours = {k: sum(v for n, v in view["by_name"].items() if k in n)
+                for k in ("intersect_grouped_kernel", "intersect_listed_kernel")}
+        print(f"  {name} frame, per frame on the device: K10 {ours['intersect_grouped_kernel']:.3f} "
+              f"ms, K5 {ours['intersect_listed_kernel']:.3f} ms of {view['busy_ms']:.3f} ms busy; "
+              f"the frame's draws are {drawn['draws_operations']:.0f} of its "
+              f"{view['operations']:.0f} device operations")
 
     timed = {"sphere": {}, "ircad_hd": {}}
     for scene in ("sphere", "ircad_hd"):
@@ -696,6 +908,22 @@ def main() -> int:
             plain = f"plain {p_ms:.4f} ms ({p_ms / k_ms:.1f}x)" if p_ms else "plain not timed"
             print(f"  {scene} {name}: kernel {k_ms:.4f} ms, {plain} per launch")
 
+    # K10 on its main path, the mega grouped frame: all bounces, then bounce 0
+    # (the coherent fan) and a late bounce beside K5 on the same rays
+    mega_sim, mega_calls = sims["mega grouped"], cluster_calls["mega grouped"]
+    main_ms = dict(ms["sphere"])
+    main_ms["intersect_grouped"] = paired_ms(
+        lambda: [k(*a) for k, _, a in mega_calls], lambda: [p(*a) for _, p, a in mega_calls],
+        cfg.max_depth, k_reps=5, p_reps=1)
+    print(f"  mega grouped intersect_grouped: kernel {main_ms['intersect_grouped'][0]:.4f} ms, plain "
+          f"{main_ms['intersect_grouped'][1]:.4f} ms per launch (mean over {cfg.max_depth} bounces)")
+    mega_rays = outs["mega grouped"]["segments"]["rays"]
+    mega_queries = {
+        d: time_grouped_query(f"mega bounce {d}", mega_rays[d][0:3].T.contiguous(),
+                              mega_rays[d][3:6].T.contiguous(), mega_sim.culled_tris[0],
+                              mega_sim.intersect_tile_r)
+        for d in (0, MEGA_LATE_BOUNCE)}
+
     # the one PyTorch call that computes the same function, where there is one
     grid_sample = grid_sample_call(sim)
     transposed = torch.sparse_csr_tensor(
@@ -710,7 +938,7 @@ def main() -> int:
                     - scanconv.scan_convert_backward(g_bm, maps)).abs().max())
     print(f"  library calls: grid_sample {library_ms['scanconv']:.4f} ms (max |diff| to K4 "
           f"{gs_err:.3e}), sparse CSR mv {library_ms['scanconv_bwd']:.4f} ms (max |diff| to K9 "
-          f"{mv_err:.3e}); no single PyTorch call computes K1-K3, K5-K8")
+          f"{mv_err:.3e}); no single PyTorch call computes K1-K3, K5-K8, K10")
 
     # the least time the card could take for each kernel's work on this run's inputs
     n_rf, n_bm = cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols
@@ -722,6 +950,7 @@ def main() -> int:
         "intersect_listed": cluster_bound(sims["sphere"], cluster_calls["sphere"]),
         "intersect_culled": cluster_bound(sims["sphere culled"], cluster_calls["sphere culled"]),
         "intersect_staged": cluster_bound(sims["sphere staged"], cluster_calls["sphere staged"]),
+        "intersect_grouped": grouped_bound(mega_calls),
         "march": bound(nbytes(soa) + 4 * n_rf, steps_frame * OPS_MARCH_STEP[False]),
         "march soft+trilinear": bound(nbytes(fit_soa) + 4 * n_rf,
                                       steps_fit * OPS_MARCH_STEP[True]),
@@ -740,10 +969,10 @@ def main() -> int:
 
     path_of = {"intersect": "sphere brute", "intersect_listed": "sphere",
                "intersect_culled": "sphere culled", "intersect_staged": "sphere staged",
-               "march": "sphere", "postproc": "sphere", "scanconv": "sphere"}
+               "intersect_grouped": "mega grouped", "march": "sphere", "postproc": "sphere", "scanconv": "sphere"}
     record = []
     for name, (src, replaces) in SOURCES.items():
-        k_ms, p_ms = ms["sphere"][name]
+        k_ms, p_ms = main_ms[name]
         # per run of the kernel's main path: one frame, or one fit step for K8
         # and K9 (the fit run's count over the steps it ran, checked whole above)
         fit_launches = fit["counts"][name] // fit["steps"]
@@ -755,6 +984,9 @@ def main() -> int:
                  "fit_step_launches": fit_launches}
         if name in ms["ircad_hd"]:
             entry["ircad_hd_ms"], entry["ircad_hd_plain_ms"] = ms["ircad_hd"][name]
+        if name == "intersect_grouped":  # bounce by bounce, and the queries it was built for
+            entry["mega"] = {f"bounce_{d}": q for d, q in mega_queries.items()}
+            entry["stress_200k"] = queries
         if name == "march":  # the fit runs K2 in soft + trilinear mode: its own numbers
             mode = "march soft+trilinear"
             entry.update({"fit_mode_ms": ms["sphere"][mode][0],

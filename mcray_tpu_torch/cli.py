@@ -65,9 +65,11 @@ def main(argv=None) -> int:
     p.add_argument("--intersect-mode", default=None,
                    choices=["listed", "culled", "staged", "grouped"],
                    help="cluster closest-hit kernel on scenes of 2,048 triangles and up "
-                        "(default: listed; grouped is not ported yet)")
+                        "(default: listed; grouped visits each cluster once with the rays "
+                        "that reach it: for large scenes and incoherent rays)")
     p.add_argument("--intersect-tile-r", type=int, default=None,
-                   help="rays per intersect packet (default 512 with clusters)")
+                   help="rays per intersect packet (default 512 with clusters; for grouped, "
+                        "of its residual listed pass: a multiple of 128)")
     args = p.parse_args(argv)
 
     overrides = {}

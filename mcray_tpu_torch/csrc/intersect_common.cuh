@@ -1,4 +1,4 @@
-// Device helpers shared by the cluster closest-hit kernels (K5, K6, K7).
+// Device helpers shared by the cluster closest-hit kernels (K5, K6, K7, K10).
 //
 // The arithmetic is written in the order of the port's plain versions
 // (ops/geometry.py:_moller_trumbore, ops/clusters.py:box_active), as K1's
@@ -53,15 +53,16 @@ __device__ __forceinline__ void load_tile(float* __restrict__ s, const float* __
   }
 }
 
-// Möller–Trumbore of one ray against the `count` triangles of a tile in
-// shared memory s[9][count]; strict `<`, so on equal t the running winner
-// stays and within the tile the lowest slot wins (jnp.argmin's rule).
-__device__ __forceinline__ void closest_in_tile(const float* __restrict__ s, int count, int base,
-                                                const Ray& r, float& bt, int& bi) {
-  for (int j = 0; j < count; ++j) {
-    const float v0x = s[0 * count + j], v0y = s[1 * count + j], v0z = s[2 * count + j];
-    const float e1x = s[3 * count + j], e1y = s[4 * count + j], e1z = s[5 * count + j];
-    const float e2x = s[6 * count + j], e2y = s[7 * count + j], e2z = s[8 * count + j];
+// Möller–Trumbore of one ray against triangles [j0, j1) of a tile in shared
+// memory s[9][stride]; strict `<`, so on equal t the running winner stays
+// and within the range the lowest slot wins (jnp.argmin's rule).
+__device__ __forceinline__ void closest_in_range(const float* __restrict__ s, int stride, int j0,
+                                                 int j1, int base, const Ray& r, float& bt,
+                                                 int& bi) {
+  for (int j = j0; j < j1; ++j) {
+    const float v0x = s[0 * stride + j], v0y = s[1 * stride + j], v0z = s[2 * stride + j];
+    const float e1x = s[3 * stride + j], e1y = s[4 * stride + j], e1z = s[5 * stride + j];
+    const float e2x = s[6 * stride + j], e2y = s[7 * stride + j], e2z = s[8 * stride + j];
     // pvec = seg x e2
     const float px = r.sy * e2z - r.sz * e2y;
     const float py = r.sz * e2x - r.sx * e2z;
@@ -83,6 +84,12 @@ __device__ __forceinline__ void closest_in_tile(const float* __restrict__ s, int
       bi = base + j;
     }
   }
+}
+
+// The same over all `count` triangles of a tile s[9][count].
+__device__ __forceinline__ void closest_in_tile(const float* __restrict__ s, int count, int base,
+                                                const Ray& r, float& bt, int& bi) {
+  closest_in_range(s, count, 0, count, base, r, bt, bi);
 }
 
 }  // namespace mcray

@@ -8,8 +8,9 @@ table (``models/trainer.py`` fits it):
   a validity mask (N = elements x samples paths);
 - the bounce loop runs D bounces over the whole path batch, each through
   one closest-hit kernel: on scenes of 2,048 triangles and up the
-  reference's default, the list-driven cluster kernel (K5; K6 culled and
-  K7 staged on request), else the brute kernel (K1);
+  reference's default, the list-driven cluster kernel (K5; on request K6
+  culled, K7 staged, or K10 grouped with its residual K5 pass), else the
+  brute kernel (K1);
 - the march (K2), PSF convolution + envelope (K3) and scan conversion (K4)
   run as one kernel each; under autograd the march and the scan conversion
   run their backward kernels (K8, K9), the closest hit has no gradient (it
@@ -20,9 +21,10 @@ CUDA tensors and runs the plain PyTorch version for CPU tensors; the
 ``Simulator``'s ``device`` decides which, and it is the card unless the
 caller asks for the CPU.
 
-Randomness is explicit: ``render`` takes the frame's draws
-(``physics.draw_bounce_randoms``) and the two texture seeds, and
-``Simulator`` draws them from ``torch.Generator``s seeded from ``seed``.
+Randomness is explicit and keyed (``utils/rng.py``, threefry): ``render``
+takes the frame's draws (``physics.draw_bounce_randoms``) and the two
+texture seeds, and ``Simulator`` derives both from integer seeds by the
+reference's key chain, so one seed gives the reference's frame.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..config import SimConfig, validate
 from ..ops import clusters, imaging, physics, texture
 from ..ops.cuda.intersect import intersect_closest_cuda
 from ..ops.cuda.intersect_culled import intersect_closest_culled
+from ..ops.cuda.intersect_grouped import intersect_closest_grouped
 from ..ops.cuda.intersect_listed import intersect_closest_listed
 from ..ops.cuda.intersect_staged import intersect_closest_staged
 from ..ops.cuda.march import march_cuda, pack_segments
@@ -43,16 +46,23 @@ from ..ops.cuda.scanconv import scan_convert_cuda, scan_maps
 from ..ops.geometry import safe_norm
 from ..ops.texture import fdiv
 from ..probe.transducer import element_layout
-from ..utils import convert
+from ..utils import convert, rng
 
 
-#: the cluster kernels by intersect_mode ("grouped" is not ported yet)
+#: the cluster closest hits by intersect_mode
 CLUSTER_INTERSECTS = {
     "listed": intersect_closest_listed,
     "culled": intersect_closest_culled,
     "staged": intersect_closest_staged,
+    "grouped": intersect_closest_grouped,
 }
-INTERSECT_MODES = ("listed", "culled", "staged", "grouped")
+
+
+def cluster_intersect(mode: str, tile_r: int):
+    """The closest hit of ``mode`` on ``tile_r``-ray packets (for grouped,
+    the packets of its residual listed pass)."""
+    key = "residual_tile_r" if mode == "grouped" else "tile_r"
+    return functools.partial(CLUSTER_INTERSECTS[mode], **{key: tile_r})
 
 
 def resolve_device(device) -> torch.device:
@@ -109,7 +119,7 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
 
     if culled_tris is not None:
         packed, mode = culled_tris
-        cluster_fn = functools.partial(CLUSTER_INTERSECTS[mode], tile_r=intersect_tile_r)
+        cluster_fn = cluster_intersect(mode, intersect_tile_r)
 
     segments = []
     for d in range(cfg.max_depth):
@@ -263,18 +273,25 @@ class Simulator:
     The closest hit follows the reference's defaults
     (``mcray_tpu/models/simulator.py:436-519``): scenes of 2,048 triangles
     and up (``use_culled_intersect=None``) pack BVH-ordered triangle clusters
-    and run ``intersect_mode`` (default ``"listed"``; ``"culled"`` and
-    ``"staged"`` on request) on ``intersect_tile_r``-ray packets (default
-    512; 128 for the brute kernel), with 128-triangle clusters for listed and
-    256 for culled and staged. The reference takes that default only on a
-    TPU; the port takes it on every device, because the CPU runs the plain
-    versions of the same kernels. ``"grouped"`` is not ported yet (ROADMAP)
-    and raises NotImplementedError; an unknown mode raises ValueError.
+    and run ``intersect_mode`` (default ``"listed"``; ``"culled"``,
+    ``"staged"`` and ``"grouped"`` on request) on ``intersect_tile_r``-ray
+    packets (default 512; 128 for the brute kernel), with 128-triangle
+    clusters for listed and grouped and 256 for culled and staged.
+    ``"grouped"`` visits each cluster once with the rays that reach it (K10):
+    the mode for large scenes whose rays are incoherent, where a packet's
+    cluster list approaches the whole table; coherent rays overflow into its
+    residual listed pass (K5 on ``intersect_tile_r``-ray packets), so it is
+    exact at every depth. The reference takes these defaults only on a TPU;
+    the port takes them on every device, because the CPU runs the plain
+    versions of the same kernels. An unknown mode raises ValueError.
 
-    The texture seeds come from a CPU generator seeded with
-    ``seed ^ 0x5CA77E7`` (as the reference derives its volume key), so the
-    scatterer field is the same on every device; each frame's draws come
-    from a generator on ``device`` seeded with the frame's seed.
+    The randomness is the reference's: the texture seeds come from the key
+    ``prng_key(seed ^ 0x5CA77E7)`` (derived on the CPU: the kernels read
+    them on the host), and a frame's draws from ``prng_key(frame seed)``
+    through ``fold_in(key, 0)`` and ``fold_in(., path id)`` over the global
+    path ids, on ``device``. ``render_frame(seed)`` therefore renders the
+    frame the reference renders for ``seed`` (``normal`` to ``erfinv``'s
+    rounding); ``render_frame(draws=...)`` takes fixed draws, for a fit.
     """
 
     def __init__(self, pack, cfg: SimConfig, *, device="cuda", seed: int = 0,
@@ -284,16 +301,13 @@ class Simulator:
         if cfg.soft_row_binning:
             raise NotImplementedError("soft_row_binning is not ported yet")
         intersect_mode = intersect_mode or "listed"
-        if intersect_mode not in INTERSECT_MODES:
+        if intersect_mode not in CLUSTER_INTERSECTS:
             raise ValueError(f"unknown intersect_mode {intersect_mode!r}; expected one of "
-                             f"{INTERSECT_MODES}")
-        if intersect_mode == "grouped":
-            raise NotImplementedError(
-                "intersect_mode='grouped' is not ported yet (ROADMAP queue 2, row 4)")
+                             f"{tuple(CLUSTER_INTERSECTS)}")
         self.cfg = cfg
         self.pack = pack
         self.device = resolve_device(device)
-        seeds = texture.make_texture_volume(torch.Generator().manual_seed(seed ^ 0x5CA77E7), cfg)
+        seeds = texture.make_texture_volume(rng.prng_key(seed ^ 0x5CA77E7), cfg)
         state = convert.from_reference(pack, pack.materials, seeds["seeds"], device=self.device)
         self.scene = state["scene"]
         self.materials = state["materials"]
@@ -313,7 +327,7 @@ class Simulator:
             packed = clusters.pack_tris_culled(
                 pack.tris, pack.tri_mesh_id, bvh.tri_order if bvh is not None else None,
                 sort_origin=pack.transducer_position,
-                tile_t=128 if intersect_mode == "listed" else clusters.TILE_T,
+                tile_t=128 if intersect_mode in ("listed", "grouped") else clusters.TILE_T,
                 device=self.device,
             )
             self.culled_tris = (packed, intersect_mode)
@@ -331,16 +345,21 @@ class Simulator:
     def _tensor(self, x, default):
         return default if x is None else torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    def draws(self, seed: int) -> dict[str, torch.Tensor]:
-        """The frame's random draws from a generator on the device seeded with ``seed``."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+    def draws(self, seed) -> dict[str, torch.Tensor]:
+        """The frame's random draws on the device, keyed as the reference
+        keys them: ``seed`` is the frame's integer seed or its (2,) key."""
+        key = seed if isinstance(seed, torch.Tensor) else rng.prng_key(seed)
         n = self.cfg.transducer_elements * self.cfg.samples_per_element
-        return physics.draw_bounce_randoms(gen, self.cfg.max_depth, n)
+        path_ids = torch.arange(n, dtype=torch.int64, device=self.device)
+        # the frame's trace key is one key: derived on the host, not by ~150 launches
+        k_trace = rng.fold_in(key.cpu(), 0).to(self.device)
+        path_keys = rng.fold_in(k_trace, path_ids)
+        return physics.draw_bounce_randoms(path_keys, self.cfg.max_depth)
 
-    def render_frame(self, seed: int = 0, materials=None, position=None, angles=None,
-                     draws=None):
-        """One frame; returns the dict of ``render``. ``draws`` replaces the
-        draws of ``seed`` (fixed randomness for a fit)."""
+    def render_frame(self, seed=0, materials=None, position=None, angles=None, draws=None):
+        """One frame; returns the dict of ``render``. ``seed`` is an integer
+        or a (2,) key; ``draws`` replaces the draws of ``seed`` (fixed
+        randomness for a fit)."""
         return render(
             self.draws(seed) if draws is None else draws, self.seeds,
             self._tensor(materials, self.materials),

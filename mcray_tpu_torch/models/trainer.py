@@ -21,6 +21,7 @@ from typing import Callable
 import torch
 
 from ..ops import physics
+from ..utils import rng
 
 # Default trainable columns: impedance, attenuation, mu0, mu1, sigma.
 # Specularity/shininess/thickness stay frozen (integer-ish semantics).
@@ -57,10 +58,11 @@ class MaterialFitter:
 
     ``render_fn(frame, materials) -> bmode`` renders one frame,
     differentiable in ``materials``; ``frame`` says which randomness: an int
-    frame seed, or whatever ``fixed_frame`` holds (a seed, or a dict of
-    draws). The tensors live where ``init_materials`` lives (hand in the
-    simulator's), so a fitter built from a ``Simulator`` on the card fits on
-    the card.
+    frame seed, a (2,) key of ``utils/rng.py`` (what ``run`` hands out, as
+    the reference's fit loop does), or whatever ``fixed_frame`` holds (a
+    seed, a key, or a dict of draws). The tensors live where
+    ``init_materials`` lives (hand in the simulator's), so a fitter built
+    from a ``Simulator`` on the card fits on the card.
 
     ``fixed_frame`` freezes the Monte-Carlo noise (the same speckle
     realisation for target and prediction), the standard inverse-rendering
@@ -137,15 +139,18 @@ class MaterialFitter:
 
     # --- one step ---------------------------------------------------------
     def loss(self, materials: torch.Tensor, frame) -> torch.Tensor:
-        """Pixel MSE of the frame (the mean of ``n_frames_per_step`` frames
-        seeded from ``frame``) against the target."""
+        """Pixel MSE of the frame (the mean of ``n_frames_per_step`` frames,
+        keyed by ``split(key of frame, n_frames_per_step)`` as the reference
+        keys them) against the target."""
         if self.n_frames == 1:
             pred = self.render_fn(frame, materials)
         else:
-            if not isinstance(frame, int):
-                raise ValueError("n_frames_per_step > 1 needs an integer frame seed")
-            pred = torch.stack([self.render_fn(frame * self.n_frames + i, materials)
-                                for i in range(self.n_frames)]).mean(dim=0)
+            if isinstance(frame, dict):
+                raise ValueError("n_frames_per_step > 1 needs an integer frame seed or a key, "
+                                 "not fixed draws")
+            key = frame if isinstance(frame, torch.Tensor) else rng.prng_key(frame)
+            pred = torch.stack([self.render_fn(k, materials)
+                                for k in rng.split(key, self.n_frames)]).mean(dim=0)
         return torch.mean((pred - self.target) ** 2)
 
     def step(self, frame) -> float:
@@ -164,12 +169,13 @@ class MaterialFitter:
         return float(loss.detach())
 
     def run(self, n_steps: int, seed: int = 0, log_every: int = 10, verbose: bool = True):
-        """``n_steps`` steps; frame i renders with ``fixed_frame``, or else
-        with the frame seed ``seed + step`` (a fresh realisation per step).
-        Returns the losses."""
+        """``n_steps`` steps; each renders with ``fixed_frame``, or else with
+        the key ``fold_in(prng_key(seed), step)`` (a fresh realisation per
+        step, keyed as the reference's fit loop keys it). Returns the losses."""
         losses = []
         for i in range(n_steps):
-            frame = self.fixed_frame if self.fixed_frame is not None else seed + self.step_count
+            frame = (self.fixed_frame if self.fixed_frame is not None
+                     else rng.fold_in(rng.prng_key(seed), self.step_count))
             losses.append(self.step(frame))
             if verbose and (i % log_every == 0 or i == n_steps - 1):
                 gnorm = float(torch.linalg.norm(self.last_grad))

@@ -1,4 +1,4 @@
-"""Triangle clusters for the culled, staged and listed closest-hit kernels.
+"""Triangle clusters for the culled, staged, listed and grouped closest-hit kernels.
 
 Port of the host packing and the plain-tensor parts around the reference's
 cluster kernels (``mcray_tpu/ops/pallas/intersect.py``):
@@ -16,6 +16,9 @@ cluster kernels (``mcray_tpu/ops/pallas/intersect.py``):
 - ``packet_cluster_lists`` (``:643-856``): the listed kernel's prepass, per
   ray packet the clusters any ray's slab test reaches, front to back, with
   the ``exact``, ``frustum`` and ``hier`` methods.
+- ``cluster_ray_tables`` / ``ray_winners`` (``:1278-1370``, ``:1414-1437``):
+  the grouped kernel's cluster-major compaction (each cluster's first rays
+  whose slab test reaches it) and the per-ray reduction of its results.
 - ``box_active`` / ``tile_update``: the two steps every cluster kernel
   takes per cluster, in plain torch, shared by the kernels' plain versions.
 
@@ -156,12 +159,13 @@ def winner_hits(origins, seg_vecs, packed: CulledTris, best_slot, hit, eps: floa
                       rows[:, 9], eps=eps)
 
 
-def pad_rays(origins, seg_vecs, tile_r: int):
-    """Zero-pad the rays to a multiple of ``tile_r`` (a zero direction hits
-    nothing) and return (origins, seg_vecs, rays (6, n_tot) contiguous)."""
+def pad_rays(origins, seg_vecs, tile_r: int, origin_fill: float = 0.0):
+    """Pad the rays to a multiple of ``tile_r`` with zero segments (a zero
+    direction hits nothing) at ``origin_fill`` and return (origins,
+    seg_vecs, rays (6, n_tot) contiguous)."""
     n_pad = (-origins.shape[0]) % tile_r
     if n_pad:
-        origins = torch.cat([origins, origins.new_zeros((n_pad, 3))])
+        origins = torch.cat([origins, origins.new_full((n_pad, 3), origin_fill)])
         seg_vecs = torch.cat([seg_vecs, seg_vecs.new_zeros((n_pad, 3))])
     return origins, seg_vecs, torch.cat([origins, seg_vecs], dim=1).T.contiguous()
 
@@ -306,6 +310,89 @@ def packet_cluster_lists(origins, seg_vecs, packed: CulledTris, tile_r: int, t_c
         any_hit = any_hit & ~exclude
     key = torch.where(hit, torch.clamp(enter, min=0.0), torch.inf).amin(dim=1)
     return _assemble_lists(any_hit, key)
+
+
+# ---------------------------------------------------------------------------
+# Grouped prepass: per-cluster ray tables, and the per-ray winner
+# ---------------------------------------------------------------------------
+
+GROUP_CHUNK = 128  # rays per chunk of the cluster-major compaction
+
+
+def group_width(n_tot: int, group_g: int, chunk_g: int) -> int:
+    """Ray slots per cluster: ``group_g`` shrunk to what ``n_tot`` rays can
+    fill (``chunk_g`` per 128-ray chunk), a multiple of 8, at least 8."""
+    g = min(group_g, max(8, (n_tot // GROUP_CHUNK) * chunk_g))
+    return (g // 8) * 8 or 8
+
+
+def ray_cluster_hits(origins, seg_vecs, packed: CulledTris):
+    """(hit (N, C) bool, live (N,) bool): each live ray's slab test against
+    every cluster box, inside the segment; inert rays (zero segment:
+    padding and parked dead rays) reach no cluster."""
+    live = torch.abs(seg_vecs).sum(dim=1) > 0.0
+    enter, leave = _slab(origins[:, None], inverse_dirs(seg_vecs)[:, None],
+                         packed.aabb_cluster[None])
+    return (enter <= leave) & (leave > 0.0) & (enter < 1.0) & live[:, None], live
+
+
+def cluster_ray_tables(hit, group_g: int, chunk_g: int):
+    """Cluster-major compaction of the (N, C) ray-cluster incidences, N a
+    multiple of 128: per cluster the ids of the rays it keeps, by the
+    reference's rule — of every 128-ray chunk its first ``chunk_g`` rays, in
+    ray order, and of those the first ``g = group_width(...)`` overall.
+    Returns ``ray_ids`` (C, g) i32 (0 in the unused slots), ``counts`` (C,)
+    i32 of used slots, and ``overflow`` (C,) bool: the cluster dropped a ray
+    (a chunk or the cluster itself was over its budget), so a residual pass
+    must test it in full.
+
+    Static shapes and no host read. The reference extracts the ids by
+    one-hot matmuls and packs them with a sort because a TPU has no scatter;
+    here the in-chunk rank (a cumulative sum, which is monotone) gives the
+    position of the chunk's k-th ray by one count, and the slot of each kept
+    ray is its chunk's offset plus k, written by one small scatter."""
+    n_tot, n_c = hit.shape
+    if n_tot % GROUP_CHUNK:
+        raise ValueError(f"{n_tot} rays: the grouped prepass takes multiples of {GROUP_CHUNK}")
+    g = group_width(n_tot, group_g, chunk_g)
+    n_ch = n_tot // GROUP_CHUNK
+    device = hit.device
+    rank = torch.cumsum(hit.reshape(n_ch, GROUP_CHUNK, n_c), dim=1, dtype=torch.int32)
+    counts_ch = rank[:, -1, :]                                   # (n_ch, C)
+    kept_ch = torch.clamp(counts_ch, max=chunk_g)
+    first_slot = torch.cumsum(kept_ch, dim=0) - kept_ch          # of each chunk, per cluster
+    total = kept_ch.sum(dim=0)
+    # the chunk's k-th hitting ray sits after the rays whose rank is <= k
+    k = torch.arange(chunk_g, device=device)
+    in_chunk = torch.stack([(rank <= i).sum(dim=1) for i in range(chunk_g)], dim=1)
+    ray = in_chunk + (torch.arange(n_ch, device=device) * GROUP_CHUNK)[:, None, None]
+    slot = first_slot[:, None, :] + k[None, :, None]             # (n_ch, chunk_g, C)
+    keep = (k[None, :, None] < kept_ch[:, None, :]) & (slot < g)
+    dest = torch.where(keep, torch.arange(n_c, device=device) * g + slot, n_c * g)
+    table = torch.zeros(n_c * g + 1, dtype=torch.int32, device=device)
+    table.scatter_(0, dest.reshape(-1), ray.reshape(-1).int())   # slot n_c * g: the discards
+    overflow = (counts_ch > chunk_g).any(dim=0) | (total > g)
+    return table[:-1].reshape(n_c, g), torch.clamp(total, max=g).int(), overflow
+
+
+_NO_HIT_KEY = 0x40000000 << 32  # (bits of NO_HIT_T = 2.0f) << 32 | slot 0
+
+
+def ray_winners(ray_ids, inc_t, inc_slot, n_tot: int):
+    """Per ray the smallest t over its (cluster, slot) incidences and, on
+    equal t, the smallest triangle slot; (NO_HIT_T, 0) for a ray with none.
+    Returns (t (n_tot,) f32, slot (n_tot,) i32).
+
+    The pair is packed into one integer key, (bits of t) << 32 | slot — a
+    positive f32 orders as its bits — and reduced with an integer minimum,
+    which does not depend on the order of the updates. Unused table slots
+    hold ray 0 with (NO_HIT_T, 0), the reduction's own start value, so they
+    change nothing and need no mask. (The reference sorts (ray, t, slot)
+    triples twice for want of a scatter.)"""
+    key = (inc_t.reshape(-1).view(torch.int32).long() << 32) | inc_slot.reshape(-1).long()
+    best = torch.full((n_tot,), _NO_HIT_KEY, dtype=torch.int64, device=key.device)
+    best.scatter_reduce_(0, ray_ids.reshape(-1).long(), key, "amin", include_self=True)
+    return (best >> 32).int().view(torch.float32), (best & 0xFFFFFFFF).int()
 
 
 # ---------------------------------------------------------------------------

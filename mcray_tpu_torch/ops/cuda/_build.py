@@ -43,6 +43,7 @@ P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 SIGNATURES = {
     "mcray_intersect_closest": [P, I, P, I, P, P, P],
     "mcray_intersect_listed": [P, I, I, P, P, P, I, P, P, P, I, P, P, P],
+    "mcray_intersect_grouped": [P, I, P, P, I, I, P, I, P, P, P],
     "mcray_intersect_culled": [P, I, I, P, I, I, P, P, P],
     "mcray_intersect_staged": [P, I, I, P, I, I, P, P, I, P, P, P],
     "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, F, P, P],

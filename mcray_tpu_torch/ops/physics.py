@@ -3,11 +3,10 @@
 Port of ``mcray_tpu/ops/physics.py:35-381`` as vectorised torch over
 ``(N,)`` ray batches. Materials are rows of an ``(M, 8)`` float32 table.
 
-Randomness: ``draw_bounce_randoms`` draws one frame's five ``(D, N)`` fields
-from an explicit ``torch.Generator`` with the reference's distributions and
-clamps. It does not reproduce the reference's threefry bits; a caller that
-needs the reference's frame passes the reference's draws in (see
-``utils/convert.py``).
+Randomness: ``draw_bounce_randoms`` derives one frame's five ``(D, N)`` fields
+from the per-path keys by the reference's own key chain (``utils/rng.py``,
+threefry), so the uniforms are the reference's bit for bit and the normal
+agrees to ``erfinv``'s rounding.
 
 Deliberate divergences from the C++ that the reference already documents
 are kept: total internal reflection contributes only the reflection
@@ -23,6 +22,7 @@ import math
 import torch
 
 from ..config import SimConfig
+from ..utils import rng
 from .geometry import dot3, normalize
 
 # Material table column indices (loader.MATERIAL_FIELDS order, src/mesh.h:7-10).
@@ -74,20 +74,31 @@ def reflected_intensity_mattausch(direction, refr_dir, refl_dir, spec_hit, tir):
     return refr_term + safe_pow(dot3(direction, refl_dir), spec_hit)
 
 
-def draw_bounce_randoms(generator: torch.Generator, n_depth: int, n: int) -> dict[str, torch.Tensor]:
-    """One frame's random draws, each (n_depth, n) on the generator's device:
-    the sub-surface fuzz normal, the power-cosine uniform (clamped to
-    >= 1e-12), the unit-vector disc uniforms and the roulette uniform."""
-    def uniform():
-        return torch.rand((n_depth, n), generator=generator, device=generator.device)
+def draw_bounce_randoms(path_keys: torch.Tensor, n_depth: int) -> dict[str, torch.Tensor]:
+    """One frame's random draws, each (n_depth, N) on the keys' device, from
+    the (N, 2) per-path keys: the sub-surface fuzz normal, the power-cosine
+    uniform (clamped to >= 1e-12), the unit-vector disc uniforms and the
+    roulette uniform.
 
-    q_normal = torch.randn((n_depth, n), generator=generator, device=generator.device)
+    The key chain is the reference's (``physics.py:160-190``):
+    ``fold_in(path_key, depth)`` -> ``split(2)`` -> [normal key, rest];
+    ``split(rest, 3)`` -> [power-cosine key, unit-vector key, roulette key];
+    ``split(unit-vector key, 2)`` -> the two disc keys. It runs batched over
+    (depth, path): four key derivations and one draw of the five fields'
+    bits, five cipher passes in all."""
+    depths = torch.arange(n_depth, dtype=torch.int64, device=path_keys.device)
+    ks = rng.split(rng.fold_in(path_keys[None], depths[:, None]), 2)   # (D, N, 2, 2)
+    ks2 = rng.split(ks[:, :, 1], 3)                                    # (D, N, 3, 2)
+    rks = rng.split(ks2[:, :, 1], 2)                                   # (D, N, 2, 2)
+    # one pass for all five fields: [normal, angle, axis, radius, roulette]
+    keys = torch.stack([ks[:, :, 0], ks2[:, :, 0], rks[:, :, 0], rks[:, :, 1], ks2[:, :, 2]])
+    u = rng.uniform(keys)                                              # (5, D, N) in [0, 1)
     return {
-        "q_normal": q_normal,
-        "angle_u": torch.clamp(uniform(), min=1e-12),
-        "axis_u": uniform(),
-        "radius_u": uniform(),
-        "roulette_u": uniform(),
+        "q_normal": rng.normal_from_uniform(u[0]),
+        "angle_u": torch.clamp(u[1], min=1e-12),
+        "axis_u": u[2],
+        "radius_u": u[3],
+        "roulette_u": u[4],
     }
 
 

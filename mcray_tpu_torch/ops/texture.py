@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
+from ..utils.rng import randint, split
 
 _MASK32 = 0xFFFFFFFF
 
@@ -98,17 +99,15 @@ def _wrap_index(x: torch.Tensor, res_mm: float, size: int) -> torch.Tensor:
     return _wrap_mod(torch.trunc(fdiv(x, res_mm)).long(), size)
 
 
-def make_texture_volume(generator: torch.Generator, cfg: SimConfig) -> dict[str, torch.Tensor]:
-    """Scatterer field state: two seeds drawn in [0, 2**31 - 1) from
-    ``generator``, on its device. Only the procedural field is ported; the
-    reference's materialised "table" mode (identical values, the reference
-    fills the table from this same hash) raises."""
+def make_texture_volume(key: torch.Tensor, cfg: SimConfig) -> dict[str, torch.Tensor]:
+    """Scatterer field state: the two seeds the reference draws from ``key``
+    (``split``, then ``randint(0, 2**31 - 1)`` of the first half), on the
+    key's device. Only the procedural field is ported; the reference's
+    materialised "table" mode (identical values, the reference fills the
+    table from this same hash) raises."""
     if cfg.texture_mode != "procedural":
         raise NotImplementedError(f"texture_mode={cfg.texture_mode!r} is not ported yet")
-    seeds = torch.randint(
-        0, 2**31 - 1, (2,), generator=generator, device=generator.device, dtype=torch.int64
-    )
-    return {"seeds": seeds}
+    return {"seeds": randint(split(key)[0], (2,), 0, 2**31 - 1)}
 
 
 def get_scattering(volume, density, mu, sigma, points, cfg: SimConfig) -> torch.Tensor:

@@ -6,8 +6,9 @@ the ``(M, 8)`` material table, the two texture seeds
 (``make_texture_volume(...)["seeds"]``) and optionally the per-bounce draws
 of ``physics.draw_bounce_randoms`` — and returns the port's tensors on
 ``device`` (a required keyword: nothing picks the CPU on its own). With
-the same draws and seeds the port computes the reference's frame; with
-draws from its own generator it computes a statistically equivalent one (threefry is not ported). A ``CulledTris``
+the same draws and seeds the port computes the reference's frame (as it
+does from the frame's seed alone: ``utils/rng.py`` derives both as the
+reference does). A ``CulledTris``
 the reference packed (``ops/pallas/intersect.py:pack_tris_culled``) comes
 across as the port's ``clusters.CulledTris``, table for table.
 """

@@ -34,9 +34,15 @@ def test_render_command_writes_the_frame(tmp_path, capsys):
 def test_render_command_intersect_mode(tmp_path, capsys, mode):
     argv = [SPHERE_SCENE, "--elements", "16", "--samples", "2", "--intersect-mode", mode,
             "--intersect-tile-r", "256", "--device", "cpu", "--out", str(tmp_path / "frame.png")]
-    if mode == "grouped":
-        with pytest.raises(NotImplementedError, match="grouped"):
-            cli.main(argv)
-        return
     assert cli.main(argv) == 0
-    assert "intersect culled" in capsys.readouterr().out.splitlines()[0]
+    lines = capsys.readouterr().out.splitlines()
+    assert f"intersect {mode}" in lines[0] and lines[1].startswith("frame 0:")
+    # PNG with pillow, else the PGM fallback of image_io.save_png
+    assert (tmp_path / "frame.png").exists() or (tmp_path / "frame.png.pgm").exists()
+
+
+def test_grouped_residual_packets_must_be_chunk_multiples(tmp_path):
+    argv = [SPHERE_SCENE, "--elements", "16", "--samples", "2", "--intersect-mode", "grouped",
+            "--intersect-tile-r", "100", "--device", "cpu", "--out", str(tmp_path / "frame.png")]
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cli.main(argv)

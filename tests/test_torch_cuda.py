@@ -7,7 +7,7 @@ also run where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerances are those of chip_smoke.py: the closest hits (K1, and the
-cluster kernels K5 listed, K6 culled, K7 staged) bitwise in t and winning
+cluster kernels K5 listed, K6 culled, K7 staged, K10 grouped) bitwise in t and winning
 index (FMA contraction is off in the kernels, and plain PyTorch on CUDA
 rounds every op), the march at rtol 1e-4 / atol 1e-5 in each of its four
 texture modes, the postproc at 1e-5 / 1e-6 and the scan conversion at
@@ -24,9 +24,12 @@ from _torch_port import SPHERE_SCENE, random_segments, random_triangles, to_torc
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models.simulator import Simulator
 from mcray_tpu_torch.ops import clusters, geometry, imaging
-from mcray_tpu_torch.ops.cuda import (intersect, intersect_culled, intersect_listed,
-                                      intersect_staged, march, postproc, scanconv)
+from mcray_tpu_torch.ops import physics
+from mcray_tpu_torch.ops.cuda import (intersect, intersect_culled, intersect_grouped,
+                                      intersect_listed, intersect_staged, march, postproc,
+                                      scanconv)
 from mcray_tpu_torch.scene.compile import load_and_compile
+from mcray_tpu_torch.utils import rng
 
 pytestmark = pytest.mark.cuda
 
@@ -102,6 +105,57 @@ def test_cluster_kernels_match_plain(cuda, mode):
             assert not bool(got["hit"].any())
         else:
             assert int(got["hit"].sum()) > 20, name
+
+
+@pytest.mark.parametrize("budget", [(32, 4), (8, 1), (16, 2)])
+def test_grouped_kernel_matches_plain(cuda, budget):
+    """K10 against its plain version on every table slot, and the whole
+    grouped closest hit (prepass, K10, winner, residual K5) against K1."""
+    pack, cases = _cluster_cases(cuda)
+    packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
+                                       sort_origin=pack.transducer_position, tile_t=128,
+                                       device=cuda)
+    tri_soa = geometry.triangle_soa(to_torch(pack.tris)).to(cuda)
+    for name, rays in cases:
+        o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, 512, 1e9)
+        hit, _ = clusters.ray_cluster_hits(o, s, packed)
+        ray_ids, counts, _ = clusters.cluster_ray_tables(hit, *budget)
+        before = (intersect_grouped.launches, intersect_listed.launches)
+        t_k, i_k = intersect_grouped.grouped_best(padded, ray_ids, counts, packed)
+        t_p, i_p = intersect_grouped.grouped_best_plain(padded, ray_ids, counts, packed)
+        assert intersect_grouped.launches == before[0] + 1, name
+        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
+        got = intersect_grouped.intersect_closest_grouped(
+            rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, group_g=budget[0],
+            chunk_g=budget[1], residual_tile_r=512)
+        assert (intersect_grouped.launches, intersect_listed.launches) == (
+            before[0] + 2, before[1] + 1), name
+        bt, _ = intersect.intersect_best(rays.contiguous(), tri_soa)
+        assert torch.equal(got["hit"], bt < 1.5) and torch.equal(got["t"], bt), name
+        if name == "all dead":
+            assert not bool(got["hit"].any()) and int(counts.sum()) == 0
+        else:
+            assert int(got["hit"].sum()) > 20 and int(counts.sum()) > 50, name
+
+
+def test_keyed_draws_on_the_card_match_the_cpu(cuda):
+    """Keys, bits and uniforms are integer work: equal bitwise on the card
+    and the CPU. The normal goes through each device's ``erfinv``."""
+    key = rng.prng_key(12)
+    ids = torch.arange(3000)
+    on = {dev: rng.fold_in(rng.fold_in(key.to(dev), 0), ids.to(dev)) for dev in ("cpu", cuda)}
+    assert torch.equal(on[cuda].cpu(), on["cpu"])
+    for fn in (lambda k: rng.split(k, 3), lambda k: rng.random_bits(k, (4,)), rng.uniform,
+               lambda k: rng.randint(k, (2,), 0, 2**31 - 1)):
+        assert torch.equal(fn(on[cuda]).cpu(), fn(on["cpu"]))
+    draws = {dev: physics.draw_bounce_randoms(keys, 10) for dev, keys in on.items()}
+    for name in ("angle_u", "axis_u", "radius_u", "roulette_u"):
+        assert torch.equal(draws[cuda][name].cpu(), draws["cpu"][name]), name
+    np.testing.assert_allclose(draws[cuda]["q_normal"].cpu(), draws["cpu"]["q_normal"],
+                               rtol=1e-5, atol=1e-6)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), small_test_config(), device=cuda, seed=3)
+    a, b = sim.render_frame(8)["bmode"], sim.render_frame(8)["bmode"]
+    assert torch.equal(a, b) and float(a.std()) > 0  # one seed, one frame
 
 
 def test_frame_kernels_match_plain(cuda):

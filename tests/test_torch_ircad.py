@@ -2,7 +2,8 @@
 the Simulator's choice of closest hit.
 
 On the CPU every path runs its kernel's plain version. The listed frame
-(the default at this size) must equal the brute frame: segment validity and
+(the default at this size) must equal the brute frame, and the grouped
+frame the listed one: segment validity and
 media ids equal, images allclose (rtol 1e-5, atol 1e-6: the same segments
 march through the same code, so only a different winner on an exact tie
 could move a float). The phantom meshes are generated into ``tmp_path``.
@@ -40,6 +41,21 @@ def test_ircad_hd_listed_frame_equals_brute(ircad_hd):
     assert float(a["bmode"].std()) > 0
 
 
+def test_ircad_hd_grouped_frame_equals_listed(ircad_hd):
+    """Grouped mode (K10's plain version, then the residual listed pass) on
+    the large scene: the same closest hits as listed, so the same frame."""
+    cfg = small_test_config(transducer_elements=16, samples_per_element=2)
+    grouped = Simulator(ircad_hd, cfg, device="cpu", intersect_mode="grouped")
+    assert grouped.culled_tris[1] == "grouped" and grouped.culled_tris[0].tile_t == 128
+    a = grouped.render_frame(7)
+    b = Simulator(ircad_hd, cfg, device="cpu").render_frame(7)
+    assert int(b["segments"]["valid"].sum()) > 50
+    for key in ("valid", "media_id", "to"):
+        assert torch.equal(a["segments"][key], b["segments"][key]), key
+    for key in ("rf_raw", "bmode"):
+        torch.testing.assert_close(a[key], b[key], rtol=1e-5, atol=1e-6)
+
+
 def test_simulator_picks_the_reference_default():
     pack = load_and_compile(SPHERE_SCENE)  # 2,220 triangles: over the 2,048 threshold
     cfg = small_test_config(transducer_elements=16, samples_per_element=2)
@@ -50,7 +66,8 @@ def test_simulator_picks_the_reference_default():
         assert sim.culled_tris[1] == mode and sim.culled_tris[0].tile_t == 256
     sim = Simulator(pack, cfg, device="cpu", use_culled_intersect=False)
     assert sim.culled_tris is None and sim.intersect_tile_r == 128
-    with pytest.raises(NotImplementedError, match="grouped"):
-        Simulator(pack, cfg, device="cpu", intersect_mode="grouped")
+    sim = Simulator(pack, cfg, device="cpu", intersect_mode="grouped")
+    assert sim.culled_tris[1] == "grouped" and sim.culled_tris[0].tile_t == 128
+    assert sim.intersect_tile_r == 512
     with pytest.raises(ValueError, match="intersect_mode"):
         Simulator(pack, cfg, device="cpu", intersect_mode="lsited")

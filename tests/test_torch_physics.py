@@ -14,6 +14,7 @@ import torch
 from _torch_port import both_configs, reference_draws, to_np, to_torch
 from mcray_tpu.ops import physics as ref
 from mcray_tpu_torch.ops import physics
+from mcray_tpu_torch.utils import rng
 
 FLOAT_OUT = ("back_intensity", "new_from", "new_direction", "new_intensity")
 EXACT_OUT = ("new_media_id", "new_media_outside_id", "chose_reflection")
@@ -59,8 +60,8 @@ def test_hit_boundary_matches(rng, sphere_pack, bug_compat):
 
 
 def test_draw_bounce_randoms_distributions():
-    gen = torch.Generator().manual_seed(3)
-    draws = physics.draw_bounce_randoms(gen, 4, 5000)
+    path_keys = rng.fold_in(rng.prng_key(3), torch.arange(5000))
+    draws = physics.draw_bounce_randoms(path_keys, 4)
     assert set(draws) == {"q_normal", "angle_u", "axis_u", "radius_u", "roulette_u"}
     for key, v in draws.items():
         assert v.shape == (4, 5000) and v.dtype == torch.float32
@@ -70,3 +71,7 @@ def test_draw_bounce_randoms_distributions():
     assert float(draws["angle_u"].min()) >= 1e-12
     q = draws["q_normal"]
     assert abs(float(q.mean())) < 0.03 and abs(float(q.std()) - 1.0) < 0.03
+    # keyed: the same keys give the same draws, another depth count a prefix
+    again = physics.draw_bounce_randoms(path_keys, 2)
+    for key, v in again.items():
+        assert torch.equal(v, draws[key][:2]), key

@@ -1,5 +1,12 @@
 """The port's whole frame against mcray_tpu's, and the port's JAX-free import.
 
+Two ways of giving both packages one randomness: the port's ``render`` is
+handed the reference's draws and texture seeds (the first tests), or each
+package's entry point gets the seed alone and derives keys, draws and seeds
+itself (``test_render_frame_from_the_seed_alone_matches_reference``, in
+listed and in grouped mode: the port's ``Simulator.render_frame(seed)``
+against the reference's jitted frame of ``PRNGKey(seed)``).
+
 ``mcray_tpu.models.simulator.render`` with its CPU defaults (jnp brute
 intersect, jnp scatter march, jnp postproc, map_coordinates) renders the
 sphere under ``small_test_config()``; the port's ``render`` gets the same
@@ -23,6 +30,7 @@ lies up to ~1e9 units out along its direction and carries the direction's
 last-ulp error scaled up. rf_raw and bmode compare at rtol 1e-4, atol 1e-5.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -43,6 +51,7 @@ from mcray_tpu.scene.compile import load_and_compile
 from mcray_tpu_torch.models import simulator
 from mcray_tpu_torch.ops import clusters, geometry
 from mcray_tpu_torch.ops.cuda.scanconv import scan_maps
+from mcray_tpu_torch.scene.compile import load_and_compile as port_load_and_compile
 from mcray_tpu_torch.utils.convert import from_reference
 
 VECTOR_FIELDS = ("from", "to", "direction")
@@ -102,22 +111,28 @@ def _grazes_an_edge(tris, ray, tol=1e-6) -> bool:
     return bool(np.any(ok & (t > 0) & (t < 1) & (np.abs(margin) < tol)))
 
 
-def _check_frame(cfgs, pack, seed, ref_trace_kw=None, port_trace_kw=None):
+def _check_frame(cfgs, pack, seed, ref_trace_kw=None, port_trace_kw=None, port_sim=None):
     """Render ``seed`` in both packages (each with its own config of
     ``cfgs``) and hold the port's frame to the reference's under the
-    edge-grazing rule of the module docstring."""
+    edge-grazing rule of the module docstring. The port renders from the
+    reference's draws and seeds, or, given ``port_sim`` (a ``Simulator``
+    built with ``seed``), from the seed alone."""
     ref_cfg, cfg = cfgs
     ref_segments, ref_frame, seeds, maps = _reference_frame(ref_cfg, pack, seed,
                                                             **(ref_trace_kw or {}))
     n = cfg.transducer_elements * cfg.samples_per_element
-    state = from_reference(pack, pack.materials, seeds, reference_draws(seed, n, cfg.max_depth),
-                           device="cpu")
     port_maps = scan_maps(maps[0], maps[1], cfg.rf_rows, cfg.rf_cols)
-    out = simulator.render(
-        state["draws"], state["seeds"], state["materials"], state["position"], state["angles"],
-        state["scene"], state["spacing"], state["starting_material"], port_maps, cfg,
-        **(port_trace_kw or {}),
-    )
+    if port_sim is not None:
+        np.testing.assert_array_equal(to_np(port_sim.seeds), seeds.astype(np.int64))
+        out = port_sim.render_frame(seed)
+    else:
+        state = from_reference(pack, pack.materials, seeds,
+                               reference_draws(seed, n, cfg.max_depth), device="cpu")
+        out = simulator.render(
+            state["draws"], state["seeds"], state["materials"], state["position"],
+            state["angles"], state["scene"], state["spacing"], state["starting_material"],
+            port_maps, cfg, **(port_trace_kw or {}),
+        )
     segments = {k: to_np(v) for k, v in out["segments"].items()}
 
     # paths whose segments disagree anywhere (discrete or float)
@@ -173,6 +188,48 @@ def test_listed_render_matches_reference(reference_setup, seed):
         port_trace_kw={"culled_tris": (clusters.pack_tris_culled(*args, **kw), "listed"),
                        "intersect_tile_r": 512},
     )
+
+
+SEED_ALONE = 1  # at 32 elements this seed's paths graze no triangle edge
+
+
+@functools.lru_cache(maxsize=None)
+def _port_simulator(mode):
+    _, cfg = both_configs(transducer_elements=32, samples_per_element=2)
+    return simulator.Simulator(port_load_and_compile(SPHERE_SCENE), cfg, device="cpu",
+                               seed=SEED_ALONE, intersect_mode=mode)
+
+
+@pytest.mark.parametrize("mode", ["listed", "grouped"])
+def test_render_frame_from_the_seed_alone_matches_reference(mode):
+    """``Simulator.render_frame(seed)`` of the port against the reference's
+    frame of the same seed: nothing crosses between the packages but the
+    seed. The reference runs its listed or grouped Pallas kernel in
+    interpret mode, on the packing and packets its Simulator would choose
+    (128-triangle clusters, 512-ray packets)."""
+    cfgs = both_configs(transducer_elements=32, samples_per_element=2)
+    pack = load_and_compile(SPHERE_SCENE, cfgs[0], with_bvh=True)
+    packed = pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
+                              sort_origin=pack.transducer_position, tile_t=128)
+    sim = _port_simulator(mode)
+    assert sim.culled_tris[1] == mode and sim.intersect_tile_r == 512
+    _check_frame(cfgs, pack, SEED_ALONE, port_sim=sim,
+                 ref_trace_kw={"culled_tris": (packed, mode), "intersect_tile_r": 512,
+                               "intersect_interpret": True})
+
+
+def test_grouped_frame_equals_listed_frame():
+    """Inside the port the two modes find the same closest hits, so one seed
+    gives one frame: hit, t-derived fields and images equal bitwise."""
+    a = _port_simulator("grouped").render_frame(SEED_ALONE)
+    b = _port_simulator("listed").render_frame(SEED_ALONE)
+    assert int(a["segments"]["valid"].sum()) > 100
+    for key in ("valid", "media_id", "to", "reflected", "rays"):
+        assert torch.equal(a["segments"][key], b["segments"][key]), key
+    for key in ("rf_raw", "bmode"):
+        assert torch.equal(a[key], b[key]), key
+    again = _port_simulator("grouped").render_frame(SEED_ALONE)
+    assert torch.equal(again["bmode"], a["bmode"])  # one seed, one frame
 
 
 def test_edge_grazing_ray_splits_the_reference(reference_setup):

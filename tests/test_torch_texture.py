@@ -14,6 +14,7 @@ import torch
 from _torch_port import both_configs, to_np, to_torch
 from mcray_tpu.ops import texture as ref
 from mcray_tpu_torch.ops import texture
+from mcray_tpu_torch.utils.rng import prng_key
 
 SEEDS = np.array([123456789, 2**31 - 2], np.uint32)
 
@@ -62,10 +63,11 @@ def test_get_scattering_matches(rng, overrides):
 
 def test_make_texture_volume_seeds():
     _, cfg = both_configs()
-    a = texture.make_texture_volume(torch.Generator().manual_seed(7), cfg)["seeds"]
-    b = texture.make_texture_volume(torch.Generator().manual_seed(7), cfg)["seeds"]
+    a = texture.make_texture_volume(prng_key(7), cfg)["seeds"]
+    b = texture.make_texture_volume(prng_key(7), cfg)["seeds"]
     assert a.shape == (2,) and a.dtype == torch.int64
     assert torch.equal(a, b)
     assert ((a >= 0) & (a < 2**31 - 1)).all()
+    assert not torch.equal(a, texture.make_texture_volume(prng_key(8), cfg)["seeds"])
     with pytest.raises(NotImplementedError):
-        texture.make_texture_volume(torch.Generator(), both_configs(texture_mode="table")[1])
+        texture.make_texture_volume(prng_key(0), both_configs(texture_mode="table")[1])
