@@ -26,7 +26,10 @@ with the launch counts set to 0 just before it and read just after:
 
 Every kernel is held against its plain PyTorch version at the shapes its
 path gave it (closest hits bitwise in t and slot, at every bounce; the
-cluster paths' hit and t also against K1's bitwise), the CUDA path
+cluster paths' hit and t also against K1's bitwise), K5 also at other
+packet sizes, in two passes and at its other launch shapes on the mega
+frame's first and a late bounce and on both 200,000-triangle sets, K3 also
+on made-up images (zeros, plateaus, no peak, no convolution), the CUDA path
 against the plain CPU path on a small config (the frame, and the loss and
 material gradient of one fit step), the keyed randomness on the card
 against the CPU (bits equal, normals allclose), and every frame's image is
@@ -35,7 +38,11 @@ Frames, fit steps, stages and kernels (beside their plain versions and,
 where one PyTorch call computes the same function, beside that call) are
 timed with CUDA events; each kernel's bound (the least time the card could
 take: bytes over 3.35 TB/s or operations over 67 TFLOP/s of plain f32,
-whichever is larger) is computed from the run's own inputs.
+whichever is larger) is computed from the run's own inputs. K5 and K3,
+which run in a few microseconds, are also timed replayed from a CUDA graph
+(the kernels back to back, without the host's time to launch each), K5 at
+each of its launch shapes and K3 at both strip widths (the [design] lines),
+beside the time of one launch of the library's cheapest call.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
@@ -87,6 +94,15 @@ MEGA_FRAME_RTOL, MEGA_FRAME_ATOL = 1e-3, 1e-4
 # the normal draw goes through each device's erfinv
 NORMAL_RTOL, NORMAL_ATOL = 1e-5, 1e-6
 FIT_STEPS = 5
+# K5 and K3 were designed again for this card after these times were taken
+# (constants, not measured in this run: the sphere frame's shapes on an NVIDIA
+# H100 80GB HBM3 at 700 W, one block per 512-ray packet and one thread per
+# column's envelope walk)
+PREVIOUS_MS = {"intersect_listed": 0.1146, "postproc": 0.4651}
+# K5's launch shapes timed beside the wrapper's own: (rays per block, threads
+# per ray, tiles by bulk asynchronous copy)
+K5_SHAPES = [(32, 4, True), (32, 8, True), (16, 16, True), (16, 32, True), (8, 32, True),
+             (4, 32, True), (4, 32, False), (2, 32, True), (1, 32, True)]
 TOLERANCES = {  # (rtol, atol) of kernel vs plain at the frame's shapes
     "march": (1e-4, 1e-5),
     "postproc": (1e-5, 1e-6),
@@ -249,6 +265,83 @@ def cluster_call(mode: str, o, s, packed, tile_r: int):
     mod = intersect_culled if mode == "culled" else intersect_staged
     padded = clusters.pad_rays(o, s, tile_r)[2]
     return getattr(mod, f"{mode}_best"), getattr(mod, f"{mode}_best_plain"), (padded, packed, tile_r)
+
+
+def check_listed_shapes(label: str, o, s, packed, tri_soa) -> None:
+    """K5 on one ray set at other shapes than its frame launches it with:
+    128- and 512-ray packets, each against the plain version at the kernel's
+    group size and at the whole packet (t and slot bitwise), and the closest
+    hit in one pass and in two (the second launch seeded with the first's
+    running best) against K1 (hit and t bitwise)."""
+    bt, _ = intersect.intersect_best(torch.cat([o, s], dim=1).T.contiguous(), tri_soa)
+    vs_plain = vs_brute = 0
+    for tile_r in (128, 512):
+        args = listed_args(o, s, packed, tile_r)
+        t_k, i_k = intersect_listed.listed_best(*args)
+        for group in (intersect_listed.GROUP, None):
+            t_p, i_p = intersect_listed.listed_best_plain(*args, group=group)
+            vs_plain += int((t_k != t_p).sum() + (i_k != i_p).sum())
+        for passes in (1, 2):
+            got = intersect_listed.intersect_closest_listed(o, s, packed, tile_r=tile_r,
+                                                            passes=passes)
+            vs_brute += int((got["hit"] != (bt < 1.5)).sum() + (got["t"] != bt).sum())
+    print(f"  intersect_listed ({label}; tile_r 128 and 512; plain at group "
+          f"{intersect_listed.GROUP} and at the whole packet; passes 1 and 2): {vs_plain} "
+          f"differing (t, slot) vs plain, {vs_brute} differing (hit, t) vs K1 brute; "
+          f"{int((bt < 1.5).sum())} of {o.shape[0]} rays hit")
+    if vs_plain or vs_brute:
+        raise AssertionError(f"{label}: intersect_listed disagrees")
+
+
+def graph_ms(fn, launches: int, copies: int = 10, reps: int = 10) -> float:
+    """Device ms per launch of ``fn`` (``launches`` kernel launches a call)
+    replayed from a CUDA graph of ``copies`` calls: the kernels back to
+    back, without the host's time to launch each that CUDA events around a
+    Python call include."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(copies):
+            fn()
+    return cuda_ms(graph.replay, reps) / (copies * launches)
+
+
+def time_listed_shapes(sets: dict[str, list]) -> dict[str, float]:
+    """K5's device time per launch at each launch shape of K5_SHAPES on each
+    ray set (a list of argument tuples, launched in turn): the design's
+    numbers. Returns the wrapper's own shape's."""
+    print("[design] intersect_listed, device ms per launch (graph replay) by (rays per block, "
+          f"threads per ray, tile load); the wrapper launches ({intersect_listed.GROUP}, "
+          f"{intersect_listed.PARTS}, bulk)")
+    own = None
+    for group, parts, bulk in K5_SHAPES:
+        row = {name: graph_ms(
+            lambda: [intersect_listed.listed_best_launch(*a, group=group, parts=parts, bulk=bulk)
+                     for a in calls], len(calls))
+            for name, calls in sets.items()}
+        print(f"  ({group:2d}, {parts:2d}, {'bulk' if bulk else 'float4'}): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in row.items()))
+        if (group, parts, bulk) == (intersect_listed.GROUP, intersect_listed.PARTS, True):
+            own = row
+    return own
+
+
+def made_up_images() -> list:
+    """(name, image) for K3 beside the frame's RF: all zeros; noise with a
+    falling column (no peak), a column of 5-row plateaus, a flat column and a
+    plateau across every column; an image narrower than the lateral window
+    (no convolution); two rows (no envelope); a ragged last strip."""
+    g = torch.Generator().manual_seed(9)
+    shaped = torch.randn((465, 64), generator=g)
+    shaped[:, 3] = torch.linspace(1.0, -1.0, 465)
+    shaped[:, 4] = (torch.arange(465).div(5, rounding_mode="floor") % 3).float()
+    shaped[:, 5] = 0.25
+    shaped[100:140, :] = shaped[100:101, :]
+    return [("zeros", torch.zeros((465, 512))), ("plateaus and no peak", shaped),
+            ("narrower than the lateral window", torch.randn((465, 16), generator=g)),
+            ("two rows", torch.randn((2, 40), generator=g)),
+            ("ragged strip", torch.randn((61, 37), generator=g))]
 
 
 def check_cluster_bounces(name: str, sim, rays: torch.Tensor, tri_soa) -> list:
@@ -602,10 +695,11 @@ def time_grouped_query(label: str, o, s, packed, tile_r: int) -> dict:
             "k5_ms": k5, "grouped_query_ms": whole_g, "listed_query_ms": whole_l, **stats}
 
 
-def isotropic_phase(smi: str) -> dict:
+def isotropic_phase(smi: str) -> tuple[dict, dict]:
     """The query the grouped kernel was built for: 2,560 isotropic rays (and
     a 2,560-ray coherent fan) against a 200,000-triangle synthetic scene.
-    Grouped = listed = K1 bitwise in hit and t; then the timings."""
+    Grouped = listed = K1 bitwise in hit and t, K5 at its other shapes; then
+    the timings. Returns them and K5's arguments for each ray set."""
     t0 = time.perf_counter()
     tris, mids = stress.build_scene_arrays(ISOTROPIC_TRIS)
     fan_o, fan_s, iso_o, iso_s = (torch.from_numpy(a).cuda()
@@ -618,7 +712,7 @@ def isotropic_phase(smi: str) -> dict:
     print(f"[isotropic] {smi}: {tris.shape[0]} triangles in {packed.n_clusters} clusters "
           f"(scene, BVH and packing {time.perf_counter() - t0:.1f} s), {ISOTROPIC_RAYS} rays, "
           f"{tile_r}-ray packets")
-    result = {}
+    result, ray_sets = {}, {}
     for name, (o, s) in {"fan": (fan_o, fan_s), "isotropic": (iso_o, iso_s)}.items():
         kernels.reset_launch_counts()
         got = intersect_grouped.intersect_closest_grouped(o, s, packed, residual_tile_r=tile_r)
@@ -634,11 +728,13 @@ def isotropic_phase(smi: str) -> dict:
         if differing or counts["intersect_grouped"] != 1 or counts["intersect_listed"] != 1 \
                 or not int(got["hit"].sum()) > 100:
             raise AssertionError(f"isotropic phase, {name} rays: grouped, listed and K1 disagree")
+        check_listed_shapes(f"stress 200k {name}", o, s, packed, tri_soa)
         result[name] = time_grouped_query(f"{name} rays", o, s, packed, tile_r)
+        ray_sets[name] = listed_args(o, s, packed, tile_r)
         result[name]["k1_ms"] = cuda_ms(lambda: intersect.intersect_best(
             torch.cat([o, s], dim=1).T.contiguous(), tri_soa), 3)
         print(f"    K1 brute on the same rays {result[name]['k1_ms']:.3f} ms")
-    return result
+    return result, ray_sets
 
 
 def rng_phase(sim, smi: str) -> dict:
@@ -792,12 +888,23 @@ def main() -> int:
         cluster_calls[name] = check_cluster_bounces(
             name, sims[name], outs[name]["segments"]["rays"], tri_soa[scene])
         errs[CLUSTER_KERNEL[sims[name].culled_tris[1]]] = 0.0
+    mega_listed_rays = outs["mega listed"]["segments"]["rays"]
+    for d in (0, MEGA_LATE_BOUNCE):
+        check_listed_shapes(f"mega bounce {d}", mega_listed_rays[d][0:3].T.contiguous(),
+                            mega_listed_rays[d][3:6].T.contiguous(),
+                            sims["mega listed"].culled_tris[0], tri_soa["mega"])
     out, maps = outs["sphere"], sim.scan_maps
     soa, rf_raw, rf_env = out["soa"], out["rf_raw"], out["rf_env"]
     errs["march"] = check_close("march", march.march_cuda(soa, sim.seeds, cfg, cfg.rf_cols),
                                 march.march_plain(soa, sim.seeds, cfg, cfg.rf_cols))
     errs["postproc"] = check_close("postproc", postproc.postproc_cuda(rf_raw, cfg),
                                    postproc.postproc_plain(rf_raw, cfg))
+    for label, image in made_up_images():
+        image = image.cuda()
+        print(f"  postproc on a made-up image, {label} {tuple(image.shape)}:")
+        for strip in (4, 8):
+            check_close("postproc", postproc.postproc_forward(image, cfg, strip=strip),
+                        postproc.postproc_plain(image, cfg))
     errs["scanconv"] = check_close(
         "scanconv", scanconv.scan_convert_cuda(rf_env, maps),
         scanconv.scan_convert_plain(rf_env, maps.table, cfg.bmode_cols))
@@ -841,7 +948,7 @@ def main() -> int:
         raise AssertionError("the CUDA path disagrees with the plain CPU path")
     fit_cuda_vs_cpu(sphere)
     drawn = rng_phase(sims["sphere"], smi)
-    queries = isotropic_phase(smi)
+    queries, stress_sets = isotropic_phase(smi)
 
     # 5. timing (CUDA events, after the warm-up above)
     print(f"[timing] {smi}")
@@ -924,6 +1031,39 @@ def main() -> int:
                               mega_sim.intersect_tile_r)
         for d in (0, MEGA_LATE_BOUNCE)}
 
+    # K5 where it is the device's largest item: the mega listed frame's ten
+    # launches, then its launch shapes on every ray set, and K3's two strips
+    mega_listed_calls = cluster_calls["mega listed"]
+    k5_mega_ms = cuda_ms(lambda: [k(*a) for k, _, a in mega_listed_calls], 5) / cfg.max_depth
+    print(f"  mega listed intersect_listed: kernel {k5_mega_ms:.4f} ms per launch (mean over "
+          f"{cfg.max_depth} bounces); bounce 0 {mega_queries[0]['k5_ms']:.4f}, bounce "
+          f"{MEGA_LATE_BOUNCE} {mega_queries[MEGA_LATE_BOUNCE]['k5_ms']:.4f}; 200k fan "
+          f"{queries['fan']['k5_ms']:.4f}, isotropic {queries['isotropic']['k5_ms']:.4f}")
+    k5_device_ms = time_listed_shapes({
+        "sphere": [a for _, _, a in cluster_calls["sphere"]],
+        "ircad_hd": [a for _, _, a in cluster_calls["ircad_hd"]],
+        "mega": [a for _, _, a in mega_listed_calls],
+        "mega_late_bounce": [mega_listed_calls[MEGA_LATE_BOUNCE][2]],
+        "stress_200k_fan": [stress_sets["fan"]],
+        "stress_200k_isotropic": [stress_sets["isotropic"]]})
+    k3_device_ms = {f"{strip} columns{' again' * (i > 1)}": graph_ms(
+        lambda: postproc.postproc_forward(rf_raw, cfg, strip=strip), 1)
+        for i, strip in enumerate((4, 8, 8, 4))}
+    print(f"[design] postproc, device ms per launch (graph replay) by columns per block, in turns "
+          f"(the wrapper launches {postproc.STRIP}): "
+          + ", ".join(f"{k}: {v:.4f}" for k, v in k3_device_ms.items()))
+    k5_blocks = cluster_calls["sphere"][0][2][0].shape[1] // intersect_listed.GROUP
+    k3_blocks = postproc.blocks(cfg.rf_cols)
+    print(f"  blocks per launch on the sphere frame: intersect_listed {k5_blocks}, postproc "
+          f"{k3_blocks} (132 SMs)")
+    if k5_blocks < 66 or k3_blocks < 64:
+        raise AssertionError("a redesigned kernel launches too few blocks to fill half the card")
+    # the floor small kernels are read against: the cheapest call of the library, back to back
+    one_ray, one_tri = brute_rays[0][:, :1].contiguous(), tri_soa["sphere"][:, :1].contiguous()
+    empty_launch_ms = cuda_ms(lambda: intersect.intersect_best(one_ray, one_tri), 100)
+    print(f"  empty_launch_ms {empty_launch_ms:.5f} (K1 on one ray and one triangle, mean of 100 "
+          f"launches back to back, its two output allocations included)")
+
     # the one PyTorch call that computes the same function, where there is one
     grid_sample = grid_sample_call(sim)
     transposed = torch.sparse_csr_tensor(
@@ -984,6 +1124,17 @@ def main() -> int:
                  "fit_step_launches": fit_launches}
         if name in ms["ircad_hd"]:
             entry["ircad_hd_ms"], entry["ircad_hd_plain_ms"] = ms["ircad_hd"][name]
+        if name in PREVIOUS_MS:  # designed again since: the earlier time, a constant
+            entry["previous_ms"] = PREVIOUS_MS[name]
+            entry["empty_launch_ms"] = empty_launch_ms
+            entry["device_ms"] = (k5_device_ms if name == "intersect_listed"
+                                  else k3_device_ms[f"{postproc.STRIP} columns"])
+        if name == "intersect_listed":  # where K5 is the device's largest item, K10's rays
+            entry.update({"blocks": k5_blocks, "mega_ms": k5_mega_ms,
+                          "mega_late_bounce_ms": mega_queries[MEGA_LATE_BOUNCE]["k5_ms"],
+                          "stress_200k_isotropic_ms": queries["isotropic"]["k5_ms"]})
+        if name == "postproc":
+            entry["blocks"] = k3_blocks
         if name == "intersect_grouped":  # bounce by bounce, and the queries it was built for
             entry["mega"] = {f"bounce_{d}": q for d, q in mega_queries.items()}
             entry["stress_200k"] = queries

@@ -53,37 +53,51 @@ __device__ __forceinline__ void load_tile(float* __restrict__ s, const float* __
   }
 }
 
-// Möller–Trumbore of one ray against triangles [j0, j1) of a tile in shared
-// memory s[9][stride]; strict `<`, so on equal t the running winner stays
-// and within the range the lowest slot wins (jnp.argmin's rule).
+// Möller–Trumbore of one ray against triangle j of a tile in shared memory
+// s[9][stride]; strict `<`, so on equal t the running winner stays.
+__device__ __forceinline__ void test_triangle(const float* __restrict__ s, int stride, int j,
+                                              int base, const Ray& r, float& bt, int& bi) {
+  const float v0x = s[0 * stride + j], v0y = s[1 * stride + j], v0z = s[2 * stride + j];
+  const float e1x = s[3 * stride + j], e1y = s[4 * stride + j], e1z = s[5 * stride + j];
+  const float e2x = s[6 * stride + j], e2y = s[7 * stride + j], e2z = s[8 * stride + j];
+  // pvec = seg x e2
+  const float px = r.sy * e2z - r.sz * e2y;
+  const float py = r.sz * e2x - r.sx * e2z;
+  const float pz = r.sx * e2y - r.sy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool det_ok = fabsf(det) > DET_EPS;
+  const float inv_det = det_ok ? 1.0f / det : 0.0f;
+  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  // qvec = tvec x e1
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float v = (r.sx * qx + r.sy * qy + r.sz * qz) * inv_det;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  const bool valid = det_ok && u >= 0.f && v >= 0.f && u + v <= 1.f && t > 0.f && t < 1.f;
+  if (valid && t < bt) {
+    bt = t;
+    bi = base + j;
+  }
+}
+
+// The same against triangles [j0, j1) in ascending order: within the range
+// the lowest slot wins (jnp.argmin's rule).
 __device__ __forceinline__ void closest_in_range(const float* __restrict__ s, int stride, int j0,
                                                  int j1, int base, const Ray& r, float& bt,
                                                  int& bi) {
-  for (int j = j0; j < j1; ++j) {
-    const float v0x = s[0 * stride + j], v0y = s[1 * stride + j], v0z = s[2 * stride + j];
-    const float e1x = s[3 * stride + j], e1y = s[4 * stride + j], e1z = s[5 * stride + j];
-    const float e2x = s[6 * stride + j], e2y = s[7 * stride + j], e2z = s[8 * stride + j];
-    // pvec = seg x e2
-    const float px = r.sy * e2z - r.sz * e2y;
-    const float py = r.sz * e2x - r.sx * e2z;
-    const float pz = r.sx * e2y - r.sy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const bool det_ok = fabsf(det) > DET_EPS;
-    const float inv_det = det_ok ? 1.0f / det : 0.0f;
-    const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-    const float u = (tx * px + ty * py + tz * pz) * inv_det;
-    // qvec = tvec x e1
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float v = (r.sx * qx + r.sy * qy + r.sz * qz) * inv_det;
-    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-    const bool valid = det_ok && u >= 0.f && v >= 0.f && u + v <= 1.f && t > 0.f && t < 1.f;
-    if (valid && t < bt) {
-      bt = t;
-      bi = base + j;
-    }
-  }
+  for (int j = j0; j < j1; ++j) test_triangle(s, stride, j, base, r, bt, bi);
+}
+
+// The same against triangles j0, j0 + step, ... below `count`, ascending:
+// the share of one of `step` threads that split a tile between them (the
+// threads of a warp then read neighbouring shared-memory banks).
+__device__ __forceinline__ void closest_strided(const float* __restrict__ s, int count, int j0,
+                                                int step, int base, const Ray& r, float& bt,
+                                                int& bi) {
+#pragma unroll 4
+  for (int j = j0; j < count; j += step) test_triangle(s, count, j, base, r, bt, bi);
 }
 
 // The same over all `count` triangles of a tile s[9][count].

@@ -4,29 +4,56 @@
 // (launched by _listed_call, wrapper intersect_closest_listed). The plain
 // tensor prepass (ops/clusters.py:packet_cluster_lists) gives every packet
 // of tile_r rays its list of clusters, front to back by a lower bound of
-// the packet's entry t. One block per packet, one thread per ray; the
-// block walks its list in order:
-//   - it decides, from the running t before this cluster (as the reference
-//     does, one cluster stale), whether the list goes on past this cluster:
-//     it stops once the next key is >= the packet's worst running t. "Some
-//     ray's t exceeds the key" is that test, taken by __syncthreads_or, so no
-//     max reduction is needed;
-//   - it re-checks each ray against the cluster's AABB (rows 9-14 of its
-//     tile) with min(t, 1); only if some ray of the packet passes does the
-//     block stage rows 0-8 of the tile in shared memory and run
-//     Möller–Trumbore for every ray, with a strict `<`;
-//   - t_init / idx_init seed the running best, so a pass composes with a
-//     prior one (passes=2, and later the grouped kernel's residual pass).
+// the packet's entry t. The kernel visits, for every ray, the clusters the
+// reference visits for its packet, or fewer, with a strict `<`: a cluster
+// it leaves out could at best tie, so the winning (t, slot) is the plain
+// version's bit for bit. t_init / idx_init seed the running best, so a pass
+// composes with a prior one (passes=2, the grouped kernel's residual pass).
 // Inert lanes (padding and parked dead rays) come in at t = 0: they cannot
-// update and cannot hold the early stop open.
+// update and cannot hold a stop open.
 //
-// Bound on the card: at 2,560 rays per bounce and 512-ray packets a launch
-// has only 5 blocks for 132 SMs, so it is bound by the latency of one
-// block's serial walk (a cluster's tile load, then 128 dependent
-// Möller–Trumbore steps per thread), not by device memory or instruction
-// throughput. This kernel takes the simple form first; more blocks per
-// packet (rays or clusters split across blocks) is the first change to
-// make it fast.
+// Bound on the card: latency, not device memory or arithmetic throughput.
+// A bounce has 2,560 rays; the work of one ray is a chain of dependent
+// steps (list entry -> box -> tile -> 128 Möller–Trumbore tests -> running
+// t -> next entry), and the card has 132 SMs to hide it on. The design
+// shortens the chain and widens the launch:
+//   - A block per sub-packet, not per packet: `group` rays walk their
+//     packet's list with their own stop and their own box test. A list key
+//     is the minimum entry t over the whole packet, so it bounds every
+//     subset's entry too, and keys ascend: a group stops when the next key
+//     is >= its own worst running t (one cluster stale, as the reference),
+//     and a group of inert lanes returns at once, so a late bounce with 177
+//     live rays no longer walks for 2,560.
+//   - PARTS threads per ray: thread k tests triangles k, k + PARTS, ... of
+//     a tile in ascending order, and the shares are merged by shuffles on
+//     (t, slot), lower slot on equal t, then taken against the running best
+//     with a strict `<` — the first triangle attaining the minimum,
+//     jnp.argmin's rule. Interleaved shares put a warp's reads on
+//     neighbouring shared-memory banks.
+//   - The list is read CHUNK entries at a time: a thread per entry brings
+//     its id, key and box (32 bytes of aabb_cluster, not six values a row
+//     apart in the tile) into shared memory, and the PARTS threads of a ray
+//     test different entries against the ray's running t. The boxes' OR over
+//     the block is the chunk's candidate mask: t only shrinks, so a cluster
+//     no ray reaches now is reached by none later, and a skipped entry costs
+//     a bit, not a tile and two barriers. Each candidate is tested again at
+//     its turn against the t of that moment, as the reference tests it.
+//   - Tiles come by bulk asynchronous copy (cp.async.bulk, completion on an
+//     mbarrier) into a two-stage ring: one thread asks for rows 0-8 of the
+//     next candidate's tile (4,608 contiguous bytes at tile_t = 128) while
+//     the block tests the current one. `bulk = 0` loads the tile with
+//     float4 reads by all threads instead, at its turn (kept for the
+//     comparison chip_smoke.py prints: a quarter slower on large scenes).
+// Chosen on an H100 (chip_smoke.py's [design] lines): 4 rays per block with
+// a warp each, 640 blocks of 128 threads a bounce. Fewer threads per ray
+// and more rays per block are slower on every ray set (32 rays x 4 threads:
+// 2.4x on the sphere, 3-7x on the large scenes); 2 or 1 rays per block gain
+// up to 40% on incoherent rays and lose 10-40% on the sphere and on a
+// coherent fan. Staging 128 list entries at a time instead of 32 was slower
+// on coherent rays (boxes staged past the stop).
+
+#include <climits>
+#include <cstdint>
 
 #include "intersect_common.cuh"
 
@@ -34,59 +61,221 @@ namespace {
 
 using mcray::Ray;
 
-__global__ void __launch_bounds__(1024)
-intersect_listed_kernel(const float* __restrict__ rays, int n_tot, const int* __restrict__ counts,
-                        const int* __restrict__ ids, const float* __restrict__ keys, int n_c,
+constexpr int CHUNK = 32;  // list entries staged at a time: one bit each in the candidate mask
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_addr(bar)), "r"(arrivals)
+               : "memory");
+}
+
+// Wait until the barrier has completed the phase of this parity.
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One thread: copy `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory; the barrier's phase completes when
+// they have arrived. The fence orders the block's earlier reads of `dst`
+// before the copy's writes.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(shared_addr(dst)),
+      "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+template <int PARTS, bool BULK>
+__global__ void __launch_bounds__(512)
+intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
+                        const int* __restrict__ counts, const int* __restrict__ ids,
+                        const float* __restrict__ keys, int n_c,
                         const float* __restrict__ t_init, const int* __restrict__ idx_init,
-                        const float* __restrict__ tiles, int tile_t, float* __restrict__ best_t,
-                        int* __restrict__ best_idx) {
-  extern __shared__ float s[];  // [9][tile_t]
-  const int p = blockIdx.x;
-  const int i = p * blockDim.x + threadIdx.x;
+                        const float* __restrict__ tiles, const float* __restrict__ boxes,
+                        int tile_t, float* __restrict__ best_t, int* __restrict__ best_idx) {
+  extern __shared__ __align__(16) float s_tiles[];  // [2][9][tile_t]
+  __shared__ __align__(16) float s_box[CHUNK][8];
+  __shared__ int s_id[CHUNK];
+  __shared__ float s_key[CHUNK];
+  __shared__ unsigned s_mask[2];
+  __shared__ __align__(8) uint64_t s_full[2];
+
+  const int group = blockDim.x / PARTS;
+  const int part = threadIdx.x % PARTS;
+  const int first = blockIdx.x * group;  // the block's first ray
+  const int i = first + threadIdx.x / PARTS;
+  const int p = first / tile_r;
   const Ray r = mcray::load_ray(rays, n_tot, i);
   const float ix = mcray::inv_dir(r.sx), iy = mcray::inv_dir(r.sy), iz = mcray::inv_dir(r.sz);
   float bt = t_init[i];
   int bi = idx_init[i];
 
   const int n = counts[p];
-  const int* id_row = ids + (size_t)p * n_c;
-  const float* key_row = keys + (size_t)p * n_c;
-  const size_t tile_size = 16 * (size_t)tile_t;
-  bool go = n > 0;
-  for (int it = 0; go; ++it) {
-    const bool has_next = it + 1 < n;
-    const float key_next = has_next ? key_row[it + 1] : 0.f;
-    const bool want_next = __syncthreads_or(has_next && key_next < bt) != 0;
-
-    const int c = id_row[it];
-    const float* tile = tiles + (size_t)c * tile_size;
-    const bool active = mcray::slab_active(tile + 9 * tile_t, tile_t, r, ix, iy, iz, bt);
-    if (__syncthreads_or(active)) {
-      mcray::load_tile(s, tile, tile_t, tile_t);
-      __syncthreads();
-      mcray::closest_in_tile(s, tile_t, c * tile_t, r, bt, bi);
-      __syncthreads();
+  // a group of inert lanes only (t = 0) can find nothing
+  if (__syncthreads_or(bt > 0.f) && n > 0) {
+    const int* id_row = ids + (size_t)p * n_c;
+    const float* key_row = keys + (size_t)p * n_c;
+    const uint32_t tile_bytes = 9u * (uint32_t)tile_t * sizeof(float);
+    if (threadIdx.x == 0) {
+      s_mask[0] = s_mask[1] = 0u;
+      if (BULK) {
+        mbarrier_init(&s_full[0], 1);
+        mbarrier_init(&s_full[1], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
     }
-    go = want_next;
+    float bt_old = bt;    // the running t before the last cluster tested
+    int last = -2;        // list index of the last cluster tested
+    unsigned copies = 0;  // tile copies retired so far: copy q uses stage q & 1
+    bool ahead = false;   // the next candidate's copy is already on its way
+    bool go = true;
+    for (int base = 0, chunk = 0; go && base < n; base += CHUNK, ++chunk) {
+      const int m = min(CHUNK, n - base);
+      for (int e = threadIdx.x; e < m; e += blockDim.x) {
+        const int c = id_row[base + e];
+        s_id[e] = c;
+        s_key[e] = key_row[base + e];
+        const float4* box = reinterpret_cast<const float4*>(boxes + (size_t)c * 8);
+        reinterpret_cast<float4*>(s_box[e])[0] = box[0];
+        reinterpret_cast<float4*>(s_box[e])[1] = box[1];
+      }
+      if (threadIdx.x == 0) s_mask[(chunk + 1) & 1] = 0u;
+      __syncthreads();
+      // the list goes on into this chunk if its first key is below some
+      // ray's t (keys ascend: if not, no later entry is reached either)
+      if (base > 0 && !__syncthreads_or(s_key[0] < (base == last + 1 ? bt_old : bt))) break;
+      // candidates: the entries whose box some ray of the group reaches now
+      unsigned mine = 0u;
+      for (int e = part; e < m; e += PARTS)
+        if (mcray::slab_active(s_box[e], 1, r, ix, iy, iz, bt)) mine |= 1u << e;
+      mine = __reduce_or_sync(0xffffffffu, mine);
+      if ((threadIdx.x & 31) == 0 && mine) atomicOr(&s_mask[chunk & 1], mine);
+      __syncthreads();
+      unsigned cand = s_mask[chunk & 1];
+      while (cand) {
+        const int e = __ffs(cand) - 1;
+        cand &= cand - 1;
+        const int e_next = __ffs(cand) - 1;  // the chunk's next candidate, or -1
+        const int at = base + e;
+        const int c = s_id[e];
+        float* tile = s_tiles + (copies & 1u) * 9 * (size_t)tile_t;
+        if (BULK && !ahead && threadIdx.x == 0)
+          bulk_copy(tile, tiles + (size_t)c * 16 * tile_t, tile_bytes, &s_full[copies & 1u]);
+        // reached: the stop rule, on the t before the cluster just tested
+        // where that was this entry's predecessor (one cluster stale)
+        go = __syncthreads_or(at == 0 || s_key[e] < (at == last + 1 ? bt_old : bt));
+        const bool active =
+            go && __syncthreads_or(mcray::slab_active(s_box[e], 1, r, ix, iy, iz, bt));
+        ahead = false;
+        if (BULK) {
+          if (go && e_next >= 0) {  // the next candidate's tile, into the other stage
+            ahead = true;
+            if (threadIdx.x == 0)
+              bulk_copy(s_tiles + ((copies + 1u) & 1u) * 9 * (size_t)tile_t,
+                        tiles + (size_t)s_id[e_next] * 16 * tile_t, tile_bytes,
+                        &s_full[(copies + 1u) & 1u]);
+          }
+          mbarrier_wait(&s_full[copies & 1u], (copies >> 1) & 1u);  // every copy is retired
+        } else if (active) {
+          const float4* src = reinterpret_cast<const float4*>(tiles + (size_t)c * 16 * tile_t);
+          for (int k = threadIdx.x; k < 9 * tile_t / 4; k += blockDim.x)
+            reinterpret_cast<float4*>(tile)[k] = src[k];
+          __syncthreads();
+        }
+        ++copies;
+        if (!go) break;
+        if (active) {
+          float ct = bt;
+          int ci = INT_MAX;
+          mcray::closest_strided(tile, tile_t, part, PARTS, c * tile_t, r, ct, ci);
+          // merge the PARTS lanes of a ray (they share a warp; every lane shuffles)
+          for (int off = 1; off < PARTS; off <<= 1) {
+            const float ot = __shfl_xor_sync(0xffffffffu, ct, off);
+            const int oi = __shfl_xor_sync(0xffffffffu, ci, off);
+            if (ot < ct || (ot == ct && oi < ci)) {
+              ct = ot;
+              ci = oi;
+            }
+          }
+          bt_old = bt;
+          last = at;
+          if (ct < bt) {
+            bt = ct;
+            bi = ci;
+          }
+        }
+      }
+    }
   }
-  best_t[i] = bt;
-  best_idx[i] = bi;
+  if (part == 0) {
+    best_t[i] = bt;
+    best_idx[i] = bi;
+  }
+}
+
+template <int PARTS>
+cudaError_t launch(int bulk, int grid, int block, size_t smem, cudaStream_t stream,
+                   const float* rays, int n_tot, int tile_r, const int* counts, const int* ids,
+                   const float* keys, int n_c, const float* t_init, const int* idx_init,
+                   const float* tiles, const float* boxes, int tile_t, float* best_t,
+                   int* best_idx) {
+  if (bulk)
+    intersect_listed_kernel<PARTS, true><<<grid, block, smem, stream>>>(
+        rays, n_tot, tile_r, counts, ids, keys, n_c, t_init, idx_init, tiles, boxes, tile_t,
+        best_t, best_idx);
+  else
+    intersect_listed_kernel<PARTS, false><<<grid, block, smem, stream>>>(
+        rays, n_tot, tile_r, counts, ids, keys, n_c, t_init, idx_init, tiles, boxes, tile_t,
+        best_t, best_idx);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // rays (6, n_tot), n_tot = packets * tile_r; counts (P,), ids and keys
 // (P, n_c); t_init, idx_init, best_t, best_idx (n_tot,); tiles
-// (clusters, 16, tile_t).
+// (clusters, 16, tile_t), 16-byte aligned, tile_t a multiple of 4; boxes
+// (clusters, 8) [min xyz, max xyz, 0, 0], the tiles' rows 9-14. A block
+// takes `group` rays (a divisor of tile_r) with `parts` threads each (4, 8,
+// 16 or 32; group * parts a multiple of 32 up to 512).
 extern "C" int mcray_intersect_listed(const float* rays, int n_tot, int tile_r, const int* counts,
                                       const int* ids, const float* keys, int n_c,
                                       const float* t_init, const int* idx_init, const float* tiles,
-                                      int tile_t, float* best_t, int* best_idx,
+                                      const float* boxes, int tile_t, int group, int parts,
+                                      int bulk, float* best_t, int* best_idx,
                                       cudaStream_t stream) {
-  if (n_tot > 0) {
-    const size_t smem = 9 * (size_t)tile_t * sizeof(float);
-    intersect_listed_kernel<<<n_tot / tile_r, tile_r, smem, stream>>>(
-        rays, n_tot, counts, ids, keys, n_c, t_init, idx_init, tiles, tile_t, best_t, best_idx);
+  if (n_tot <= 0) return (int)cudaGetLastError();
+  const size_t smem = 2 * 9 * (size_t)tile_t * sizeof(float);
+  const int grid = n_tot / group, block = group * parts;
+#define MCRAY_LISTED(P)                                                                        \
+  launch<P>(bulk, grid, block, smem, stream, rays, n_tot, tile_r, counts, ids, keys, n_c,      \
+            t_init, idx_init, tiles, boxes, tile_t, best_t, best_idx)
+  switch (parts) {
+    case 4: return (int)MCRAY_LISTED(4);
+    case 8: return (int)MCRAY_LISTED(8);
+    case 16: return (int)MCRAY_LISTED(16);
+    case 32: return (int)MCRAY_LISTED(32);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef MCRAY_LISTED
 }

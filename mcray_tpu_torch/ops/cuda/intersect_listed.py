@@ -4,16 +4,26 @@ Replaces ``mcray_tpu/ops/pallas/intersect.py:_intersect_listed_kernel``
 (``_listed_call`` and the wrapper ``intersect_closest_listed``), the
 reference's default closest hit at 2,048 triangles and up. The prepass
 (``clusters.packet_cluster_lists``, plain torch on every device) lists each
-ray packet's clusters front to back; the kernel walks each packet's list
-with an AABB re-check per cluster and stops once no ray of the packet can
-improve. The winner tail (``clusters.winner_hits``) recomputes t from the
-winning slot.
+``tile_r``-ray packet's clusters front to back; the kernel walks the list
+with a box re-check per cluster and stops once no ray can improve. The
+winner tail (``clusters.winner_hits``) recomputes t from the winning slot.
 
-The plain version walks the lists for all packets at once, one list slot
-per step (tensors of (packets, rays, tile_t), never (packets, rays,
+On the card the kernel is bound by latency (a ray's walk is a chain of
+dependent steps, and a bounce has only 2,560 rays), so a block takes
+``GROUP`` rays of a packet, not the packet: each group walks the packet's
+list with its own stop and its own box test, ``PARTS`` threads share each
+ray's 128 triangle tests, the boxes of 32 list entries are tested at once
+into a candidate mask, and the next candidate's tile arrives by bulk
+asynchronous copy while the current one is tested (the source's header
+note has the details). A list key is the minimum entry t over the whole
+packet, so it bounds every subset's entry too: the group's stop drops only
+clusters that could at best tie, which a strict ``<`` never takes, and the
+winning t and slot do not depend on the group size.
+
+The plain version walks the lists for all groups at once, one list slot
+per step (tensors of (groups, rays, tile_t), never (groups, rays,
 clusters x tile_t)), with the kernel's stop rule and strict ``<``; the
-winning t and slot equal the kernel's bitwise. Skips and stops only drop
-clusters that could at best tie, which a strict ``<`` never takes.
+winning t and slot equal the kernel's bitwise.
 """
 
 from __future__ import annotations
@@ -28,13 +38,28 @@ from . import _build
 launches = 0
 
 TILE_R = 128
+#: rays per block of the kernel (a divisor of 32) and threads per ray:
+#: 640 blocks of 128 threads for a bounce of 2,560 rays
+GROUP = 4
+PARTS = 32
 
 
-def listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed: clusters.CulledTris):
+def listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed: clusters.CulledTris,
+                      group: int | None = None):
     """Plain version: rays (6, n_tot), lists (P,), (P, C), (P, C), running
-    best (n_tot,) -> (best_t (n_tot,) f32, best_slot (n_tot,) i32)."""
+    best (n_tot,) -> (best_t (n_tot,) f32, best_slot (n_tot,) i32).
+
+    ``group`` rays (a divisor of the packet size; ``None``: the whole
+    packet) walk their packet's list together, with their own stop and
+    their own box test, as a block of the kernel does."""
     p = counts.shape[0]
     tile_r = rays.shape[1] // p if p else 1
+    if group is not None and p:
+        if tile_r % group:
+            raise ValueError(f"group {group} does not divide the packet size {tile_r}")
+        k = tile_r // group
+        counts, ids, keys = (x.repeat_interleave(k, dim=0) for x in (counts, ids, keys))
+        p, tile_r = p * k, group
     o = rays[0:3].T.reshape(p, tile_r, 3)
     s = rays[3:6].T.reshape(p, tile_r, 3)
     inv = clusters.inverse_dirs(s)
@@ -45,7 +70,7 @@ def listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed: cluster
     for it in range(n_c):
         if not bool(go.any()):
             break
-        # the next slot is visited if the packet's worst running t, before
+        # the next slot is visited if the group's worst running t, before
         # this cluster, still exceeds its key (one cluster stale, as the kernel)
         nxt = min(it + 1, n_c - 1)
         want_next = go & (it + 1 < counts) & (keys[:, nxt] < t.amax(dim=1))
@@ -61,27 +86,45 @@ def listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed: cluster
 def listed_best(rays, counts, ids, keys, t_init, idx_init, packed: clusters.CulledTris):
     """(best_t, best_slot) of every ray: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    global launches
     if rays.device.type == "cpu" and packed.device.type == "cpu":
         return listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed)
+    return listed_best_launch(rays, counts, ids, keys, t_init, idx_init, packed)
+
+
+def listed_best_launch(rays, counts, ids, keys, t_init, idx_init, packed: clusters.CulledTris,
+                       group: int = GROUP, parts: int = PARTS, bulk: bool = True):
+    """One launch of the kernel on CUDA tensors with ``group`` rays per
+    block, ``parts`` threads per ray, and the tiles by bulk asynchronous
+    copy or (``bulk=False``) by float4 loads of the whole block. The result
+    depends on none of the three; ``listed_best`` launches the defaults."""
+    global launches
     n_tot, (p, n_c) = rays.shape[1], ids.shape
     tile_r = n_tot // p
     if p * tile_r != n_tot or not 32 <= tile_r <= 1024 or tile_r % 32:
         raise ValueError(f"rays per packet {n_tot}/{p} must be a multiple of 32 in [32, 1024]")
+    if parts not in (4, 8, 16, 32) or tile_r % group or (group * parts) % 32 \
+            or group * parts > 512:
+        raise ValueError(f"group {group} x parts {parts}: parts must be 4, 8, 16 or 32, group a "
+                         f"divisor of {tile_r}, and their product a multiple of 32 up to 512")
     _build.require(rays, "rays", torch.float32, (6, n_tot))
     _build.require(counts, "counts", torch.int32, (p,))
     _build.require(ids, "ids", torch.int32, (p, n_c))
     _build.require(keys, "keys", torch.float32, (p, n_c))
     _build.require(t_init, "t_init", torch.float32, (n_tot,))
     _build.require(idx_init, "idx_init", torch.int32, (n_tot,))
-    tiles = packed.hbm_tris
+    tiles, boxes = packed.hbm_tris, packed.aabb_cluster
     _build.require(tiles, "hbm_tris", torch.float32, (n_c, clusters.SOA_ROWS, packed.tile_t))
+    _build.require(boxes, "aabb_cluster", torch.float32, (n_c, 8))
+    if packed.tile_t % 4 or tiles.data_ptr() % 16 or boxes.data_ptr() % 16:
+        raise ValueError("hbm_tris and aabb_cluster must be 16-byte aligned and tile_t a "
+                         "multiple of 4 (the kernel copies rows 0-8 of a tile in 16-byte units)")
     best_t = torch.empty(n_tot, dtype=torch.float32, device=rays.device)
     best_slot = torch.empty(n_tot, dtype=torch.int32, device=rays.device)
     code = _build.library().mcray_intersect_listed(
         rays.data_ptr(), n_tot, tile_r, counts.data_ptr(), ids.data_ptr(), keys.data_ptr(), n_c,
-        t_init.data_ptr(), idx_init.data_ptr(), tiles.data_ptr(), packed.tile_t,
-        best_t.data_ptr(), best_slot.data_ptr(), _build.stream_of(rays),
+        t_init.data_ptr(), idx_init.data_ptr(), tiles.data_ptr(), boxes.data_ptr(),
+        packed.tile_t, group, parts, int(bulk), best_t.data_ptr(), best_slot.data_ptr(),
+        _build.stream_of(rays),
     )
     _build.check(code, "mcray_intersect_listed")
     launches += 1

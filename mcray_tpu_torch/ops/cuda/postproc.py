@@ -6,14 +6,16 @@ uncentered separable convolution (7 axial x 13 lateral taps; cells outside
 the write window keep their raw values, ``imaging._convolve_reference``)
 followed by the closed-form peak-lerp envelope (``imaging.envelope``).
 
-On the card: one block per 32 columns. Its threads first compute the
-convolution of their columns' cells in parallel (taps summed k = 0..A-1,
-then 0..L-1, as the reference sums them) into the output; then one thread
-per column walks the rows in order and rewrites them with the envelope —
-the reference C++ walk, whose state (last peak) needs no scan at all. The
-convolution runs on every thread of the block; the kernel is bound by the
-serial row walk (465 dependent steps per column at full size, on one
-thread of 8).
+On the card the kernel is bound by bytes (the image read once and written
+once, 0.6 us at 465 x 512), so its time is latency: a block owns a strip
+of ``STRIP`` whole columns in shared memory (loaded once with the lateral
+halo), sums the taps separably (A + L products per cell, in the reference's
+order of additions), and computes the envelope as two warp scans per
+column — the previous peak of a row is a running maximum, the next peak a
+reverse running minimum, as in ``imaging.envelope`` — after which every row
+lerps on its own. The convolved image never goes to device memory; the
+source's header note has the details. Images of more than ``MAX_ROWS`` rows
+raise.
 
 Modes: reference envelope with uncentered PSF only; the centered PSF and
 the Hilbert envelope raise NotImplementedError for CUDA tensors.
@@ -40,6 +42,16 @@ from . import _build
 
 #: kernel launches since the last reset (one per call on a CUDA tensor)
 launches = 0
+
+#: columns per block of the kernel (128 blocks at 512 columns), and the tallest image it takes (a lane
+#: of a column's warp holds at most 31 rows)
+STRIP = 4
+MAX_ROWS = 32 * 31
+
+
+def blocks(cols: int) -> int:
+    """Blocks of one launch on an image of ``cols`` columns."""
+    return -(-cols // STRIP)
 
 
 def postproc_plain(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
@@ -84,8 +96,9 @@ def postproc_cuda(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     return _Postproc.apply(rf, cfg)
 
 
-def postproc_forward(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    """K3 for a CUDA ``rf``, ``postproc_plain`` for a CPU one (no autograd)."""
+def postproc_forward(rf: torch.Tensor, cfg: SimConfig, strip: int = STRIP) -> torch.Tensor:
+    """K3 for a CUDA ``rf``, ``postproc_plain`` for a CPU one (no autograd).
+    ``strip`` (4 or 8 columns per block) changes the launch, not the result."""
     global launches
     if rf.device.type == "cpu":
         return postproc_plain(rf, cfg)
@@ -96,12 +109,14 @@ def postproc_forward(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
             "the CUDA postproc kernel computes the uncentered PSF and the "
             "reference envelope only"
         )
+    if rows > MAX_ROWS:
+        raise ValueError(f"the CUDA postproc kernel takes at most {MAX_ROWS} rows, got {rows}")
     a, l = cfg.psf_axial_size, cfg.psf_lateral_size
     taps = _taps(cfg, rf.device)
     do_conv = int(rows > 2 * a and cols > l + l // 2)  # else the reference's loops never run
     out = torch.empty_like(rf)
     code = _build.library().mcray_postproc(
-        rf.data_ptr(), rows, cols, taps.data_ptr(), a, taps[a:].data_ptr(), l, do_conv,
+        rf.data_ptr(), rows, cols, taps.data_ptr(), a, taps.data_ptr() + 4 * a, l, do_conv, strip,
         out.data_ptr(), _build.stream_of(rf),
     )
     _build.check(code, "mcray_postproc")

@@ -69,8 +69,16 @@ def _cluster_cases(cuda):
     return pack, [("sphere bounce 0", rays[0]), ("ragged", ragged), ("all dead", dead)]
 
 
-@pytest.mark.parametrize("mode", ["listed", "culled", "staged"])
-def test_cluster_kernels_match_plain(cuda, mode):
+def _listed_start(s):
+    """The running best a single pass starts from: inert lanes at t = 0."""
+    live = torch.abs(s).sum(dim=1) > 0
+    t0 = torch.where(live, geometry.NO_HIT_T, 0.0)
+    return t0, torch.zeros_like(t0, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("mode,tile_r", [("listed", 512), ("listed", 128), ("culled", 512),
+                                         ("staged", 512)])
+def test_cluster_kernels_match_plain(cuda, mode, tile_r):
     pack, cases = _cluster_cases(cuda)
     tile_t = 128 if mode == "listed" else 256
     packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
@@ -80,24 +88,25 @@ def test_cluster_kernels_match_plain(cuda, mode):
     mod = {"listed": intersect_listed, "culled": intersect_culled, "staged": intersect_staged}[mode]
     closest = getattr(mod, f"intersect_closest_{mode}")
     for name, rays in cases:
-        o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, 512)
+        o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, tile_r)
         before = mod.launches
         if mode == "listed":
-            lists = clusters.packet_cluster_lists(o, s, packed, 512)
-            live = torch.abs(s).sum(dim=1) > 0
-            t0 = torch.where(live, geometry.NO_HIT_T, 0.0)
-            i0 = torch.zeros_like(t0, dtype=torch.int32)
-            t_k, i_k = mod.listed_best(padded, *lists, t0, i0, packed)
-            t_p, i_p = mod.listed_best_plain(padded, *lists, t0, i0, packed)
+            lists = clusters.packet_cluster_lists(o, s, packed, tile_r)
+            start = _listed_start(s)
+            t_k, i_k = mod.listed_best(padded, *lists, *start, packed)
+            t_p, i_p = mod.listed_best_plain(padded, *lists, *start, packed)
+            # the plain version at the kernel's group size gives the same winner
+            t_g, i_g = mod.listed_best_plain(padded, *lists, *start, packed, group=mod.GROUP)
+            assert torch.equal(t_g, t_p) and torch.equal(i_g, i_p), name
         else:
             best, plain = ((mod.culled_best, mod.culled_best_plain) if mode == "culled"
                            else (mod.staged_best, mod.staged_best_plain))
-            t_k, i_k = best(padded, packed, 512)
-            t_p, i_p = plain(padded, packed, 512)
+            t_k, i_k = best(padded, packed, tile_r)
+            t_p, i_p = plain(padded, packed, tile_r)
         assert mod.launches == before + 1, name
         assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
         # hit and t equal the brute kernel's
-        got = closest(rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, tile_r=512)
+        got = closest(rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, tile_r=tile_r)
         bt, bi = intersect.intersect_best(rays.contiguous(), tri_soa)
         assert torch.equal(got["hit"], bt < 1.5), name
         assert torch.equal(got["t"], bt), name
@@ -105,6 +114,53 @@ def test_cluster_kernels_match_plain(cuda, mode):
             assert not bool(got["hit"].any())
         else:
             assert int(got["hit"].sum()) > 20, name
+
+
+@pytest.mark.parametrize("tile_r", [512, 128])
+def test_listed_kernel_two_passes_match_brute(cuda, tile_r):
+    """passes=2 (two launches, the second seeded with the first's running
+    best) gives K1's hit and t, and the second launch equals its plain
+    version on the seeded start."""
+    pack, cases = _cluster_cases(cuda)
+    packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
+                                       sort_origin=pack.transducer_position, tile_t=128,
+                                       device=cuda)
+    tri_soa = geometry.triangle_soa(to_torch(pack.tris)).to(cuda)
+    for name, rays in cases:
+        before = intersect_listed.launches
+        got = intersect_listed.intersect_closest_listed(
+            rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, tile_r=tile_r, passes=2,
+            front_k=2)
+        assert intersect_listed.launches == before + 2, name
+        bt, _ = intersect.intersect_best(rays.contiguous(), tri_soa)
+        assert torch.equal(got["hit"], bt < 1.5) and torch.equal(got["t"], bt), name
+        # a seeded launch: the first two list slots, then the whole list from there
+        o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, tile_r)
+        counts, ids, keys = clusters.packet_cluster_lists(o, s, packed, tile_r)
+        first = intersect_listed.listed_best(padded, torch.clamp(counts, max=2), ids, keys,
+                                             *_listed_start(s), packed)
+        t_k, i_k = intersect_listed.listed_best(padded, counts, ids, keys, *first, packed)
+        t_p, i_p = intersect_listed.listed_best_plain(padded, counts, ids, keys, *first, packed)
+        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
+
+
+@pytest.mark.parametrize("group,parts,bulk", [(8, 32, False), (32, 4, True), (32, 8, True),
+                                              (16, 16, True), (16, 32, True), (8, 4, True),
+                                              (1, 32, True), (2, 32, False)])
+def test_listed_kernel_launch_shapes_give_one_result(cuda, group, parts, bulk):
+    """Rays per block, threads per ray and the way the tiles are loaded
+    change the launch, not the winner."""
+    pack, cases = _cluster_cases(cuda)
+    packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
+                                       sort_origin=pack.transducer_position, tile_t=128,
+                                       device=cuda)
+    for name, rays in cases:
+        o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, 512)
+        args = (padded, *clusters.packet_cluster_lists(o, s, packed, 512), *_listed_start(s),
+                packed)
+        t_k, i_k = intersect_listed.listed_best_launch(*args, group=group, parts=parts, bulk=bulk)
+        t_p, i_p = intersect_listed.listed_best_plain(*args, group=group)
+        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
 
 
 @pytest.mark.parametrize("budget", [(32, 4), (8, 1), (16, 2)])
@@ -173,6 +229,36 @@ def test_frame_kernels_match_plain(cuda):
         scanconv.scan_convert_cuda(out["rf_env"], sim.scan_maps).cpu(),
         scanconv.scan_convert_plain(out["rf_env"], sim.scan_maps.table, cfg.bmode_cols).cpu(),
         rtol=1e-6, atol=1e-6)
+
+
+def _made_up_images():
+    """(name, image) for K3: all zeros; columns with plateaus and a column
+    without a peak among noise; an image narrower than the lateral window
+    (no convolution); a short one (fewer than 3 rows: no envelope)."""
+    g = torch.Generator().manual_seed(9)
+    shaped = torch.randn((465, 64), generator=g)
+    shaped[:, 3] = torch.linspace(1.0, -1.0, 465)              # falling: no peak
+    shaped[:, 4] = torch.arange(465).div(5, rounding_mode="floor") % 3   # plateaus of 5 rows
+    shaped[:, 5] = 0.25                                         # flat
+    shaped[100:140, :] = shaped[100:101, :]                     # a plateau across every column
+    return [("zeros", torch.zeros((465, 512))), ("plateaus and no peak", shaped),
+            ("narrower than the lateral window", torch.randn((465, 16), generator=g)),
+            ("two rows", torch.randn((2, 40), generator=g)),
+            ("ragged strip", torch.randn((61, 37), generator=g))]
+
+
+@pytest.mark.parametrize("strip", [4, 8])
+def test_postproc_kernel_matches_plain_on_made_up_images(cuda, strip):
+    cfg = SimConfig()
+    for name, image in _made_up_images():
+        rf = image.to(cuda)
+        before = postproc.launches
+        got = postproc.postproc_forward(rf, cfg, strip=strip)
+        assert postproc.launches == before + 1, name
+        np.testing.assert_allclose(got.cpu(), postproc.postproc_plain(rf, cfg).cpu(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    with pytest.raises(ValueError):
+        postproc.postproc_forward(torch.zeros((postproc.MAX_ROWS + 1, 8), device=cuda), cfg)
 
 
 MODES = {

@@ -136,3 +136,83 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     assert intersect_listed.launches == before
     assert got[1].dtype == torch.int32
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# --- the kernel's sub-packet walk: `group` rays share a stop and a box test ---
+
+GROUPS = [intersect_listed.GROUP, 32, 128, None]
+
+
+def _listed_inputs(case, pack):
+    """Padded rays (6, n_tot) and the padded origins and segments of a case."""
+    _, _, _, o, s = _case(case)
+    return clusters.pad_rays(to_torch(o), to_torch(s), TILE_R)
+
+
+def _listed_plain(case, pack, group, passes):
+    """(best_t, best_slot, live) by ``listed_best_plain`` at ``group``, in
+    one pass or in the wrapper's two (front_k = 2)."""
+    o, s, rays = _listed_inputs(case, pack)
+    live = torch.abs(s).sum(dim=1) > 0.0
+    t0 = torch.where(live, geometry.NO_HIT_T, 0.0)
+    i0 = torch.zeros_like(t0, dtype=torch.int32)
+    counts, ids, keys = clusters.packet_cluster_lists(o, s, pack, TILE_R)
+    if passes == 1:
+        return (*intersect_listed.listed_best_plain(rays, counts, ids, keys, t0, i0, pack,
+                                                    group=group), live)
+    c1 = torch.clamp(counts, max=2)
+    bt1, bs1 = intersect_listed.listed_best_plain(rays, c1, ids, keys, t0, i0, pack, group=group)
+    slots = torch.arange(ids.shape[1])[None, :] < c1[:, None]
+    visited = torch.zeros_like(slots).scatter_(1, ids.long(), slots)
+    lists2 = clusters.packet_cluster_lists(o, s, pack, TILE_R, t_cap=bt1, exclude=visited)
+    return (*intersect_listed.listed_best_plain(rays, *lists2, bt1, bs1, pack, group=group), live)
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("case", ["sphere", "random", "dead"])
+@pytest.mark.parametrize("group", GROUPS, ids=lambda g: f"group-{g}")
+def test_listed_plain_is_exact_at_every_group_size(group, case, passes):
+    """A block of the kernel takes ``group`` rays of a packet, with their own
+    stop and box test: the winning (t, slot) is the whole packet's bitwise,
+    and still the reference's Pallas kernel's (hit equal, t to FMA rounding)."""
+    tris, mid, probe, o, s = _case(case)
+    want_pack, pack = _packs(tris, mid, probe, "listed")
+    t_g, i_g, live = _listed_plain(case, pack, group, passes)
+    t_p, i_p, _ = _listed_plain(case, pack, None, passes)
+    assert torch.equal(t_g, t_p) and torch.equal(i_g, i_p)
+    kw = {"passes": 2, "front_k": 2} if passes == 2 else {}
+    want = {k: np.asarray(v) for k, v in ref.intersect_closest_listed(
+        jnp.asarray(o), jnp.asarray(s), want_pack, interpret=True, tile_r=TILE_R, **kw).items()}
+    n = o.shape[0]
+    hit = to_np(live[:n] & (t_g[:n] < 1.5))
+    np.testing.assert_array_equal(hit, want["hit"])
+    np.testing.assert_allclose(to_np(t_g[:n])[hit], want["t"][hit], rtol=1e-5, atol=1e-7)
+    assert hit.sum() > 20 or case == "dead"
+
+
+@pytest.mark.parametrize("group", GROUPS, ids=lambda g: f"group-{g}")
+def test_equal_t_in_two_clusters_keeps_the_first_visited(group):
+    """One triangle packed into two clusters: both give the same t, and the
+    strict ``<`` keeps the cluster the list visits first, whatever the group."""
+    rng = np.random.default_rng(11)
+    tris, mid = random_triangles(rng, 256)
+    tris = tris * 0.2 + np.array([3.0, 3.0, 3.0], np.float32)   # out of the rays' way
+    wall = np.array([[-2.0, 1.0, -2.0], [2.0, 1.0, -2.0], [0.0, 1.0, 3.0]], np.float32)
+    tris[5] = tris[128 + 9] = wall
+    pack = clusters.pack_tris_culled(tris, mid, tile_t=128)
+    o = np.zeros((128, 3), np.float32)
+    o[:, 0] = np.linspace(-0.5, 0.5, 128)
+    s = np.tile(np.array([0.0, 2.0, 0.0], np.float32), (128, 1))
+    s[::9] = 0.0                                                 # a few inert lanes
+    o_t, s_t, rays = clusters.pad_rays(to_torch(o), to_torch(s), TILE_R)
+    live = torch.abs(s_t).sum(dim=1) > 0.0
+    counts, ids, keys = clusters.packet_cluster_lists(o_t, s_t, pack, TILE_R)
+    assert int(counts[0]) == 2
+    t, slot = intersect_listed.listed_best_plain(
+        rays, counts, ids, keys, torch.where(live, geometry.NO_HIT_T, 0.0),
+        torch.zeros(128, dtype=torch.int32), pack, group=group)
+    first = int(ids[0, 0])
+    want_slot = first * 128 + (5 if first == 0 else 9)
+    assert torch.equal(t[live], torch.full_like(t[live], 0.5))
+    assert torch.equal(slot[live], torch.full_like(slot[live], want_slot))
+    assert float(t[~live].max()) == 0.0
