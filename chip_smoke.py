@@ -27,7 +27,7 @@ with the launch counts set to 0 just before it and read just after:
 Every kernel is held against its plain PyTorch version at the shapes its
 path gave it (closest hits bitwise in t and slot, at every bounce; the
 cluster paths' hit and t also against K1's bitwise), K5 also at other
-packet sizes, in two passes and at its other launch shapes on the mega
+packet sizes and in two passes on the mega
 frame's first and a late bounce and on both 200,000-triangle sets, K3 also
 on made-up images (zeros, plateaus, no peak, no convolution), the CUDA path
 against the plain CPU path on a small config (the frame, and the loss and
@@ -40,9 +40,9 @@ timed with CUDA events; each kernel's bound (the least time the card could
 take: bytes over 3.35 TB/s or operations over 67 TFLOP/s of plain f32,
 whichever is larger) is computed from the run's own inputs. K5 and K3,
 which run in a few microseconds, are also timed replayed from a CUDA graph
-(the kernels back to back, without the host's time to launch each), K5 at
-each of its launch shapes and K3 at both strip widths (the [design] lines),
-beside the time of one launch of the library's cheapest call.
+(the kernels back to back, without the host's time to launch each), K5 on
+each of its ray sets, beside the time of one launch of the library's
+cheapest call.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
@@ -94,15 +94,7 @@ MEGA_FRAME_RTOL, MEGA_FRAME_ATOL = 1e-3, 1e-4
 # the normal draw goes through each device's erfinv
 NORMAL_RTOL, NORMAL_ATOL = 1e-5, 1e-6
 FIT_STEPS = 5
-# K5 and K3 were designed again for this card after these times were taken
-# (constants, not measured in this run: the sphere frame's shapes on an NVIDIA
-# H100 80GB HBM3 at 700 W, one block per 512-ray packet and one thread per
-# column's envelope walk)
-PREVIOUS_MS = {"intersect_listed": 0.1146, "postproc": 0.4651}
-# K5's launch shapes timed beside the wrapper's own: (rays per block, threads
-# per ray, tiles by bulk asynchronous copy)
-K5_SHAPES = [(32, 4, True), (32, 8, True), (16, 16, True), (16, 32, True), (8, 32, True),
-             (4, 32, True), (4, 32, False), (2, 32, True), (1, 32, True)]
+GRAPH_TIMED = ("intersect_listed", "postproc")  # a few microseconds a launch: also timed from a graph
 TOLERANCES = {  # (rtol, atol) of kernel vs plain at the frame's shapes
     "march": (1e-4, 1e-5),
     "postproc": (1e-5, 1e-6),
@@ -305,26 +297,6 @@ def graph_ms(fn, launches: int, copies: int = 10, reps: int = 10) -> float:
         for _ in range(copies):
             fn()
     return cuda_ms(graph.replay, reps) / (copies * launches)
-
-
-def time_listed_shapes(sets: dict[str, list]) -> dict[str, float]:
-    """K5's device time per launch at each launch shape of K5_SHAPES on each
-    ray set (a list of argument tuples, launched in turn): the design's
-    numbers. Returns the wrapper's own shape's."""
-    print("[design] intersect_listed, device ms per launch (graph replay) by (rays per block, "
-          f"threads per ray, tile load); the wrapper launches ({intersect_listed.GROUP}, "
-          f"{intersect_listed.PARTS}, bulk)")
-    own = None
-    for group, parts, bulk in K5_SHAPES:
-        row = {name: graph_ms(
-            lambda: [intersect_listed.listed_best_launch(*a, group=group, parts=parts, bulk=bulk)
-                     for a in calls], len(calls))
-            for name, calls in sets.items()}
-        print(f"  ({group:2d}, {parts:2d}, {'bulk' if bulk else 'float4'}): "
-              + ", ".join(f"{name} {ms:.4f}" for name, ms in row.items()))
-        if (group, parts, bulk) == (intersect_listed.GROUP, intersect_listed.PARTS, True):
-            own = row
-    return own
 
 
 def made_up_images() -> list:
@@ -902,9 +874,8 @@ def main() -> int:
     for label, image in made_up_images():
         image = image.cuda()
         print(f"  postproc on a made-up image, {label} {tuple(image.shape)}:")
-        for strip in (4, 8):
-            check_close("postproc", postproc.postproc_forward(image, cfg, strip=strip),
-                        postproc.postproc_plain(image, cfg))
+        check_close("postproc", postproc.postproc_forward(image, cfg),
+                    postproc.postproc_plain(image, cfg))
     errs["scanconv"] = check_close(
         "scanconv", scanconv.scan_convert_cuda(rf_env, maps),
         scanconv.scan_convert_plain(rf_env, maps.table, cfg.bmode_cols))
@@ -1032,28 +1003,31 @@ def main() -> int:
         for d in (0, MEGA_LATE_BOUNCE)}
 
     # K5 where it is the device's largest item: the mega listed frame's ten
-    # launches, then its launch shapes on every ray set, and K3's two strips
+    # launches, then both redesigned kernels' device time replayed from a graph
     mega_listed_calls = cluster_calls["mega listed"]
     k5_mega_ms = cuda_ms(lambda: [k(*a) for k, _, a in mega_listed_calls], 5) / cfg.max_depth
     print(f"  mega listed intersect_listed: kernel {k5_mega_ms:.4f} ms per launch (mean over "
           f"{cfg.max_depth} bounces); bounce 0 {mega_queries[0]['k5_ms']:.4f}, bounce "
           f"{MEGA_LATE_BOUNCE} {mega_queries[MEGA_LATE_BOUNCE]['k5_ms']:.4f}; 200k fan "
           f"{queries['fan']['k5_ms']:.4f}, isotropic {queries['isotropic']['k5_ms']:.4f}")
-    k5_device_ms = time_listed_shapes({
+    k5_sets = {
         "sphere": [a for _, _, a in cluster_calls["sphere"]],
         "ircad_hd": [a for _, _, a in cluster_calls["ircad_hd"]],
         "mega": [a for _, _, a in mega_listed_calls],
         "mega_late_bounce": [mega_listed_calls[MEGA_LATE_BOUNCE][2]],
         "stress_200k_fan": [stress_sets["fan"]],
-        "stress_200k_isotropic": [stress_sets["isotropic"]]})
-    k3_device_ms = {f"{strip} columns{' again' * (i > 1)}": graph_ms(
-        lambda: postproc.postproc_forward(rf_raw, cfg, strip=strip), 1)
-        for i, strip in enumerate((4, 8, 8, 4))}
-    print(f"[design] postproc, device ms per launch (graph replay) by columns per block, in turns "
-          f"(the wrapper launches {postproc.STRIP}): "
-          + ", ".join(f"{k}: {v:.4f}" for k, v in k3_device_ms.items()))
-    k5_blocks = cluster_calls["sphere"][0][2][0].shape[1] // intersect_listed.GROUP
-    k3_blocks = postproc.blocks(cfg.rf_cols)
+        "stress_200k_isotropic": [stress_sets["isotropic"]]}
+    k5_device_ms = {
+        name: graph_ms(lambda: [intersect_listed.listed_best(*a) for a in calls], len(calls))
+        for name, calls in k5_sets.items()}
+    k3_device_ms = graph_ms(lambda: postproc.postproc_forward(rf_raw, cfg), 1)
+    print("  device ms per launch (graph replay): intersect_listed "
+          + ", ".join(f"{name} {v:.4f}" for name, v in k5_device_ms.items())
+          + f"; postproc {k3_device_ms:.4f}")
+    # the grid of one sphere launch of each, as the launch reported it
+    intersect_listed.listed_best(*cluster_calls["sphere"][0][2])
+    postproc.postproc_forward(rf_raw, cfg)
+    k5_blocks, k3_blocks = intersect_listed.last_blocks, postproc.last_blocks
     print(f"  blocks per launch on the sphere frame: intersect_listed {k5_blocks}, postproc "
           f"{k3_blocks} (132 SMs)")
     if k5_blocks < 66 or k3_blocks < 64:
@@ -1124,11 +1098,9 @@ def main() -> int:
                  "fit_step_launches": fit_launches}
         if name in ms["ircad_hd"]:
             entry["ircad_hd_ms"], entry["ircad_hd_plain_ms"] = ms["ircad_hd"][name]
-        if name in PREVIOUS_MS:  # designed again since: the earlier time, a constant
-            entry["previous_ms"] = PREVIOUS_MS[name]
+        if name in GRAPH_TIMED:
             entry["empty_launch_ms"] = empty_launch_ms
-            entry["device_ms"] = (k5_device_ms if name == "intersect_listed"
-                                  else k3_device_ms[f"{postproc.STRIP} columns"])
+            entry["device_ms"] = k5_device_ms if name == "intersect_listed" else k3_device_ms
         if name == "intersect_listed":  # where K5 is the device's largest item, K10's rays
             entry.update({"blocks": k5_blocks, "mega_ms": k5_mega_ms,
                           "mega_late_bounce_ms": mega_queries[MEGA_LATE_BOUNCE]["k5_ms"],

@@ -17,7 +17,7 @@
 // steps (list entry -> box -> tile -> 128 Möller–Trumbore tests -> running
 // t -> next entry), and the card has 132 SMs to hide it on. The design
 // shortens the chain and widens the launch:
-//   - A block per sub-packet, not per packet: `group` rays walk their
+//   - A block per sub-packet, not per packet: GROUP rays walk their
 //     packet's list with their own stop and their own box test. A list key
 //     is the minimum entry t over the whole packet, so it bounds every
 //     subset's entry too, and keys ascend: a group stops when the next key
@@ -41,16 +41,16 @@
 //   - Tiles come by bulk asynchronous copy (cp.async.bulk, completion on an
 //     mbarrier) into a two-stage ring: one thread asks for rows 0-8 of the
 //     next candidate's tile (4,608 contiguous bytes at tile_t = 128) while
-//     the block tests the current one. `bulk = 0` loads the tile with
-//     float4 reads by all threads instead, at its turn (kept for the
-//     comparison chip_smoke.py prints: a quarter slower on large scenes).
-// Chosen on an H100 (chip_smoke.py's [design] lines): 4 rays per block with
-// a warp each, 640 blocks of 128 threads a bounce. Fewer threads per ray
-// and more rays per block are slower on every ray set (32 rays x 4 threads:
-// 2.4x on the sphere, 3-7x on the large scenes); 2 or 1 rays per block gain
-// up to 40% on incoherent rays and lose 10-40% on the sphere and on a
-// coherent fan. Staging 128 list entries at a time instead of 32 was slower
-// on coherent rays (boxes staged past the stop).
+//     the block tests the current one. Loading the tile with float4 reads
+//     by all threads at its turn instead was a quarter slower on large
+//     scenes.
+// Chosen on an H100: 4 rays per block with a warp each, 640 blocks of 128
+// threads a bounce. Fewer threads per ray and more rays per block were
+// slower on every ray set (32 rays x 4 threads: 2.4x on the sphere, 3-7x on
+// the large scenes); 2 or 1 rays per block gained up to 40% on incoherent
+// rays and lost 10-40% on the sphere and on a coherent fan. Staging 128 list
+// entries at a time instead of 32 was slower on coherent rays (boxes staged
+// past the stop).
 
 #include <climits>
 #include <cstdint>
@@ -61,6 +61,8 @@ namespace {
 
 using mcray::Ray;
 
+constexpr int GROUP = 4;   // rays per block: a divisor of every packet size (a multiple of 32)
+constexpr int PARTS = 32;  // threads per ray: a warp
 constexpr int CHUNK = 32;  // list entries staged at a time: one bit each in the candidate mask
 
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {
@@ -105,8 +107,7 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t
       : "memory");
 }
 
-template <int PARTS, bool BULK>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(GROUP * PARTS)
 intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
                         const int* __restrict__ counts, const int* __restrict__ ids,
                         const float* __restrict__ keys, int n_c,
@@ -120,9 +121,8 @@ intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
   __shared__ unsigned s_mask[2];
   __shared__ __align__(8) uint64_t s_full[2];
 
-  const int group = blockDim.x / PARTS;
   const int part = threadIdx.x % PARTS;
-  const int first = blockIdx.x * group;  // the block's first ray
+  const int first = blockIdx.x * GROUP;  // the block's first ray
   const int i = first + threadIdx.x / PARTS;
   const int p = first / tile_r;
   const Ray r = mcray::load_ray(rays, n_tot, i);
@@ -138,11 +138,9 @@ intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
     const uint32_t tile_bytes = 9u * (uint32_t)tile_t * sizeof(float);
     if (threadIdx.x == 0) {
       s_mask[0] = s_mask[1] = 0u;
-      if (BULK) {
-        mbarrier_init(&s_full[0], 1);
-        mbarrier_init(&s_full[1], 1);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      }
+      mbarrier_init(&s_full[0], 1);
+      mbarrier_init(&s_full[1], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     float bt_old = bt;    // the running t before the last cluster tested
     int last = -2;        // list index of the last cluster tested
@@ -179,7 +177,7 @@ intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
         const int at = base + e;
         const int c = s_id[e];
         float* tile = s_tiles + (copies & 1u) * 9 * (size_t)tile_t;
-        if (BULK && !ahead && threadIdx.x == 0)
+        if (!ahead && threadIdx.x == 0)
           bulk_copy(tile, tiles + (size_t)c * 16 * tile_t, tile_bytes, &s_full[copies & 1u]);
         // reached: the stop rule, on the t before the cluster just tested
         // where that was this entry's predecessor (one cluster stale)
@@ -187,21 +185,14 @@ intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
         const bool active =
             go && __syncthreads_or(mcray::slab_active(s_box[e], 1, r, ix, iy, iz, bt));
         ahead = false;
-        if (BULK) {
-          if (go && e_next >= 0) {  // the next candidate's tile, into the other stage
-            ahead = true;
-            if (threadIdx.x == 0)
-              bulk_copy(s_tiles + ((copies + 1u) & 1u) * 9 * (size_t)tile_t,
-                        tiles + (size_t)s_id[e_next] * 16 * tile_t, tile_bytes,
-                        &s_full[(copies + 1u) & 1u]);
-          }
-          mbarrier_wait(&s_full[copies & 1u], (copies >> 1) & 1u);  // every copy is retired
-        } else if (active) {
-          const float4* src = reinterpret_cast<const float4*>(tiles + (size_t)c * 16 * tile_t);
-          for (int k = threadIdx.x; k < 9 * tile_t / 4; k += blockDim.x)
-            reinterpret_cast<float4*>(tile)[k] = src[k];
-          __syncthreads();
+        if (go && e_next >= 0) {  // the next candidate's tile, into the other stage
+          ahead = true;
+          if (threadIdx.x == 0)
+            bulk_copy(s_tiles + ((copies + 1u) & 1u) * 9 * (size_t)tile_t,
+                      tiles + (size_t)s_id[e_next] * 16 * tile_t, tile_bytes,
+                      &s_full[(copies + 1u) & 1u]);
         }
+        mbarrier_wait(&s_full[copies & 1u], (copies >> 1) & 1u);  // every copy is retired
         ++copies;
         if (!go) break;
         if (active) {
@@ -233,49 +224,26 @@ intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
   }
 }
 
-template <int PARTS>
-cudaError_t launch(int bulk, int grid, int block, size_t smem, cudaStream_t stream,
-                   const float* rays, int n_tot, int tile_r, const int* counts, const int* ids,
-                   const float* keys, int n_c, const float* t_init, const int* idx_init,
-                   const float* tiles, const float* boxes, int tile_t, float* best_t,
-                   int* best_idx) {
-  if (bulk)
-    intersect_listed_kernel<PARTS, true><<<grid, block, smem, stream>>>(
-        rays, n_tot, tile_r, counts, ids, keys, n_c, t_init, idx_init, tiles, boxes, tile_t,
-        best_t, best_idx);
-  else
-    intersect_listed_kernel<PARTS, false><<<grid, block, smem, stream>>>(
-        rays, n_tot, tile_r, counts, ids, keys, n_c, t_init, idx_init, tiles, boxes, tile_t,
-        best_t, best_idx);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// rays (6, n_tot), n_tot = packets * tile_r; counts (P,), ids and keys
-// (P, n_c); t_init, idx_init, best_t, best_idx (n_tot,); tiles
-// (clusters, 16, tile_t), 16-byte aligned, tile_t a multiple of 4; boxes
-// (clusters, 8) [min xyz, max xyz, 0, 0], the tiles' rows 9-14. A block
-// takes `group` rays (a divisor of tile_r) with `parts` threads each (4, 8,
-// 16 or 32; group * parts a multiple of 32 up to 512).
+// rays (6, n_tot), n_tot = packets * tile_r, tile_r a multiple of GROUP;
+// counts (P,), ids and keys (P, n_c); t_init, idx_init, best_t, best_idx
+// (n_tot,); tiles (clusters, 16, tile_t), 16-byte aligned, tile_t a multiple
+// of 4; boxes (clusters, 8) [min xyz, max xyz, 0, 0], the tiles' rows 9-14.
+// `blocks` (host memory) receives the grid that was launched.
 extern "C" int mcray_intersect_listed(const float* rays, int n_tot, int tile_r, const int* counts,
                                       const int* ids, const float* keys, int n_c,
                                       const float* t_init, const int* idx_init, const float* tiles,
-                                      const float* boxes, int tile_t, int group, int parts,
-                                      int bulk, float* best_t, int* best_idx,
-                                      cudaStream_t stream) {
+                                      const float* boxes, int tile_t, float* best_t, int* best_idx,
+                                      int* blocks, cudaStream_t stream) {
+  *blocks = 0;
   if (n_tot <= 0) return (int)cudaGetLastError();
+  if (tile_r % GROUP || n_tot % tile_r) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * 9 * (size_t)tile_t * sizeof(float);
-  const int grid = n_tot / group, block = group * parts;
-#define MCRAY_LISTED(P)                                                                        \
-  launch<P>(bulk, grid, block, smem, stream, rays, n_tot, tile_r, counts, ids, keys, n_c,      \
-            t_init, idx_init, tiles, boxes, tile_t, best_t, best_idx)
-  switch (parts) {
-    case 4: return (int)MCRAY_LISTED(4);
-    case 8: return (int)MCRAY_LISTED(8);
-    case 16: return (int)MCRAY_LISTED(16);
-    case 32: return (int)MCRAY_LISTED(32);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef MCRAY_LISTED
+  const int grid = n_tot / GROUP;
+  intersect_listed_kernel<<<grid, GROUP * PARTS, smem, stream>>>(
+      rays, n_tot, tile_r, counts, ids, keys, n_c, t_init, idx_init, tiles, boxes, tile_t, best_t,
+      best_idx);
+  *blocks = grid;
+  return (int)cudaGetLastError();
 }

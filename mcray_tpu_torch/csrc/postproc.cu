@@ -39,12 +39,12 @@
 
 namespace {
 
+constexpr int STRIP = 4;       // columns per block: 128 blocks at 512 columns
 constexpr int THREADS = 512;   // per block: loads in flight for phases 1, 2 and 4
 constexpr int MAX_TAPS = 64;   // axial + lateral taps staged in shared memory
 constexpr int MAX_RUN = 31;    // rows per lane: odd, and a run's peaks fit a 32-bit mask
 constexpr int NO_PEAK = INT_MAX;
 
-template <int STRIP>
 __global__ void __launch_bounds__(THREADS)
 postproc_kernel(const float* __restrict__ rf, int rows, int cols, const float* __restrict__ ax,
                 int a, const float* __restrict__ lat, int l, int do_conv,
@@ -144,29 +144,35 @@ postproc_kernel(const float* __restrict__ rf, int rows, int cols, const float* _
   }
 }
 
-template <int STRIP>
-cudaError_t launch(const float* rf, int rows, int cols, const float* ax, int a, const float* lat,
-                   int l, int do_conv, float* out, cudaStream_t stream) {
-  const size_t smem = (size_t)(3 * STRIP + 2 * (l - 1)) * (rows | 1) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      postproc_kernel<STRIP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  postproc_kernel<STRIP><<<(cols + STRIP - 1) / STRIP, THREADS, smem, stream>>>(
-      rf, rows, cols, ax, a, lat, l, do_conv, out);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// rf, out (rows, cols); ax (a,), lat (l,) taps; `strip` columns per block
-// (4 or 8). rows <= 32 * MAX_RUN, a + l <= MAX_TAPS, and rows x (3 strip +
-// 2 l - 2) floats of shared memory must fit a block.
+// rf, out (rows, cols); ax (a,), lat (l,) taps. rows <= 32 * MAX_RUN,
+// a + l <= MAX_TAPS, and rows x (3 STRIP + 2 l - 2) floats of shared memory
+// must fit a block. `blocks` (host memory) receives the grid that was
+// launched.
 extern "C" int mcray_postproc(const float* rf, int rows, int cols, const float* ax, int a,
-                              const float* lat, int l, int do_conv, int strip, float* out,
+                              const float* lat, int l, int do_conv, float* out, int* blocks,
                               cudaStream_t stream) {
+  *blocks = 0;
   if (rows <= 0 || cols <= 0) return (int)cudaGetLastError();
   if (rows > 32 * MAX_RUN || a + l > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  if (strip == 4) return (int)launch<4>(rf, rows, cols, ax, a, lat, l, do_conv, out, stream);
-  if (strip == 8) return (int)launch<8>(rf, rows, cols, ax, a, lat, l, do_conv, out, stream);
-  return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(3 * STRIP + 2 * (l - 1)) * (rows | 1) * sizeof(float);
+  // the kernel's shared-memory allowance is raised where a launch needs more
+  // than it has on the current device, not at every launch
+  static int allowed_on = -1;
+  static size_t allowed = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != allowed_on || smem > allowed) {
+    err = cudaFuncSetAttribute(postproc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed_on = device;
+    allowed = smem;
+  }
+  const int grid = (cols + STRIP - 1) / STRIP;
+  postproc_kernel<<<grid, THREADS, smem, stream>>>(rf, rows, cols, ax, a, lat, l, do_conv, out);
+  *blocks = grid;
+  return (int)cudaGetLastError();
 }

@@ -11,7 +11,7 @@ winner tail (``clusters.winner_hits``) recomputes t from the winning slot.
 On the card the kernel is bound by latency (a ray's walk is a chain of
 dependent steps, and a bounce has only 2,560 rays), so a block takes
 ``GROUP`` rays of a packet, not the packet: each group walks the packet's
-list with its own stop and its own box test, ``PARTS`` threads share each
+list with its own stop and its own box test, a warp shares each
 ray's 128 triangle tests, the boxes of 32 list entries are tested at once
 into a candidate mask, and the next candidate's tile arrives by bulk
 asynchronous copy while the current one is tested (the source's header
@@ -28,6 +28,8 @@ winning t and slot equal the kernel's bitwise.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import clusters
@@ -36,12 +38,13 @@ from . import _build
 
 #: kernel launches since the last reset (one per call on CUDA tensors)
 launches = 0
+#: the grid of the latest launch, as the C entry reported it
+last_blocks = 0
 
 TILE_R = 128
-#: rays per block of the kernel (a divisor of 32) and threads per ray:
+#: rays per block of the kernel (the source's GROUP; each ray has a warp):
 #: 640 blocks of 128 threads for a bounce of 2,560 rays
 GROUP = 4
-PARTS = 32
 
 
 def listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed: clusters.CulledTris,
@@ -86,26 +89,13 @@ def listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed: cluster
 def listed_best(rays, counts, ids, keys, t_init, idx_init, packed: clusters.CulledTris):
     """(best_t, best_slot) of every ray: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
+    global launches, last_blocks
     if rays.device.type == "cpu" and packed.device.type == "cpu":
         return listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed)
-    return listed_best_launch(rays, counts, ids, keys, t_init, idx_init, packed)
-
-
-def listed_best_launch(rays, counts, ids, keys, t_init, idx_init, packed: clusters.CulledTris,
-                       group: int = GROUP, parts: int = PARTS, bulk: bool = True):
-    """One launch of the kernel on CUDA tensors with ``group`` rays per
-    block, ``parts`` threads per ray, and the tiles by bulk asynchronous
-    copy or (``bulk=False``) by float4 loads of the whole block. The result
-    depends on none of the three; ``listed_best`` launches the defaults."""
-    global launches
     n_tot, (p, n_c) = rays.shape[1], ids.shape
     tile_r = n_tot // p
     if p * tile_r != n_tot or not 32 <= tile_r <= 1024 or tile_r % 32:
         raise ValueError(f"rays per packet {n_tot}/{p} must be a multiple of 32 in [32, 1024]")
-    if parts not in (4, 8, 16, 32) or tile_r % group or (group * parts) % 32 \
-            or group * parts > 512:
-        raise ValueError(f"group {group} x parts {parts}: parts must be 4, 8, 16 or 32, group a "
-                         f"divisor of {tile_r}, and their product a multiple of 32 up to 512")
     _build.require(rays, "rays", torch.float32, (6, n_tot))
     _build.require(counts, "counts", torch.int32, (p,))
     _build.require(ids, "ids", torch.int32, (p, n_c))
@@ -120,14 +110,16 @@ def listed_best_launch(rays, counts, ids, keys, t_init, idx_init, packed: cluste
                          "multiple of 4 (the kernel copies rows 0-8 of a tile in 16-byte units)")
     best_t = torch.empty(n_tot, dtype=torch.float32, device=rays.device)
     best_slot = torch.empty(n_tot, dtype=torch.int32, device=rays.device)
+    blocks = ctypes.c_int(0)
     code = _build.library().mcray_intersect_listed(
         rays.data_ptr(), n_tot, tile_r, counts.data_ptr(), ids.data_ptr(), keys.data_ptr(), n_c,
         t_init.data_ptr(), idx_init.data_ptr(), tiles.data_ptr(), boxes.data_ptr(),
-        packed.tile_t, group, parts, int(bulk), best_t.data_ptr(), best_slot.data_ptr(),
+        packed.tile_t, best_t.data_ptr(), best_slot.data_ptr(), ctypes.byref(blocks),
         _build.stream_of(rays),
     )
     _build.check(code, "mcray_intersect_listed")
     launches += 1
+    last_blocks = blocks.value
     return best_t, best_slot
 
 

@@ -8,7 +8,7 @@ followed by the closed-form peak-lerp envelope (``imaging.envelope``).
 
 On the card the kernel is bound by bytes (the image read once and written
 once, 0.6 us at 465 x 512), so its time is latency: a block owns a strip
-of ``STRIP`` whole columns in shared memory (loaded once with the lateral
+of 4 whole columns in shared memory (loaded once with the lateral
 halo), sums the taps separably (A + L products per cell, in the reference's
 order of additions), and computes the envelope as two warp scans per
 column — the previous peak of a row is a running maximum, the next peak a
@@ -30,6 +30,7 @@ kernel.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -42,16 +43,11 @@ from . import _build
 
 #: kernel launches since the last reset (one per call on a CUDA tensor)
 launches = 0
+#: the grid of the latest launch, as the C entry reported it
+last_blocks = 0
 
-#: columns per block of the kernel (128 blocks at 512 columns), and the tallest image it takes (a lane
-#: of a column's warp holds at most 31 rows)
-STRIP = 4
+#: the tallest image the kernel takes (a lane of a column's warp holds at most 31 rows)
 MAX_ROWS = 32 * 31
-
-
-def blocks(cols: int) -> int:
-    """Blocks of one launch on an image of ``cols`` columns."""
-    return -(-cols // STRIP)
 
 
 def postproc_plain(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
@@ -96,10 +92,9 @@ def postproc_cuda(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     return _Postproc.apply(rf, cfg)
 
 
-def postproc_forward(rf: torch.Tensor, cfg: SimConfig, strip: int = STRIP) -> torch.Tensor:
-    """K3 for a CUDA ``rf``, ``postproc_plain`` for a CPU one (no autograd).
-    ``strip`` (4 or 8 columns per block) changes the launch, not the result."""
-    global launches
+def postproc_forward(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """K3 for a CUDA ``rf``, ``postproc_plain`` for a CPU one (no autograd)."""
+    global launches, last_blocks
     if rf.device.type == "cpu":
         return postproc_plain(rf, cfg)
     rows, cols = rf.shape
@@ -115,10 +110,12 @@ def postproc_forward(rf: torch.Tensor, cfg: SimConfig, strip: int = STRIP) -> to
     taps = _taps(cfg, rf.device)
     do_conv = int(rows > 2 * a and cols > l + l // 2)  # else the reference's loops never run
     out = torch.empty_like(rf)
+    blocks = ctypes.c_int(0)
     code = _build.library().mcray_postproc(
-        rf.data_ptr(), rows, cols, taps.data_ptr(), a, taps.data_ptr() + 4 * a, l, do_conv, strip,
-        out.data_ptr(), _build.stream_of(rf),
+        rf.data_ptr(), rows, cols, taps.data_ptr(), a, taps.data_ptr() + 4 * a, l, do_conv,
+        out.data_ptr(), ctypes.byref(blocks), _build.stream_of(rf),
     )
     _build.check(code, "mcray_postproc")
     launches += 1
+    last_blocks = blocks.value
     return out

@@ -109,3 +109,27 @@ def port_render_fn(port_cfg, pack, seeds, draws):
             state["scene"], state["spacing"], state["starting_material"], maps, port_cfg)["bmode"]
 
     return render
+
+
+def envelope_walk(col: np.ndarray) -> np.ndarray:
+    """The reference C++ peak-lerp walk over one column, in float32, row by
+    row: the loop that the scan form of ``imaging.envelope`` (both packages')
+    stands for."""
+    x = col.astype(np.float32).copy()
+    rows = x.shape[0]
+    if rows < 3:
+        return x
+    one = np.float32(1.0)
+    prev_pos, prev_val, start = 0, x[0], 0   # before the first peak: the raw first row
+    xm, xc = x[0], x[1]
+    for i in range(1, rows - 1):
+        xn = x[i + 1]
+        if xm < xc and not xc < xn:
+            next_val = np.abs(xc)
+            denom = np.float32(max(i - prev_pos, 1))
+            for j in range(start, i):
+                alpha = np.float32(j - prev_pos) / denom
+                x[j] = prev_val * (one - alpha) + next_val * alpha
+            prev_pos, prev_val, start = i, next_val, i
+        xm, xc = xc, xn
+    return x

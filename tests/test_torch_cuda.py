@@ -144,25 +144,6 @@ def test_listed_kernel_two_passes_match_brute(cuda, tile_r):
         assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
 
 
-@pytest.mark.parametrize("group,parts,bulk", [(8, 32, False), (32, 4, True), (32, 8, True),
-                                              (16, 16, True), (16, 32, True), (8, 4, True),
-                                              (1, 32, True), (2, 32, False)])
-def test_listed_kernel_launch_shapes_give_one_result(cuda, group, parts, bulk):
-    """Rays per block, threads per ray and the way the tiles are loaded
-    change the launch, not the winner."""
-    pack, cases = _cluster_cases(cuda)
-    packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
-                                       sort_origin=pack.transducer_position, tile_t=128,
-                                       device=cuda)
-    for name, rays in cases:
-        o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, 512)
-        args = (padded, *clusters.packet_cluster_lists(o, s, packed, 512), *_listed_start(s),
-                packed)
-        t_k, i_k = intersect_listed.listed_best_launch(*args, group=group, parts=parts, bulk=bulk)
-        t_p, i_p = intersect_listed.listed_best_plain(*args, group=group)
-        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
-
-
 @pytest.mark.parametrize("budget", [(32, 4), (8, 1), (16, 2)])
 def test_grouped_kernel_matches_plain(cuda, budget):
     """K10 against its plain version on every table slot, and the whole
@@ -247,14 +228,14 @@ def _made_up_images():
             ("ragged strip", torch.randn((61, 37), generator=g))]
 
 
-@pytest.mark.parametrize("strip", [4, 8])
-def test_postproc_kernel_matches_plain_on_made_up_images(cuda, strip):
+def test_postproc_kernel_matches_plain_on_made_up_images(cuda):
     cfg = SimConfig()
     for name, image in _made_up_images():
         rf = image.to(cuda)
         before = postproc.launches
-        got = postproc.postproc_forward(rf, cfg, strip=strip)
+        got = postproc.postproc_forward(rf, cfg)
         assert postproc.launches == before + 1, name
+        assert postproc.last_blocks == -(-rf.shape[1] // 4), name
         np.testing.assert_allclose(got.cpu(), postproc.postproc_plain(rf, cfg).cpu(),
                                    rtol=1e-5, atol=1e-6, err_msg=name)
     with pytest.raises(ValueError):

@@ -19,8 +19,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from hypothesis import example, given, settings
-from hypothesis import strategies as st
 
 from _torch_port import both_configs, to_np, to_torch
 from mcray_tpu.ops import imaging as ref_imaging
@@ -87,49 +85,3 @@ def test_unported_modes_raise():
         imaging.apply_envelope(rf, both_configs(envelope_mode="hilbert")[1])
     with pytest.raises(NotImplementedError):
         imaging.convolve_psf(rf, both_configs(centered_psf=True)[1])
-
-
-def _sequential_walk(col: np.ndarray) -> np.ndarray:
-    """The reference C++ peak-lerp walk over one column, in float32, row by
-    row: the loop the scan form of ``imaging.envelope`` (and of the CUDA
-    kernel, which computes that form with two warp scans) stands for."""
-    x = col.astype(np.float32).copy()
-    rows = x.shape[0]
-    if rows < 3:
-        return x
-    one = np.float32(1.0)
-    prev_pos, prev_val, start = 0, x[0], 0   # before the first peak: the raw first row
-    xm, xc = x[0], x[1]
-    for i in range(1, rows - 1):
-        xn = x[i + 1]
-        if xm < xc and not xc < xn:
-            next_val = np.abs(xc)
-            denom = np.float32(max(i - prev_pos, 1))
-            for j in range(start, i):
-                alpha = np.float32(j - prev_pos) / denom
-                x[j] = prev_val * (one - alpha) + next_val * alpha
-            prev_pos, prev_val, start = i, next_val, i
-        xm, xc = xc, xn
-    return x
-
-
-# few distinct levels: equal neighbours and plateaus are the common case
-_LEVELS = st.sampled_from([-2.0, -1.0, -0.5, 0.0, 0.25, 0.5, 1.0, 2.0, 3.0])
-
-
-@settings(max_examples=300, deadline=None, derandomize=True, database=None)
-@given(st.lists(_LEVELS, min_size=0, max_size=48))
-@example([])                                      # rows < 3: the walk never starts
-@example([1.0])
-@example([0.5, 2.0])
-@example([0.0, 3.0, 1.0, 0.5, 0.25])              # a peak at row 1
-@example([2.0, 1.0, 0.5, 0.25, 3.0, 0.0])         # a peak at row R - 2
-@example([3.0, 2.0, 1.0, 0.5, 0.25, 0.0])         # falling: no peak
-@example([0.0, 0.5, 1.0, 2.0, 3.0])               # rising to the last row: no peak
-@example([1.0, 1.0, 1.0, 1.0])                    # flat
-@example([0.0, 2.0, 2.0, 2.0, 1.0, 3.0, 3.0, 0.5])  # plateaus after a rise
-def test_envelope_scan_form_equals_the_sequential_walk(levels):
-    col = np.array(levels, np.float32)
-    want = _sequential_walk(col)
-    got = to_np(imaging.envelope(to_torch(col.reshape(-1, 1))))[:, 0]
-    np.testing.assert_array_equal(got, want)
