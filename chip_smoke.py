@@ -29,20 +29,28 @@ path gave it (closest hits bitwise in t and slot, at every bounce; the
 cluster paths' hit and t also against K1's bitwise), K5 also at other
 packet sizes and in two passes on the mega
 frame's first and a late bounce and on both 200,000-triangle sets, K3 also
-on made-up images (zeros, plateaus, no peak, no convolution), the CUDA path
-against the plain CPU path on a small config (the frame, and the loss and
-material gradient of one fit step), the keyed randomness on the card
-against the CPU (bits equal, normals allclose), and every frame's image is
-checked.
+on made-up images (zeros, plateaus, no peak, no convolution) and bitwise
+on a 1,200- and a 2,000-row image, the CUDA path against the plain CPU path
+on a small config (the frame, and the loss and material gradient of one
+fit step), the keyed randomness on the card against the CPU (bits equal,
+normals allclose), and every frame's image is checked. The march kernels
+(K2, K8) are also held against their plain versions at full size (the
+sphere frame and the fit's set-up, with bitsum and with Box–Muller
+normals) and at a 64-element frame in every mode of the scatterer field
+(normals x lookup x gate x a volume side of 256 and of 48, and the table
+texture): K2 bitwise with bitsum normals, Box–Muller's gate flips counted
+and bounded. The modes the reference runs outside its kernels (centered
+PSF, Hilbert envelope, soft row binning, table texture) render a frame on
+the card against the CPU path.
 Frames, fit steps, stages and kernels (beside their plain versions and,
 where one PyTorch call computes the same function, beside that call) are
 timed with CUDA events; each kernel's bound (the least time the card could
 take: bytes over 3.35 TB/s or operations over 67 TFLOP/s of plain f32,
-whichever is larger) is computed from the run's own inputs. K5 and K3,
-which run in a few microseconds, are also timed replayed from a CUDA graph
-(the kernels back to back, without the host's time to launch each), K5 on
-each of its ray sets, beside the time of one launch of the library's
-cheapest call.
+whichever is larger) is computed from the run's own inputs. K5, K3, K2
+and K8, which run in microseconds, are also timed replayed from a CUDA
+graph (the kernels back to back, without the host's time to launch each),
+K5 on each of its ray sets, K2 and K8 in their default and Box–Muller
+modes, beside the time of one launch of the library's cheapest call.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
@@ -742,6 +750,169 @@ def rng_phase(sim, smi: str) -> dict:
             "draws_busy_ms": view["busy_ms"]}
 
 
+# every mode of the scatterer field at a 64-element sphere frame: normals x
+# lookup x gate x volume side (a power of two and not), and the table texture
+FIELD_MODES = [dict(scatter_rng=rng_mode, trilinear_texture=tri, soft_scattering=soft,
+                    volume_size=size)
+               for rng_mode in ("bitsum", "boxmuller") for tri in (False, True)
+               for soft in (False, True) for size in (256, 48)] + [dict(texture_mode="table")]
+# Box–Muller: the kernels' logf/sqrtf/cosf/sinf against the plain version's
+# torch.log/sqrt/cos/sin on the card; a cell outside (rtol, atol) is a gate
+# flip (hard gate, prob within rounding of mu1), at most FLIP_SHARE of them
+BOXMULLER_RTOL, BOXMULLER_ATOL, FLIP_SHARE = 1e-4, 1e-5, 1e-3
+# the modes the reference runs outside its kernels, on the card against the CPU
+PLAIN_MODES = {"centered psf": {"centered_psf": True}, "hilbert": {"envelope_mode": "hilbert"},
+               "soft row binning": {"soft_row_binning": True}, "table": {"texture_mode": "table"},
+               "table + soft row binning": {"texture_mode": "table", "soft_row_binning": True}}
+# the scatter march (soft row binning) sums a pixel's echoes in index_put_'s
+# order: in turn on the CPU, sorted by index on the card (the same on every
+# run there, not atomics); where echoes of both signs cancel, a cell near 0
+# keeps their rounding (4.2e-5 at the small config), so an absolute bound
+SCATTER_ATOL = 1e-4
+TALL_ROWS = (1200, 2000)  # K3 past a lane's 31-row peak mask (992 rows), and past shared memory
+
+
+def compare_march(label: str, soa, seeds, cfg, g) -> dict:
+    """K2 and K8 against their plain versions on one SoA: K2 bitwise with
+    bitsum normals, within the Box–Muller bounds (flips counted) otherwise;
+    K8 per field within MARCH_BWD_TOL of the field's largest plain entry,
+    outside the columns of a flipped cell. Returns the numbers."""
+    n_cols = g.shape[1]
+    got, want = march.march_forward(soa, seeds, cfg, n_cols), march.march_plain(soa, seeds, cfg, n_cols)
+    err = float((got - want).abs().max())
+    differing = int((got != want).sum())
+    flips = int((~torch.isclose(got, want, rtol=BOXMULLER_RTOL, atol=BOXMULLER_ATOL)).sum())
+    keep = torch.ones(n_cols, dtype=torch.bool, device=got.device)
+    if cfg.scatter_rng == "bitsum":
+        ok = differing == 0
+    else:
+        ok = flips <= FLIP_SHARE * got.numel()
+        keep = torch.isclose(got, want, rtol=BOXMULLER_RTOL, atol=BOXMULLER_ATOL).all(dim=0)
+    got_g = march.march_backward(soa, seeds, g, cfg)[:, :, :n_cols]
+    want_g = march.march_bwd_plain(soa, seeds, g, cfg)[:, :, :n_cols]
+    worst = 0.0
+    for f in range(march.N_FIELDS):
+        scale = float(want_g[:, f].abs().max())
+        e = float((got_g[:, f] - want_g[:, f])[:, keep].abs().max())
+        worst = max(worst, e / scale if scale else 0.0)
+        ok = ok and e <= MARCH_BWD_TOL * scale
+    ok = ok and float(want_g.abs().max()) > 0 and float(want.abs().max()) > 0
+    print(f"  {label}: march {differing} differing cells of {got.numel()}, max abs err {err:.3e}, "
+          f"{flips} outside rtol {BOXMULLER_RTOL} / atol {BOXMULLER_ATOL}; march_bwd worst field "
+          f"err / max |plain| {worst:.3e} (limit {MARCH_BWD_TOL}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"{label}: the march kernels disagree with their plain versions")
+    return {"differing": differing, "max_abs_err": err, "flips": flips, "bwd_worst": worst}
+
+
+def march_modes_phase(pack) -> dict:
+    """K2 and K8 at a 64-element sphere frame in every FIELD_MODES mode."""
+    print("[march modes] 64-element sphere frame; K2 bitwise with bitsum normals")
+    out = {}
+    for overrides in FIELD_MODES:
+        cfg = small_test_config(**overrides)
+        sim = Simulator(pack, cfg, device="cuda", seed=0)
+        soa = sim.render_frame(1)["soa"]
+        g = torch.randn((cfg.rf_rows, cfg.rf_cols), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6))
+        label = " ".join(f"{k}={v}" for k, v in overrides.items())
+        out[label] = compare_march(label, soa, sim.seeds, cfg, g)
+    return out
+
+
+def plain_modes_phase(pack) -> None:
+    """The modes the reference runs outside its kernels, each a frame on the
+    card (plain torch on CUDA tensors where it leaves the kernel) against
+    the CPU path, same draws, at the small config; the counts set to 0
+    just before each frame and read just after."""
+    print("[plain modes] small config, card against CPU")
+    for name, overrides in PLAIN_MODES.items():
+        cfg = small_test_config(**overrides)
+        cpu, gpu = (Simulator(pack, cfg, device=d, seed=5) for d in ("cpu", "cuda"))
+        draws = cpu.draws(5)
+        kernels.reset_launch_counts()
+        on_gpu = gpu.render_frame(draws={k: v.cuda() for k, v in draws.items()})
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {k: 0 for k in counts} | {"intersect_listed": cfg.max_depth, "scanconv": 1,
+                                         "march": int(not cfg.soft_row_binning),
+                                         "postproc": int(postproc.kernel_modes(cfg))}
+        on_cpu = cpu.render_frame(draws=draws)
+        atol = SCATTER_ATOL if cfg.soft_row_binning else 1e-5
+        errs = {k: float((on_gpu[k].cpu() - on_cpu[k]).abs().max()) for k in ("rf_raw", "bmode")}
+        ok = counts == want and all(torch.allclose(on_gpu[k].cpu(), on_cpu[k], rtol=1e-4, atol=atol)
+                                    for k in ("rf_raw", "bmode"))
+        again = gpu.render_frame(draws={k: v.cuda() for k, v in draws.items()})
+        same = torch.equal(again["rf_raw"], on_gpu["rf_raw"])
+        print(f"  {name}: launches {counts}; max abs err rf_raw {errs['rf_raw']:.3e}, bmode "
+              f"{errs['bmode']:.3e} (rtol 1e-4, atol {atol}); rendered twice equal {same}")
+        if not (ok and same):
+            raise AssertionError(f"{name}: the card's frame disagrees with the CPU's")
+
+
+def check_tall_images(cfg) -> dict:
+    """K3 bitwise against its plain version on images of TALL_ROWS rows."""
+    out = {}
+    for rows in TALL_ROWS:
+        g = torch.Generator().manual_seed(rows)
+        rf = torch.randn((rows, 512), generator=g)
+        rf[:, 7] = torch.linspace(1.0, -1.0, rows)
+        rf[900:1100, 9] = 0.5
+        rf = rf.cuda()
+        got, want = postproc.postproc_forward(rf, cfg), postproc.postproc_plain(rf, cfg)
+        slab = _build.library().mcray_postproc_slab_floats(rows, 512, cfg.psf_lateral_size,
+                                                           postproc.MAX_SHARED_BYTES)
+        err = float((got - want).abs().max())
+        out[rows] = {"max_abs_err": err, "device_ms": graph_ms(
+            lambda r=rf: postproc.postproc_forward(r, cfg), 1), "slab_floats": slab}
+        print(f"  postproc on a made-up {rows} x 512 image ({'device-memory slab' if slab else 'shared memory'}): "
+              f"max abs err {err:.3e}, {int((got != want).sum())} differing; device "
+              f"{out[rows]['device_ms']:.4f} ms")
+        if not torch.equal(got, want):
+            raise AssertionError(f"postproc at {rows} rows != plain")
+    return out
+
+
+def design_sweep(soa, seeds, cfg, fit_soa, fit_seeds, fit_cfg, g) -> None:
+    """[design] lines: K2's launch shapes (columns per block x rows per
+    lane) and K8's lanes per (segment, column), device ms by graph replay
+    on the sphere frame and the fit's set-up; each shape's output against
+    the default shape's (K2 bitwise, K8 within MARCH_BWD_TOL per field)."""
+    shape = (march.FWD_WARPS, march.FWD_ROWS_PER_LANE, march.BWD_LANES)
+    k2_frame = march.march_forward(soa, seeds, cfg, cfg.rf_cols)
+    k2_fit = march.march_forward(fit_soa, fit_seeds, fit_cfg, cfg.rf_cols)
+    k8_fit = march.march_backward(fit_soa, fit_seeds, g, fit_cfg)
+    try:
+        for warps in (4, 8, 16):
+            for rows_per_lane in (1, 2):
+                march.FWD_WARPS, march.FWD_ROWS_PER_LANE = warps, rows_per_lane
+                same = (torch.equal(march.march_forward(soa, seeds, cfg, cfg.rf_cols), k2_frame)
+                        and torch.equal(march.march_forward(fit_soa, fit_seeds, fit_cfg,
+                                                            cfg.rf_cols), k2_fit))
+                t = graph_ms(lambda: march.march_forward(soa, seeds, cfg, cfg.rf_cols), 1)
+                t_fit = graph_ms(lambda: march.march_forward(fit_soa, fit_seeds, fit_cfg,
+                                                             cfg.rf_cols), 1)
+                print(f"  [design] march {warps} columns x {rows_per_lane} rows per lane "
+                      f"({march.last_blocks} blocks): frame {t:.4f} ms, fit mode {t_fit:.4f} ms "
+                      f"device; equal to the default shape {same}")
+                if not same:
+                    raise AssertionError("a K2 launch shape changes the image")
+        march.FWD_WARPS, march.FWD_ROWS_PER_LANE = shape[:2]
+        for lanes in (8, 16, 32):
+            march.BWD_LANES = lanes
+            got = march.march_backward(fit_soa, fit_seeds, g, fit_cfg)
+            worst = max(float((got[:, f] - k8_fit[:, f]).abs().max())
+                        / max(float(k8_fit[:, f].abs().max()), 1e-30) for f in range(march.N_FIELDS))
+            t = graph_ms(lambda: march.march_backward(fit_soa, fit_seeds, g, fit_cfg), 1)
+            print(f"  [design] march_bwd {lanes} lanes per (segment, column) "
+                  f"({march.last_blocks_bwd} blocks): fit mode {t:.4f} ms device; worst field "
+                  f"err / max vs the default shape {worst:.3e}")
+            if worst > MARCH_BWD_TOL:
+                raise AssertionError("a K8 launch shape moves the gradient")
+    finally:
+        march.FWD_WARPS, march.FWD_ROWS_PER_LANE, march.BWD_LANES = shape
+
+
 def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     if not torch.cuda.is_available():
@@ -895,6 +1066,26 @@ def main() -> int:
         "scanconv_bwd",
         scanconv.scan_convert_backward(g_bm, maps),
         scanconv.scan_convert_bwd_plain(g_bm, maps.table, cfg.rf_rows, cfg.rf_cols))
+    # K2 and K8 at full size: the sphere frame and the fit's set-up, with
+    # bitsum normals (K2 bitwise) and with Box–Muller normals
+    print("[march at full size] K2 bitwise with bitsum normals")
+    full_march = {"frame": compare_march("sphere frame", soa, sim.seeds, cfg, g_rf),
+                  "fit set-up": compare_march("fit set-up", fit_soa, fit_sim.seeds, fit_cfg, g_rf)}
+    bm = {}
+    for label, bm_cfg in (("frame", SimConfig(scatter_rng="boxmuller")),
+                          ("fit set-up", SimConfig(scatter_rng="boxmuller", soft_scattering=True,
+                                                   trilinear_texture=True))):
+        bm_sim = Simulator(sphere, bm_cfg, device="cuda", seed=0)
+        kernels.reset_launch_counts()
+        bm_out = bm_sim.render_frame(seed=0)
+        torch.cuda.synchronize()
+        if kernels.launch_counts()["march"] != 1:
+            raise AssertionError("the Box–Muller frame did not launch K2")
+        check_bmode(f"Box–Muller {label}", bm_sim, bm_out["bmode"])
+        bm[label] = (bm_out["soa"], bm_sim.seeds, bm_cfg)
+        full_march[f"boxmuller {label}"] = compare_march(f"Box–Muller {label}", *bm[label], g_rf)
+    march_modes = march_modes_phase(sphere)
+    tall = check_tall_images(cfg)
 
     # 4. the whole CUDA path against the whole plain CPU path, same randomness
     small = small_test_config()
@@ -918,6 +1109,7 @@ def main() -> int:
             and torch.allclose(on_gpu["bmode"].cpu(), on_cpu["bmode"], rtol=1e-4, atol=1e-5)):
         raise AssertionError("the CUDA path disagrees with the plain CPU path")
     fit_cuda_vs_cpu(sphere)
+    plain_modes_phase(sphere)
     drawn = rng_phase(sims["sphere"], smi)
     queries, stress_sets = isotropic_phase(smi)
 
@@ -1024,6 +1216,26 @@ def main() -> int:
     print("  device ms per launch (graph replay): intersect_listed "
           + ", ".join(f"{name} {v:.4f}" for name, v in k5_device_ms.items())
           + f"; postproc {k3_device_ms:.4f}")
+    # K2 and K8, default and Box–Muller, replayed from a graph; their grids
+    k2_device_ms = {
+        "frame": graph_ms(lambda: march.march_forward(soa, sim.seeds, cfg, cfg.rf_cols), 1),
+        "fit_mode": graph_ms(lambda: march.march_forward(fit_soa, fit_sim.seeds, fit_cfg,
+                                                         cfg.rf_cols), 1),
+        "boxmuller_frame": graph_ms(lambda: march.march_forward(*bm["frame"], cfg.rf_cols), 1),
+        "boxmuller_fit_mode": graph_ms(lambda: march.march_forward(*bm["fit set-up"],
+                                                                   cfg.rf_cols), 1)}
+    k8_device_ms = {
+        "fit_mode": graph_ms(lambda: march.march_backward(fit_soa, fit_sim.seeds, g_rf, fit_cfg), 1),
+        "boxmuller_fit_mode": graph_ms(lambda: march.march_backward(*bm["fit set-up"][:2], g_rf,
+                                                                    bm["fit set-up"][2]), 1)}
+    march.march_forward(soa, sim.seeds, cfg, cfg.rf_cols)
+    march.march_backward(fit_soa, fit_sim.seeds, g_rf, fit_cfg)
+    k2_blocks, k8_blocks = march.last_blocks, march.last_blocks_bwd
+    print("  device ms per launch (graph replay): march " + ", ".join(
+        f"{k} {v:.4f}" for k, v in k2_device_ms.items()) + "; march_bwd " + ", ".join(
+        f"{k} {v:.4f}" for k, v in k8_device_ms.items())
+          + f"; blocks march {k2_blocks}, march_bwd {k8_blocks}")
+    design_sweep(soa, sim.seeds, cfg, fit_soa, fit_sim.seeds, fit_cfg, g_rf)
     # the grid of one sphere launch of each, as the launch reported it
     intersect_listed.listed_best(*cluster_calls["sphere"][0][2])
     postproc.postproc_forward(rf_raw, cfg)
@@ -1107,6 +1319,20 @@ def main() -> int:
                           "stress_200k_isotropic_ms": queries["isotropic"]["k5_ms"]})
         if name == "postproc":
             entry["blocks"] = k3_blocks
+            entry["tall"] = {str(rows): v for rows, v in tall.items()}
+        if name == "march":
+            entry.update({"device_ms": k2_device_ms["frame"], "blocks": k2_blocks,
+                          "fit_mode_device_ms": k2_device_ms["fit_mode"],
+                          "boxmuller_device_ms": k2_device_ms["boxmuller_frame"],
+                          "boxmuller_fit_mode_device_ms": k2_device_ms["boxmuller_fit_mode"],
+                          "full_size": {k: v for k, v in full_march.items()},
+                          "field_modes": len(march_modes),
+                          "field_mode_flips": {k: v["flips"] for k, v in march_modes.items()
+                                               if "boxmuller" in k}})
+        if name == "march_bwd":
+            entry.update({"device_ms": k8_device_ms["fit_mode"], "blocks": k8_blocks,
+                          "boxmuller_device_ms": k8_device_ms["boxmuller_fit_mode"],
+                          "worst_field_err": max(v["bwd_worst"] for v in full_march.values())})
         if name == "intersect_grouped":  # bounce by bounce, and the queries it was built for
             entry["mega"] = {f"bounce_{d}": q for d, q in mega_queries.items()}
             entry["stress_200k"] = queries

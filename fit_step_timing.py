@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Time the port's material-fit step on one NVIDIA GPU, in one short process.
+
+    python3 fit_step_timing.py [--tree DIR] [--steps N]
+
+Imports ``mcray_tpu_torch`` from DIR (default: the directory of this
+script), so one copy of the script times two checkouts in turns: run it
+alternately with ``--tree`` of each, one process per run. The set-up is
+``chip_smoke.py``'s fit phase: the sphere at ``SimConfig()`` widths in soft +
+trilinear mode, the target frame from fixed draws, LIVER's attenuation
+doubled and fitted back by Adam; one step to warm up, then N steps timed by
+CUDA events, then ``torch.profiler`` over 3 steps for the device's view.
+Prints one JSON line: the tree, the card's ``nvidia-smi`` name and power
+limit, the step's median, min and max ms, the device busy ms and device
+operations per step. Needs the card; without one it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", default=here, help="checkout whose mcray_tpu_torch is timed")
+    parser.add_argument("--steps", type=int, default=10)
+    args = parser.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("fit_step_timing: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcray_tpu_torch.config import SimConfig
+    from mcray_tpu_torch.models.simulator import Simulator
+    from mcray_tpu_torch.models.trainer import MaterialFitter
+    from mcray_tpu_torch.ops import physics
+    from mcray_tpu_torch.scene.compile import load_and_compile
+
+    import mcray_tpu_torch
+    if not os.path.abspath(mcray_tpu_torch.__file__).startswith(tree + os.sep):
+        raise SystemExit(f"fit_step_timing: imported {mcray_tpu_torch.__file__}, not from {tree}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    pack = load_and_compile(os.path.join(tree, "assets", "sphere", "sphere.scene"))
+    cfg = SimConfig(soft_scattering=True, trilinear_texture=True)
+    sim = Simulator(pack, cfg, device="cuda", seed=0)
+    row, col = 3, physics.ATTENUATION  # LIVER, the box medium
+    draws = sim.draws(0)
+    with torch.no_grad():
+        target = sim.render_frame(draws=draws)["bmode"]
+    start = pack.materials.copy()
+    start[row, col] *= 2.0
+    fit = MaterialFitter.from_simulator(sim, start, target, trainable=(col,),
+                                        trainable_rows=[row], fixed_frame=draws)
+    fit.step(draws)
+    step_ms = []
+    for _ in range(args.steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fit.step(draws)
+        ev[1].record()
+        ev[1].synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fit.step(draws)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise SystemExit("fit_step_timing: the profiler recorded no device event")
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    print(json.dumps({
+        "tree": tree, "gpu": smi, "steps": args.steps,
+        "step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_ms": step_ms,
+        "busy_ms": busy / 1e3 / n, "device_operations": len(device) / n,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,23 +5,33 @@
 // output-stationary over (column tile, row tile) and accumulates into a
 // revisited output block, which needs a sequential grid axis. Here the loop
 // is segment-stationary: the gradient of segment sd in column c is a sum
-// over that segment's own march steps, so one thread per (sd, c) walks
-// k = 0 .. steps-1, bins t_k = t0 + k*dt into its row floor(t_k / rdt) with
-// the forward's guards (k < steps, t_k < window, 0 <= row < rf_rows, valid),
-// reads the cotangent at (row, c), re-evaluates the scatterer with its
-// partials (march_common.cuh) and keeps the twelve sums in registers
-// (from x/y/z, dir x/y/z, ln_att, I0, mu0, mu1, sigma, b_val); t0, steps,
-// b_row and valid get zero. One writer per output element: no atomics, no
-// second pass, one summation order (ascending k, i.e. ascending row).
+// over that segment's own march steps k = 0 .. steps-1, each binned into
+// its row floor(t_k / rdt) with the forward's guards (k < steps, t_k <
+// window, 0 <= row < rf_rows, valid); the step reads the cotangent at (row,
+// c), re-evaluates the scatterer with its partials (march_common.cuh) and
+// adds to twelve sums (from x/y/z, dir x/y/z, ln_att, I0, mu0, mu1, sigma,
+// b_val); t0, steps, b_row and valid get zero.
 //
 // The walk visits exactly the (segment, row) pairs the forward's
 // _match_rows matches: rows are strictly increasing in k (dt > rdt), the
 // forward verifies its candidate k with this same binning formula, and
 // -fmad=false keeps t_k and the quotient separately rounded in both.
 //
-// Bound: instruction issue, as the forward; SD x C threads (25,600 at full
-// size) each walk up to window/dt steps, so the card is under-filled and
-// the longest segment of a warp sets its time.
+// Bound on the card: instruction issue (per step in trilinear mode sixteen
+// hashes, the normals and the partials), and before this design latency:
+// one thread per (segment, column) walked up to window/dt steps alone, 800
+// warps on 132 SMs, and the longest segment of a warp set its time. Now a
+// group of LANES threads shares one (segment, column): lane j walks k = j,
+// j + LANES, ..., so a segment's steps spread over the group, and a
+// block holds THREADS / LANES neighbouring columns of one segment index
+// (the same sample and bounce, so similar step counts). The group's twelve
+// sums are reduced in one fixed order — each lane's own in ascending k,
+// then an xor butterfly of shuffles, in which both partners of a pair add
+// the same two values, so every lane ends with the same total — and one
+// lane per column puts them in shared memory; the block writes each field
+// as consecutive floats. One writer per output element, no atomics, no
+// second pass. The per-field sums run in another order than before and
+// than march_bwd_plain's row reduction: a tolerance, not bitwise.
 
 #include "march_common.cuh"
 
@@ -29,82 +39,106 @@ namespace {
 
 using namespace march;
 
-template <bool TRILINEAR, bool SOFT>
-__global__ void march_bwd_kernel(const float* __restrict__ soa, const float* __restrict__ g,
-                                 int sd, int c_pad, int n_cols, int rf_rows, Texture tx,
-                                 float rdt, float dt, float t_window, float axres,
-                                 float* __restrict__ gout) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= sd * c_pad) return;
-  const int c = idx % c_pad;
-  const int i = idx / c_pad;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = 256;           // per block
+constexpr int MIN_LANES = 8;           // lanes per (segment, column) at least
+constexpr int MAX_COLS = THREADS / MIN_LANES;
+
+template <bool TRILINEAR, bool SOFT, bool BOXMULLER, bool POW2>
+__global__ void __launch_bounds__(THREADS)
+march_bwd_kernel(const float* __restrict__ soa, const float* __restrict__ g, int sd, int c_pad,
+                 int n_cols, int rf_rows, Texture tx, float rdt, float dt, float t_window,
+                 float axres, int lanes, float* __restrict__ gout) {
+  __shared__ float sums[N_FIELDS][MAX_COLS];
+  const int cols = THREADS / lanes;
+  const int group = threadIdx.x / lanes, sub = threadIdx.x % lanes;
+  const int i = blockIdx.y;
+  const int c0 = blockIdx.x * cols, c = c0 + group;
   const float* f = soa + (size_t)i * N_FIELDS * c_pad + c;
-  float* go = gout + (size_t)i * N_FIELDS * c_pad + c;
 
   float acc[N_FIELDS];
 #pragma unroll
   for (int q = 0; q < N_FIELDS; ++q) acc[q] = 0.0f;
 
-  if (c < n_cols) {
+  if (c < n_cols && f[F_VALID * c_pad] > 0.5f) {
     const float t0 = f[F_T0 * c_pad];
     const float steps = f[F_STEPS * c_pad];
-    const bool valid = f[F_VALID * c_pad] > 0.5f;
-    if (valid) {
-      const float fx = f[F_FROM_X * c_pad], fy = f[F_FROM_Y * c_pad], fz = f[F_FROM_Z * c_pad];
-      const float dx = f[F_DIR_X * c_pad], dy = f[F_DIR_Y * c_pad], dz = f[F_DIR_Z * c_pad];
-      const float lnatt = f[F_LN_ATT * c_pad], i0 = f[F_I0 * c_pad];
-      const float mu0 = f[F_MU0 * c_pad], mu1 = f[F_MU1 * c_pad], sigma = f[F_SIGMA * c_pad];
-      for (float k = 0.0f; k < steps; k += 1.0f) {
-        const float t_k = t0 + k * dt;
-        if (!(t_k < t_window)) break;  // t_k grows with k: no later step is inside
-        const float row_f = floorf(t_k / rdt);
-        if (!(row_f >= 0.0f && row_f < (float)rf_rows)) continue;
-        const float gm = g[(size_t)(int)row_f * n_cols + c];
-        const float scale = k * axres;
-        const Scat s = scat_eval<TRILINEAR, SOFT, true>(
-            fx + scale * dx, fy + scale * dy, fz + scale * dz, mu0, mu1, sigma, tx);
-        const float decay = expf(lnatt * k);
-        const float gi = gm * (i0 * decay);
-        acc[F_I0] += gm * decay * s.scat;
-        acc[F_LN_ATT] += gi * k * s.scat;
-        acc[F_MU0] += gi * s.d_mu0;
-        acc[F_MU1] += gi * s.d_mu1;
-        acc[F_SIGMA] += gi * s.d_sigma;
-        const float gpx = gi * s.d_px, gpy = gi * s.d_py, gpz = gi * s.d_pz;
-        acc[F_FROM_X] += gpx;
-        acc[F_FROM_Y] += gpy;
-        acc[F_FROM_Z] += gpz;
-        acc[F_DIR_X] += gpx * scale;
-        acc[F_DIR_Y] += gpy * scale;
-        acc[F_DIR_Z] += gpz * scale;
-      }
+    const float fx = f[F_FROM_X * c_pad], fy = f[F_FROM_Y * c_pad], fz = f[F_FROM_Z * c_pad];
+    const float dx = f[F_DIR_X * c_pad], dy = f[F_DIR_Y * c_pad], dz = f[F_DIR_Z * c_pad];
+    const float lnatt = f[F_LN_ATT * c_pad], i0 = f[F_I0 * c_pad];
+    const float mu0 = f[F_MU0 * c_pad], mu1 = f[F_MU1 * c_pad], sigma = f[F_SIGMA * c_pad];
+    for (float k = (float)sub; k < steps; k += (float)lanes) {
+      const float t_k = t0 + k * dt;
+      if (!(t_k < t_window)) break;  // t_k grows with k: no later step is inside
+      const float row_f = floorf(t_k / rdt);
+      if (!(row_f >= 0.0f && row_f < (float)rf_rows)) continue;
+      const float gm = g[(size_t)(int)row_f * n_cols + c];
+      const float scale = k * axres;
+      const Scat s = scat_eval<TRILINEAR, SOFT, BOXMULLER, POW2, true>(
+          fx + scale * dx, fy + scale * dy, fz + scale * dz, mu0, mu1, sigma, tx);
+      const float decay = expf(lnatt * k);
+      const float gi = gm * (i0 * decay);
+      acc[F_I0] += gm * decay * s.scat;
+      acc[F_LN_ATT] += gi * k * s.scat;
+      acc[F_MU0] += gi * s.d_mu0;
+      acc[F_MU1] += gi * s.d_mu1;
+      acc[F_SIGMA] += gi * s.d_sigma;
+      const float gpx = gi * s.d_px, gpy = gi * s.d_py, gpz = gi * s.d_pz;
+      acc[F_FROM_X] += gpx;
+      acc[F_FROM_Y] += gpy;
+      acc[F_FROM_Z] += gpz;
+      acc[F_DIR_X] += gpx * scale;
+      acc[F_DIR_Y] += gpy * scale;
+      acc[F_DIR_Z] += gpz * scale;
     }
-    // the boundary echo adds b_val at row b_row (-1: none), valid or not
-    const float b_row = f[F_B_ROW * c_pad];
-    if (b_row >= 0.0f && b_row < (float)rf_rows && b_row == floorf(b_row))
-      acc[F_B_VAL] = g[(size_t)(int)b_row * n_cols + c];
   }
+  // the group's sums (lanes is a power of two and divides 32: xor stays in the group)
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
 #pragma unroll
-  for (int q = 0; q < N_FIELDS; ++q) go[q * c_pad] = acc[q];
+    for (int q = 0; q < N_FIELDS; ++q) acc[q] += __shfl_xor_sync(FULL, acc[q], off);
+  }
+  if (sub == 0) {
+    // the boundary echo adds b_val at row b_row (-1: none), valid or not
+    acc[F_B_VAL] = 0.0f;
+    if (c < n_cols) {
+      const float b_row = f[F_B_ROW * c_pad];
+      if (b_row >= 0.0f && b_row < (float)rf_rows && b_row == floorf(b_row))
+        acc[F_B_VAL] = g[(size_t)(int)b_row * n_cols + c];
+    }
+#pragma unroll
+    for (int q = 0; q < N_FIELDS; ++q) sums[q][group] = acc[q];
+  }
+  __syncthreads();
+  float* go = gout + (size_t)i * N_FIELDS * c_pad + c0;
+  for (int k = threadIdx.x; k < N_FIELDS * cols; k += THREADS) {
+    const int q = k / cols, cc = k - q * cols;
+    go[(size_t)q * c_pad + cc] = sums[q][cc];
+  }
 }
 
 }  // namespace
 
+// soa, gout (sd, 16, c_pad), c_pad a multiple of THREADS / MIN_LANES; g
+// (rf_rows, n_cols). lanes per (segment, column): a power of two in
+// [MIN_LANES, 32]. `blocks` (host memory) receives the grid launched.
 extern "C" int mcray_march_bwd(const float* soa, const float* g, int sd, int c_pad, int n_cols,
                                int rf_rows, uint32_t seed0, uint32_t seed1, float rdt, float dt,
                                float t_window, float axres, float res, int size,
-                               float bitsum_scale, int trilinear, int soft, float tau,
-                               float* gout, cudaStream_t stream) {
-  const int n = sd * c_pad;
-  if (n > 0) {
-    const int block = 128;
-    const int grid = (n + block - 1) / block;
-    const Texture tx = {seed0, seed1, res, size, bitsum_scale, tau};
-#define LAUNCH(TRI, SOFT)                                                                  \
-  march_bwd_kernel<TRI, SOFT><<<grid, block, 0, stream>>>(soa, g, sd, c_pad, n_cols, rf_rows, \
-                                                          tx, rdt, dt, t_window, axres, gout)
-    MARCH_DISPATCH_MODES(trilinear, soft, LAUNCH);
+                               float bitsum_scale, int trilinear, int soft, int boxmuller,
+                               float tau, int lanes, float* gout, int* blocks,
+                               cudaStream_t stream) {
+  *blocks = 0;
+  if (sd <= 0 || c_pad <= 0) return (int)cudaGetLastError();
+  if (lanes < MIN_LANES || lanes > 32 || (lanes & (lanes - 1)) || c_pad % MAX_COLS || size < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(c_pad / (THREADS / lanes), sd);
+  const Texture tx = {seed0, seed1, res, size, bitsum_scale, tau};
+  const bool pow2 = (size & (size - 1)) == 0;
+#define LAUNCH(TRI, SOFT, BM, POW2)                                                            \
+  march_bwd_kernel<TRI, SOFT, BM, POW2><<<grid, THREADS, 0, stream>>>(                         \
+      soa, g, sd, c_pad, n_cols, rf_rows, tx, rdt, dt, t_window, axres, lanes, gout)
+  MARCH_DISPATCH_MODES(trilinear, soft, boxmuller, pow2, LAUNCH);
 #undef LAUNCH
-  }
+  *blocks = (int)(grid.x * grid.y);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,20 @@
 //      in the expression and operand order of imaging.envelope;
 //   4. one row-wise write of the strip.
 // The convolved image never goes to device memory.
+//
+// Any height. A lane's run of rows keeps its peaks in a 32-bit mask up to
+// MAX_RUN rows, 32 x MAX_RUN = 992 rows a column. A taller column is a
+// separate instance (TALL): a lane's run is longer, its first and last peak
+// go into the same two scans, the next peak after each of its rows is
+// written walking the run backward (into the spent axial sums) and the
+// previous one carried walking it forward; every row's lerp is the same
+// expression. Where the strip's buffers do not fit a block's shared memory
+// (~1,600 rows at 13 lateral taps), a third instance (SLAB) keeps them in a
+// slab of device memory per block that the wrapper allocates: slower, the
+// same result. (A first version looped over 992-row chunks with the scans
+// inside the loop; on the H100 every launch of it faulted with an illegal
+// address, also at one chunk, unless built with -G — so each instance has
+// one envelope path and no loop around its shuffles.)
 
 #include <climits>
 
@@ -44,16 +58,59 @@ constexpr int THREADS = 512;   // per block: loads in flight for phases 1, 2 and
 constexpr int MAX_TAPS = 64;   // axial + lateral taps staged in shared memory
 constexpr int MAX_RUN = 31;    // rows per lane: odd, and a run's peaks fit a 32-bit mask
 constexpr int NO_PEAK = INT_MAX;
+constexpr unsigned FULL = 0xffffffffu;
 
+// floats of the strip's buffers: raw and axial sums over the strip and its
+// halo, the convolved strip
+__host__ __device__ inline size_t strip_floats(int rows, int l) {
+  return (size_t)(3 * STRIP + 2 * (l - 1)) * (rows | 1);
+}
+
+// a peak fires at row j (1 <= j <= rows - 2) when col[j-1] < col[j] >= col[j+1]
+__device__ __forceinline__ bool is_peak(const float* col, int j) {
+  return col[j - 1] < col[j] && !(col[j] < col[j + 1]);
+}
+
+// `before` (a lane's last peak, or -1) becomes the last peak of the lower
+// lanes' runs, `after` (its first, or NO_PEAK) the first of the higher lanes':
+// an inclusive max / min scan over the warp, shifted by one lane
+__device__ __forceinline__ void scan_neighbours(int lane, int& before, int& after) {
+  for (int off = 1; off < 32; off <<= 1) {
+    const int b = __shfl_up_sync(FULL, before, off);
+    const int f = __shfl_down_sync(FULL, after, off);
+    if (lane >= off) before = max(before, b);
+    if (lane + off < 32) after = min(after, f);
+  }
+  before = __shfl_up_sync(FULL, before, 1);
+  after = __shfl_down_sync(FULL, after, 1);
+  if (lane == 0) before = -1;
+  if (lane == 31) after = NO_PEAK;
+}
+
+// row j's envelope from its previous peak (or -1) and its next (or NO_PEAK),
+// in the expression and operand order of imaging.envelope
+__device__ __forceinline__ float lerp_row(const float* col, int j, int prev, int next) {
+  if (next == NO_PEAK) return col[j];
+  const int prev_pos = max(prev, 0);
+  const float prev_val = prev < 0 ? col[0] : fabsf(col[prev]);
+  const float next_val = fabsf(col[next]);
+  const float alpha = (float)(j - prev_pos) / (float)max(next - prev_pos, 1);
+  return prev_val * (1.0f - alpha) + next_val * alpha;
+}
+
+// TALL: more than MAX_RUN rows per lane. SLAB: the strip's buffers in
+// `slab` (device memory, strip_floats floats per block) instead of shared
+// memory. Separate instances: each carries one envelope path.
+template <bool TALL, bool SLAB>
 __global__ void __launch_bounds__(THREADS)
 postproc_kernel(const float* __restrict__ rf, int rows, int cols, const float* __restrict__ ax,
                 int a, const float* __restrict__ lat, int l, int do_conv,
-                float* __restrict__ out) {
+                float* __restrict__ slab, float* __restrict__ out) {
   extern __shared__ float smem[];
   __shared__ float taps[MAX_TAPS];  // [a] axial, then [l] lateral
   const int pitch = rows | 1;
   const int halo = do_conv ? STRIP + l - 1 : STRIP;  // columns loaded
-  float* raw = smem;                                 // [halo][pitch]; later the strip's result
+  float* raw = SLAB ? slab + blockIdx.x * strip_floats(rows, l) : smem;  // [halo][pitch]; later the result
   float* axs = raw + (size_t)(STRIP + l - 1) * pitch;  // [halo][pitch] axial sums
   float* x = axs + (size_t)(STRIP + l - 1) * pitch;    // [STRIP][pitch] convolved strip
   const int c0 = blockIdx.x * STRIP;
@@ -103,36 +160,45 @@ postproc_kernel(const float* __restrict__ rf, int rows, int cols, const float* _
     int run = (rows + 31) / 32;
     run |= 1;  // odd: the lanes' rows fall on different banks
     const int lo = min(lane * run, rows), hi = min(lo + run, rows);
-    unsigned peaks = 0u;  // bit k: a peak at row lo + k
-    for (int j = max(lo, 1); j < min(hi, rows - 1); ++j)
-      if (col[j - 1] < col[j] && !(col[j] < col[j + 1])) peaks |= 1u << (j - lo);
-    // last peak at or before the end of each lower lane's run; first peak in the higher lanes'
-    int before = peaks ? lo + 31 - __clz(peaks) : -1;
-    int after = peaks ? lo + __ffs(peaks) - 1 : NO_PEAK;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int b = __shfl_up_sync(0xffffffffu, before, off);
-      const int f = __shfl_down_sync(0xffffffffu, after, off);
-      if (lane >= off) before = max(before, b);
-      if (lane + off < 32) after = min(after, f);
-    }
-    before = __shfl_up_sync(0xffffffffu, before, 1);
-    after = __shfl_down_sync(0xffffffffu, after, 1);
-    if (lane == 0) before = -1;
-    if (lane == 31) after = NO_PEAK;
-    for (int j = lo; j < hi; ++j) {
-      const unsigned upto = (2u << (j - lo)) - 1u;  // bits of rows lo..j
-      const unsigned le = peaks & upto, gt = peaks & ~upto;
-      const int prev = le ? lo + 31 - __clz(le) : before;  // last peak at or before j, or -1
-      const int next = gt ? lo + __ffs(gt) - 1 : after;    // first peak after j
-      float v = col[j];
-      if (next != NO_PEAK) {
-        const int prev_pos = max(prev, 0);
-        const float prev_val = prev < 0 ? col[0] : fabsf(col[prev]);
-        const float next_val = fabsf(col[next]);
-        const float alpha = (float)(j - prev_pos) / (float)max(next - prev_pos, 1);
-        v = prev_val * (1.0f - alpha) + next_val * alpha;
+    if (!TALL) {
+      unsigned peaks = 0u;  // bit k: a peak at row lo + k
+      for (int j = max(lo, 1); j < min(hi, rows - 1); ++j)
+        if (is_peak(col, j)) peaks |= 1u << (j - lo);
+      // last peak at or before the end of each lower lane's run; first peak in the higher lanes'
+      int before = peaks ? lo + 31 - __clz(peaks) : -1;
+      int after = peaks ? lo + __ffs(peaks) - 1 : NO_PEAK;
+      scan_neighbours(lane, before, after);
+      for (int j = lo; j < hi; ++j) {
+        const unsigned upto = (2u << (j - lo)) - 1u;  // bits of rows lo..j
+        const unsigned le = peaks & upto, gt = peaks & ~upto;
+        const int prev = le ? lo + 31 - __clz(le) : before;  // last peak at or before j, or -1
+        const int next = gt ? lo + __ffs(gt) - 1 : after;    // first peak after j
+        res[j] = lerp_row(col, j, prev, next);
       }
-      res[j] = v;
+    } else {
+      // a run's peaks no longer fit a mask: its first and last peak go into
+      // the same scans, the next peak after each row is written walking the
+      // run backward (into the spent axial sums), the previous one carried
+      // walking it forward
+      int* next_of = reinterpret_cast<int*>(axs + cl * pitch);
+      int before = -1, after = NO_PEAK;
+      for (int j = max(lo, 1); j < min(hi, rows - 1); ++j) {
+        if (is_peak(col, j)) {
+          after = min(after, j);
+          before = j;
+        }
+      }
+      scan_neighbours(lane, before, after);
+      int next = after;
+      for (int j = hi - 1; j >= lo; --j) {
+        next_of[j] = next;
+        if (j >= 1 && j < rows - 1 && is_peak(col, j)) next = j;
+      }
+      int prev = before;
+      for (int j = lo; j < hi; ++j) {
+        if (j >= 1 && j < rows - 1 && is_peak(col, j)) prev = j;
+        res[j] = lerp_row(col, j, prev, next_of[j]);
+      }
     }
   }
   __syncthreads();
@@ -146,33 +212,62 @@ postproc_kernel(const float* __restrict__ rf, int rows, int cols, const float* _
 
 }  // namespace
 
-// rf, out (rows, cols); ax (a,), lat (l,) taps. rows <= 32 * MAX_RUN,
-// a + l <= MAX_TAPS, and rows x (3 STRIP + 2 l - 2) floats of shared memory
-// must fit a block. `blocks` (host memory) receives the grid that was
-// launched.
-extern "C" int mcray_postproc(const float* rf, int rows, int cols, const float* ax, int a,
-                              const float* lat, int l, int do_conv, float* out, int* blocks,
-                              cudaStream_t stream) {
-  *blocks = 0;
-  if (rows <= 0 || cols <= 0) return (int)cudaGetLastError();
-  if (rows > 32 * MAX_RUN || a + l > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(3 * STRIP + 2 * (l - 1)) * (rows | 1) * sizeof(float);
-  // the kernel's shared-memory allowance is raised where a launch needs more
-  // than it has on the current device, not at every launch
+// Floats of device memory the launch needs for the strips' buffers: 0 where
+// they fit a block's shared memory (max_shared bytes), else one slab per block.
+extern "C" long long mcray_postproc_slab_floats(int rows, int cols, int l, int max_shared) {
+  if (rows <= 0 || cols <= 0) return 0;
+  const size_t floats = strip_floats(rows, l);
+  if (floats * sizeof(float) + MAX_TAPS * sizeof(float) <= (size_t)max_shared) return 0;
+  return (long long)(floats * ((cols + STRIP - 1) / STRIP));
+}
+
+// rf, out (rows, cols); ax (a,), lat (l,) taps, a + l <= MAX_TAPS. `slab`:
+// mcray_postproc_slab_floats floats of device memory, or null where that is
+// 0. `blocks` (host memory) receives the grid that was launched.
+// Raise the instance's dynamic shared-memory allowance where a launch needs
+// more than it has on the current device, not at every launch.
+template <bool TALL>
+cudaError_t allow_shared(size_t smem) {
   static int allowed_on = -1;
   static size_t allowed = 0;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   if (device != allowed_on || smem > allowed) {
-    err = cudaFuncSetAttribute(postproc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(postproc_kernel<TALL, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
     allowed_on = device;
     allowed = smem;
   }
+  return cudaSuccess;
+}
+
+// rf, out (rows, cols); ax (a,), lat (l,) taps, a + l <= MAX_TAPS. `slab`:
+// mcray_postproc_slab_floats floats of device memory, or null where that is
+// 0. `blocks` (host memory) receives the grid that was launched.
+extern "C" int mcray_postproc(const float* rf, int rows, int cols, const float* ax, int a,
+                              const float* lat, int l, int do_conv, float* slab, float* out,
+                              int* blocks, cudaStream_t stream) {
+  *blocks = 0;
+  if (rows <= 0 || cols <= 0) return (int)cudaGetLastError();
+  if (a + l > MAX_TAPS) return (int)cudaErrorInvalidValue;
   const int grid = (cols + STRIP - 1) / STRIP;
-  postproc_kernel<<<grid, THREADS, smem, stream>>>(rf, rows, cols, ax, a, lat, l, do_conv, out);
+  const size_t smem = strip_floats(rows, l) * sizeof(float);
+  const bool tall = rows > 32 * MAX_RUN;
+  cudaError_t err = cudaSuccess;
+  if (slab) {
+    postproc_kernel<true, true><<<grid, THREADS, 0, stream>>>(rf, rows, cols, ax, a, lat, l,
+                                                               do_conv, slab, out);
+  } else if (tall) {
+    if ((err = allow_shared<true>(smem)) != cudaSuccess) return (int)err;
+    postproc_kernel<true, false><<<grid, THREADS, smem, stream>>>(rf, rows, cols, ax, a, lat, l,
+                                                                  do_conv, nullptr, out);
+  } else {
+    if ((err = allow_shared<false>(smem)) != cudaSuccess) return (int)err;
+    postproc_kernel<false, false><<<grid, THREADS, smem, stream>>>(rf, rows, cols, ax, a, lat,
+                                                                   l, do_conv, nullptr, out);
+  }
   *blocks = grid;
   return (int)cudaGetLastError();
 }

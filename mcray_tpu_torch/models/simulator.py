@@ -15,6 +15,10 @@ table (``models/trainer.py`` fits it):
   run as one kernel each; under autograd the march and the scan conversion
   run their backward kernels (K8, K9), the closest hit has no gradient (it
   makes the discrete choice; the winner's t is recomputed in plain torch).
+  Where the reference leaves its kernels for jnp, the port runs plain
+  torch on the same device: ``soft_row_binning`` takes the scatter march
+  (``march_and_accumulate``), the centered PSF and the Hilbert envelope
+  the plain postproc (``mcray_tpu/models/simulator.py:384-397``).
 
 Every stage calls its kernel's wrapper, which launches the CUDA kernel for
 CUDA tensors and runs the plain PyTorch version for CPU tensors; the
@@ -232,29 +236,39 @@ def march_and_accumulate(segments, materials, volume, cfg: SimConfig, n_cols: in
     b_vals = fdiv(flat["reflected"], float(cfg.samples_per_element))
 
     all_times = torch.cat([t_k.reshape(-1), b_time])
-    return imaging.accumulate_echoes(
-        imaging.time_to_row(all_times, cfg),
-        torch.cat([cols.reshape(-1), flat["element"]]),
-        torch.cat([(intens * scat).reshape(-1), b_vals]),
-        torch.cat([live.reshape(-1), b_valid]),
-        cfg, n_cols,
-    )
+    all_cols = torch.cat([cols.reshape(-1), flat["element"]])
+    all_vals = torch.cat([(intens * scat).reshape(-1), b_vals])
+    all_valid = torch.cat([live.reshape(-1), b_valid])
+    if cfg.soft_row_binning:  # d(RF)/d(time) flows: the two-row split
+        return imaging.accumulate_echoes_soft(all_times, all_cols, all_vals, all_valid, cfg, n_cols)
+    return imaging.accumulate_echoes(imaging.time_to_row(all_times, cfg), all_cols, all_vals,
+                                     all_valid, cfg, n_cols)
 
 
 def render(draws, seeds, materials, probe_position, probe_angles_deg, scene, spacing,
-           starting_material: int, maps, cfg: SimConfig, **trace_kw) -> dict[str, torch.Tensor]:
+           starting_material: int, maps, cfg: SimConfig, volume=None,
+           **trace_kw) -> dict[str, torch.Tensor]:
     """Full frame from explicit randomness: ``draws`` (the (D, N) fields of
     ``physics.draw_bounce_randoms``) and the (2,) texture ``seeds``;
-    ``maps`` are the scan conversion's ``ScanMaps``; ``trace_kw`` (the
-    closest-hit choice) go to ``trace_paths``. If ``materials`` requires
-    grad, ``bmode`` is attached to it. Returns
+    ``maps`` are the scan conversion's ``ScanMaps``; ``volume`` is the
+    texture volume of ``seeds`` where it holds tables ("table" mode: the
+    scatter march gathers from them, the kernels evaluate the hash);
+    ``trace_kw`` (the closest-hit choice) go to ``trace_paths``. If
+    ``materials`` requires grad, ``bmode`` is attached to it. Returns
     ``bmode`` (bmode_rows, bmode_cols) and the intermediates the stages pass
-    on: ``segments`` (with the per-bounce ``rays``), the packed ``soa``,
-    ``rf_raw`` and ``rf_env``."""
+    on: ``segments`` (with the per-bounce ``rays``), the packed ``soa``
+    (None under ``soft_row_binning``, which marches by scatter), ``rf_raw``
+    and ``rf_env``."""
     segments = trace_paths(draws, materials, probe_position, probe_angles_deg, scene,
                            spacing, starting_material, cfg, **trace_kw)
-    soa = pack_segments(segments, materials, cfg, cfg.rf_cols)
-    rf_raw = march_cuda(soa, seeds, cfg, cfg.rf_cols)
+    if cfg.soft_row_binning:
+        # the reference's plain march for this mode (its kernel bins hard)
+        soa = None
+        rf_raw = march_and_accumulate(segments, materials, volume or {"seeds": seeds}, cfg,
+                                      cfg.rf_cols)
+    else:
+        soa = pack_segments(segments, materials, cfg, cfg.rf_cols)
+        rf_raw = march_cuda(soa, seeds, cfg, cfg.rf_cols)
     rf_env = postproc_cuda(rf_raw, cfg)
     if cfg.log_compression:
         rf_env = imaging.log_compress(rf_env)
@@ -298,8 +312,6 @@ class Simulator:
                  use_culled_intersect: bool | None = None, intersect_mode: str | None = None,
                  intersect_tile_r: int | None = None, sort_packets: bool = False):
         validate(cfg)
-        if cfg.soft_row_binning:
-            raise NotImplementedError("soft_row_binning is not ported yet")
         intersect_mode = intersect_mode or "listed"
         if intersect_mode not in CLUSTER_INTERSECTS:
             raise ValueError(f"unknown intersect_mode {intersect_mode!r}; expected one of "
@@ -307,8 +319,11 @@ class Simulator:
         self.cfg = cfg
         self.pack = pack
         self.device = resolve_device(device)
-        seeds = texture.make_texture_volume(rng.prng_key(seed ^ 0x5CA77E7), cfg)
-        state = convert.from_reference(pack, pack.materials, seeds["seeds"], device=self.device)
+        volume = texture.make_texture_volume(rng.prng_key(seed ^ 0x5CA77E7), cfg,
+                                             device=self.device)
+        state = convert.from_reference(pack, pack.materials, volume["seeds"], device=self.device)
+        # the texture tables ("table" mode; the seeds alone otherwise)
+        self.volume = volume if "noise" in volume else None
         self.scene = state["scene"]
         self.materials = state["materials"]
         self.spacing = state["spacing"]
@@ -366,7 +381,7 @@ class Simulator:
             self._tensor(position, self.position),
             self._tensor(angles, self.angles),
             self.scene, self.spacing, self.starting_material, self.scan_maps, self.cfg,
-            **self.trace_kw,
+            volume=self.volume, **self.trace_kw,
         )
 
     def render_batch(self, seeds, materials=None, position=None, angles=None) -> torch.Tensor:

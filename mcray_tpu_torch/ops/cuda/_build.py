@@ -38,20 +38,23 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-# C signatures of the entry points (all return cudaError_t as int; the last
-# argument is the CUDA stream)
+# C signatures of the entry points (the launches return cudaError_t as int and
+# take the CUDA stream last; the others return what RESTYPES says)
 SIGNATURES = {
     "mcray_intersect_closest": [P, I, P, I, P, P, P],
     "mcray_intersect_listed": [P, I, I, P, P, P, I, P, P, P, P, I, P, P, P, P],
     "mcray_intersect_grouped": [P, I, P, P, I, I, P, I, P, P, P],
     "mcray_intersect_culled": [P, I, I, P, I, I, P, P, P],
     "mcray_intersect_staged": [P, I, I, P, I, I, P, P, I, P, P, P],
-    "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, F, P, P],
-    "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, F, P, P],
-    "mcray_postproc": [P, I, I, P, I, P, I, I, P, P, P],
+    "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, I, F, I, I, P, P, P],
+    "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, I, F, I, P, P, P],
+    "mcray_postproc": [P, I, I, P, I, P, I, I, P, P, P, P],
+    "mcray_postproc_slab_floats": [I, I, I, I],
     "mcray_scan_convert": [P, I, I, P, I, I, I, P, P],
     "mcray_scan_convert_bwd": [P, P, P, P, I, P, P],
 }
+
+RESTYPES = {"mcray_postproc_slab_floats": ctypes.c_longlong}
 
 
 def _sources() -> list[Path]:
@@ -113,7 +116,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

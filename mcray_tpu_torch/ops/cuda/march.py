@@ -3,7 +3,7 @@
 
 Replaces ``mcray_tpu/ops/pallas/march.py:_march_kernel`` (op ``_march_op``,
 wrapper ``march_and_accumulate_pallas``). Each RF pixel (row r, column c)
-asks every segment of its own column which march step lands in row r: the
+asks the segments of its own column which march step lands in row r: the
 march time step exceeds the RF row pitch, so at most one step does, and
 ``_match_rows`` solves for it and verifies it with the forward binning
 ``floor((t0 + k*dt)/rdt) == r``. The pixel then evaluates the hashed
@@ -11,35 +11,38 @@ scatterer field at that step, adds ``I0 * exp(ln_att * k) * scat``, and
 adds the segment's boundary echo if it lands in row r. No scatter, no
 atomics: one fixed accumulation order (ascending segment) per pixel.
 
-On the card: one thread per RF pixel, the column index fastest in a warp
-so the (SD, 16, C_pad) SoA reads coalesce; each thread loops over its
-column's SD segments. The work is integer hashing plus a few f32 ops per
-(pixel, segment) pair, with the (SD, 16, C_pad) SoA small enough to be
-served from L2, so the kernel is bound by instruction issue. ``-fmad=false`` keeps the row
-match identical to the plain version. The reference's per-tile span lists
-(``_touch_tables``) are an optimisation for later: without them every
-pixel visits every segment of its column, which changes no output.
+On the card K2 gives each warp one column and 32 consecutive rows; the
+warp lists, 32 segments at a time with a ballot, the segments whose
+conservative row span (the reference's ``_touch_tables``) or boundary-echo
+row meets its rows, and visits only those, in ascending order. A skipped
+segment would have added exactly +0.0, so the image is bitwise what
+matching every (pixel, segment) pair gives, which is ``march_plain``'s
+arithmetic; ``-fmad=false`` keeps the row match identical to it.
 
 K8 replaces ``mcray_tpu/ops/pallas/march.py:_march_bwd_kernel``: the
 gradient of every SoA field from the RF cotangent, by rematerialisation
 (nothing is saved but the SoA). The reference accumulates per (column tile,
 row tile) into a revisited output block; on the card the loop is
-segment-stationary instead: one thread per (segment, column) walks its own
-march steps, bins each into its row with the forward's formula and guards,
-and sums the twelve non-zero field gradients in registers — one writer per
-output element, no atomics, one summation order. ``march_bwd_plain`` holds
-the same hand-derived formulas on (rows, C) slabs per segment.
+segment-stationary instead: a group of lanes per (segment, column) walks
+the segment's own march steps (lane j takes k = j, j + lanes, ...), bins
+each into its row with the forward's formula and guards, and the group's
+twelve non-zero field sums are reduced by shuffles in one fixed order —
+one writer per output element, no atomics. ``march_bwd_plain`` holds the
+same hand-derived formulas on (rows, C) slabs per segment.
 
 ``march_cuda`` is a ``torch.autograd.Function`` over both: K2 / K8 for CUDA
 tensors, ``march_plain`` / ``march_bwd_plain`` for CPU tensors, in forward
 and in backward. Gradients then flow through ``pack_segments`` (plain
 torch) into the material table and the traced segments.
 
-Kernel modes: bitsum normals on a power-of-two volume, with the nearest or
-the 8-corner trilinear lookup and the hard or the soft-sigmoid gate — the
-four combinations the reference's kernel computes. Box–Muller normals and
-other volume sizes raise NotImplementedError for CUDA tensors; the plain
-versions compute them all.
+Kernel modes: every mode of the reference's ``_scat_eval`` — bitsum or
+Box–Muller normals, any volume size, the nearest or the 8-corner trilinear
+lookup, the hard or the soft-sigmoid gate — and both texture modes: a
+"table" volume is filled from the same hash (``texture.make_texture_volume``),
+so the kernels evaluate the hash for it, as the reference's kernel does.
+Box–Muller's ``logf``/``sqrtf``/``cosf``/``sinf`` are the CUDA library's
+full-precision functions; the kernels are held to the plain version at a
+stated tolerance there, with the hard gate's flips counted.
 """
 
 from __future__ import annotations
@@ -63,6 +66,12 @@ TILE_C = 128
 launches = 0
 #: backward kernel (K8) launches since the last reset
 launches_bwd = 0
+#: the grids of the latest K2 and K8 launches, as the C entries reported them
+last_blocks = 0
+last_blocks_bwd = 0
+#: launch shapes: K2 columns per block (a warp each) and rows per lane; K8
+#: lanes per (segment, column)
+FWD_WARPS, FWD_ROWS_PER_LANE, BWD_LANES = 8, 1, 16
 
 
 def pack_segments(segments, materials, cfg: SimConfig, n_cols: int) -> torch.Tensor:
@@ -234,26 +243,12 @@ def march_bwd_plain(soa: torch.Tensor, seeds: torch.Tensor, g: torch.Tensor,
     return gout
 
 
-def _check_kernel_modes(cfg: SimConfig) -> None:
-    unsupported = []
-    if cfg.scatter_rng != "bitsum":
-        unsupported.append(f"scatter_rng={cfg.scatter_rng!r}")
-    if cfg.volume_size & (cfg.volume_size - 1):
-        unsupported.append(f"volume_size={cfg.volume_size} (not a power of two)")
-    if unsupported:
-        raise NotImplementedError(
-            "the CUDA march kernels compute bitsum normals on a power-of-two volume "
-            "only; not ported yet: " + ", ".join(unsupported)
-        )
-
-
 def _kernel_args(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols: int):
     """Check ``soa`` for the kernels and return (sd, c_pad, seed0, seed1)."""
     sd, _, c_pad = soa.shape
     _build.require(soa, "soa", torch.float32, (sd, N_FIELDS, c_pad))
     if not n_cols <= c_pad:
         raise ValueError(f"n_cols={n_cols} exceeds the SoA width {c_pad}")
-    _check_kernel_modes(cfg)
     seed0, seed1 = (int(v) & 0xFFFFFFFF for v in seeds.tolist())
     return sd, c_pad, seed0, seed1
 
@@ -261,25 +256,29 @@ def _kernel_args(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols:
 def _texture_args(cfg: SimConfig):
     f32 = ctypes.c_float
     return (f32(cfg.resolution_um / 1000.0), cfg.volume_size, f32(texture.BITSUM_SCALE),
-            int(cfg.trilinear_texture), int(cfg.soft_scattering), f32(cfg.soft_scattering_tau))
+            int(cfg.trilinear_texture), int(cfg.soft_scattering),
+            int(cfg.scatter_rng == "boxmuller"), f32(cfg.soft_scattering_tau))
 
 
 def march_forward(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols: int) -> torch.Tensor:
     """K2 for a CUDA ``soa``, ``march_plain`` for a CPU one (no autograd)."""
-    global launches
+    global launches, last_blocks
     if soa.device.type == "cpu":
         return march_plain(soa, seeds, cfg, n_cols)
     sd, c_pad, seed0, seed1 = _kernel_args(soa, seeds, cfg, n_cols)
     out = torch.empty((cfg.rf_rows, n_cols), dtype=torch.float32, device=soa.device)
     f32 = ctypes.c_float
+    blocks = ctypes.c_int(0)
     code = _build.library().mcray_march(
         soa.data_ptr(), sd, c_pad, n_cols, cfg.rf_rows, seed0, seed1,
         f32(cfg.rf_row_dt_us), f32(cfg.march_dt_us), f32(cfg.rf_row_dt_us / cfg.march_dt_us),
         f32(float(cfg.max_travel_time_us)), f32(cfg.axial_resolution_mm),
-        *_texture_args(cfg), out.data_ptr(), _build.stream_of(soa),
+        *_texture_args(cfg), FWD_WARPS, FWD_ROWS_PER_LANE, out.data_ptr(),
+        ctypes.byref(blocks), _build.stream_of(soa),
     )
     _build.check(code, "mcray_march")
     launches += 1
+    last_blocks = blocks.value
     return out
 
 
@@ -287,7 +286,7 @@ def march_backward(soa: torch.Tensor, seeds: torch.Tensor, g: torch.Tensor,
                    cfg: SimConfig) -> torch.Tensor:
     """K8 for a CUDA ``soa``, ``march_bwd_plain`` for a CPU one: the SoA's
     gradient (SD, 16, C_pad) from the RF cotangent ``g`` (rf_rows, n_cols)."""
-    global launches_bwd
+    global launches_bwd, last_blocks_bwd
     if soa.device.type == "cpu":
         return march_bwd_plain(soa, seeds, g, cfg)
     n_cols = g.shape[1]
@@ -295,14 +294,16 @@ def march_backward(soa: torch.Tensor, seeds: torch.Tensor, g: torch.Tensor,
     _build.require(g, "g", torch.float32, (cfg.rf_rows, n_cols))
     gout = torch.empty_like(soa)
     f32 = ctypes.c_float
+    blocks = ctypes.c_int(0)
     code = _build.library().mcray_march_bwd(
         soa.data_ptr(), g.data_ptr(), sd, c_pad, n_cols, cfg.rf_rows, seed0, seed1,
         f32(cfg.rf_row_dt_us), f32(cfg.march_dt_us), f32(float(cfg.max_travel_time_us)),
-        f32(cfg.axial_resolution_mm), *_texture_args(cfg), gout.data_ptr(),
-        _build.stream_of(soa),
+        f32(cfg.axial_resolution_mm), *_texture_args(cfg), BWD_LANES, gout.data_ptr(),
+        ctypes.byref(blocks), _build.stream_of(soa),
     )
     _build.check(code, "mcray_march_bwd")
     launches_bwd += 1
+    last_blocks_bwd = blocks.value
     return gout
 
 

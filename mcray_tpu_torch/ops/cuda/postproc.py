@@ -14,11 +14,17 @@ order of additions), and computes the envelope as two warp scans per
 column — the previous peak of a row is a running maximum, the next peak a
 reverse running minimum, as in ``imaging.envelope`` — after which every row
 lerps on its own. The convolved image never goes to device memory; the
-source's header note has the details. Images of more than ``MAX_ROWS`` rows
-raise.
+source's header note has the details. Images of any height: past 992 rows
+(31 rows per lane's peak mask) a second instance walks longer runs, and
+where a strip's buffers outgrow a block's shared memory (~1,600 rows) they
+go to a slab of device memory the wrapper allocates.
 
-Modes: reference envelope with uncentered PSF only; the centered PSF and
-the Hilbert envelope raise NotImplementedError for CUDA tensors.
+Modes: the kernel computes the reference envelope after the uncentered
+PSF. The centered PSF and the Hilbert envelope are no mode of the
+reference's kernel either: it leaves its kernel for jnp there
+(``mcray_tpu/models/simulator.py:390-397``), and ``postproc_forward`` runs
+``postproc_plain`` (plain PyTorch, ``torch.fft`` for the Hilbert
+transform) on the tensor's own device for them, launching nothing.
 
 Backward: ``postproc_cuda`` is a ``torch.autograd.Function`` whose backward
 is the VJP of ``postproc_plain`` recomputed on the saved input — what the
@@ -46,8 +52,9 @@ launches = 0
 #: the grid of the latest launch, as the C entry reported it
 last_blocks = 0
 
-#: the tallest image the kernel takes (a lane of a column's warp holds at most 31 rows)
-MAX_ROWS = 32 * 31
+#: shared memory a block may use on sm_90 (227 KB); taller strips use a slab
+#: of device memory instead
+MAX_SHARED_BYTES = 232448
 
 
 def postproc_plain(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
@@ -92,28 +99,32 @@ def postproc_cuda(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     return _Postproc.apply(rf, cfg)
 
 
+def kernel_modes(cfg: SimConfig) -> bool:
+    """Whether K3 computes ``cfg``'s postproc: the uncentered PSF and the
+    reference envelope, the modes of the reference's fused kernel."""
+    return not cfg.centered_psf and cfg.envelope_mode == "reference"
+
+
 def postproc_forward(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    """K3 for a CUDA ``rf``, ``postproc_plain`` for a CPU one (no autograd)."""
+    """K3 for a CUDA ``rf``, ``postproc_plain`` for a CPU one or for the
+    modes K3 does not compute (no autograd)."""
     global launches, last_blocks
-    if rf.device.type == "cpu":
+    if rf.device.type == "cpu" or not kernel_modes(cfg):
         return postproc_plain(rf, cfg)
     rows, cols = rf.shape
     _build.require(rf, "rf", torch.float32, (rows, cols))
-    if cfg.centered_psf or cfg.envelope_mode != "reference":
-        raise NotImplementedError(
-            "the CUDA postproc kernel computes the uncentered PSF and the "
-            "reference envelope only"
-        )
-    if rows > MAX_ROWS:
-        raise ValueError(f"the CUDA postproc kernel takes at most {MAX_ROWS} rows, got {rows}")
     a, l = cfg.psf_axial_size, cfg.psf_lateral_size
     taps = _taps(cfg, rf.device)
     do_conv = int(rows > 2 * a and cols > l + l // 2)  # else the reference's loops never run
     out = torch.empty_like(rf)
+    lib = _build.library()
+    n_slab = lib.mcray_postproc_slab_floats(rows, cols, l, MAX_SHARED_BYTES)
+    slab = torch.empty(n_slab, dtype=torch.float32, device=rf.device) if n_slab else None
     blocks = ctypes.c_int(0)
-    code = _build.library().mcray_postproc(
+    code = lib.mcray_postproc(
         rf.data_ptr(), rows, cols, taps.data_ptr(), a, taps.data_ptr() + 4 * a, l, do_conv,
-        out.data_ptr(), ctypes.byref(blocks), _build.stream_of(rf),
+        slab.data_ptr() if slab is not None else None, out.data_ptr(), ctypes.byref(blocks),
+        _build.stream_of(rf),
     )
     _build.check(code, "mcray_postproc")
     launches += 1

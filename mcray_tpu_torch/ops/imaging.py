@@ -2,11 +2,14 @@
 
 Port of ``mcray_tpu/ops/imaging.py`` (reference src/rfimage.h) in plain torch:
 - ``accumulate_echoes``: the per-echo ``+=`` of add_echo as an
-  ``index_put_`` scatter-add;
+  ``index_put_`` scatter-add; ``accumulate_echoes_soft`` its two-row
+  relaxation (``cfg.soft_row_binning``);
 - ``convolve_psf``: the reference-exact uncentered separable convolution,
-  raw values kept outside the write window;
+  raw values kept outside the write window, or the centered 'same'
+  correlation (``cfg.centered_psf``);
 - ``envelope``: the closed form of the C++ peak-lerp walk, with the
   (index, value) scans done as index scans (cummax/cummin) plus a gather;
+  ``envelope_hilbert`` the |analytic signal| by ``torch.fft``;
 - ``scan_convert``: cv::remap(INTER_LINEAR, BORDER_CONSTANT) as an explicit
   4-tap gather — ``grid_sample`` is avoided because its coordinate
   normalisation adds a rounding that ``map_coordinates`` does not have.
@@ -38,14 +41,44 @@ def accumulate_echoes(rows, cols, values, valid, cfg: SimConfig, n_cols: int | N
     return rf.index_put_(index, torch.where(ok, values, 0.0), accumulate=True)
 
 
-def convolve_psf(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    if cfg.centered_psf:
-        raise NotImplementedError("centered_psf is not ported yet (reference mode only)")
-    return _convolve_reference(
-        rf,
-        [float(v) for v in psf_mod.axial_kernel_np(cfg)],
-        [float(v) for v in psf_mod.lateral_kernel_np(cfg)],
+def accumulate_echoes_soft(times_us, cols, values, valid, cfg: SimConfig,
+                           n_cols: int | None = None):
+    """Two-row relaxation of add_echo (``cfg.soft_row_binning``): an echo
+    lands in rows floor(t/rdt) and floor(t/rdt) + 1 with weights 1 - frac
+    and frac, so d(RF)/d(time) is a row difference instead of zero. The
+    gradient rides frac only (the floor is detached, as the reference's
+    ``stop_gradient``); an echo in the last row loses its frac share past
+    the image, as in the reference."""
+    rf_row = fdiv(times_us, cfg.rf_row_dt_us)
+    r0f = torch.floor(rf_row)
+    frac = rf_row - r0f.detach()
+    r0 = r0f.int()
+    return accumulate_echoes(
+        torch.cat([r0, r0 + 1]), torch.cat([cols, cols]),
+        torch.cat([values * (1.0 - frac), values * frac]), torch.cat([valid, valid]),
+        cfg, n_cols,
     )
+
+
+def convolve_psf(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    ax = [float(v) for v in psf_mod.axial_kernel_np(cfg)]
+    lat = [float(v) for v in psf_mod.lateral_kernel_np(cfg)]
+    if cfg.centered_psf:
+        return _convolve_centered(rf, ax, lat)
+    return _convolve_reference(rf, ax, lat)
+
+
+def _convolve_centered(rf: torch.Tensor, ax, lat) -> torch.Tensor:
+    """Centered separable 'same' correlation with zero padding, the
+    fixed-up variant of the reference's shifted kernels: axial taps summed
+    k = 0..A-1, then lateral taps k = 0..L-1."""
+    a, l = len(ax), len(lat)
+    pa, pl = a // 2, l // 2
+    rows, cols = rf.shape
+    padded = torch.nn.functional.pad(rf, (0, 0, pa, a - 1 - pa))
+    axial = sum(padded[k : k + rows, :] * ax[k] for k in range(a))
+    padded2 = torch.nn.functional.pad(axial, (pl, l - 1 - pl))
+    return sum(padded2[:, k : k + cols] * lat[k] for k in range(l))
 
 
 def _convolve_reference(rf: torch.Tensor, ax, lat) -> torch.Tensor:
@@ -103,9 +136,29 @@ def envelope(rf: torch.Tensor) -> torch.Tensor:
     return torch.where(has_next, lerped, x)
 
 
+def envelope_hilbert(rf: torch.Tensor) -> torch.Tensor:
+    """Exact envelope (``cfg.envelope_mode == "hilbert"``): |analytic
+    signal| along the row (time) axis by FFT — positive frequencies doubled,
+    DC (and Nyquist for an even row count) kept, negative ones zeroed."""
+    rows = rf.shape[0]
+    h = np.zeros((rows,), np.float32)
+    h[0] = 1.0
+    if rows % 2 == 0:
+        h[rows // 2] = 1.0
+        h[1 : rows // 2] = 2.0
+    else:
+        h[1 : (rows + 1) // 2] = 2.0
+    filt = torch.from_numpy(h).to(rf.device).reshape((rows,) + (1,) * (rf.dim() - 1))
+    # cuFFT along dim 0 may hand back another layout: the kernels downstream take row-major
+    return torch.abs(torch.fft.ifft(torch.fft.fft(rf, dim=0) * filt, dim=0)).contiguous()
+
+
 def apply_envelope(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    if cfg.envelope_mode == "hilbert":
+        return envelope_hilbert(rf)
     if cfg.envelope_mode != "reference":
-        raise NotImplementedError("the hilbert envelope is not ported yet")
+        raise ValueError(f"SimConfig.envelope_mode={cfg.envelope_mode!r}; expected 'reference' "
+                         "or 'hilbert'")
     return envelope(rf)
 
 

@@ -10,7 +10,10 @@ Tolerances are those of chip_smoke.py: the closest hits (K1, and the
 cluster kernels K5 listed, K6 culled, K7 staged, K10 grouped) bitwise in t and winning
 index (FMA contraction is off in the kernels, and plain PyTorch on CUDA
 rounds every op), the march at rtol 1e-4 / atol 1e-5 in each of its four
-texture modes, the postproc at 1e-5 / 1e-6 and the scan conversion at
+texture modes and bitwise in every bitsum field mode (Box–Muller: 1e-4 /
+1e-5 with gate flips counted), the postproc at 1e-5 / 1e-6 (bitwise on
+images of 993 to 2,000 rows), the modes run in plain torch on the card at
+1e-4 / 1e-5 against the CPU, and the scan conversion at
 1e-6 / 1e-6; the march backward (K8) per SoA field within 1e-4 of the field's
 largest plain entry, the scan-conversion backward (K9) at 1e-5 / 1e-6, and a
 whole fit step's loss and material gradient against the CPU plain path.
@@ -238,8 +241,23 @@ def test_postproc_kernel_matches_plain_on_made_up_images(cuda):
         assert postproc.last_blocks == -(-rf.shape[1] // 4), name
         np.testing.assert_allclose(got.cpu(), postproc.postproc_plain(rf, cfg).cpu(),
                                    rtol=1e-5, atol=1e-6, err_msg=name)
-    with pytest.raises(ValueError):
-        postproc.postproc_forward(torch.zeros((postproc.MAX_ROWS + 1, 8), device=cuda), cfg)
+
+
+@pytest.mark.parametrize("rows", [993, 1200, 2000])
+def test_postproc_kernel_takes_tall_images(cuda, rows):
+    """K3 past 992 rows (its taller-run instance) and, at 2,000 rows, past a block's
+    shared memory (its buffers in device memory): bitwise the plain version,
+    on noise with plateaus and a long stretch without a peak."""
+    cfg = SimConfig()
+    g = torch.Generator().manual_seed(rows)
+    rf = torch.randn((rows, 96), generator=g)
+    rf[:, 7] = torch.linspace(1.0, -1.0, rows)
+    rf[900:1100, 9] = 0.5
+    rf = rf.to(cuda)
+    before = postproc.launches
+    got = postproc.postproc_forward(rf, cfg)
+    assert postproc.launches == before + 1
+    assert torch.equal(got, postproc.postproc_plain(rf, cfg))
 
 
 MODES = {
@@ -272,6 +290,70 @@ def test_march_kernels_match_plain_in_every_mode(cuda, mode):
     for f in range(march.N_FIELDS):
         err = float((got[:, f] - want[:, f]).abs().max())
         assert err <= 1e-4 * float(want[:, f].abs().max()), (f, err)
+
+
+FIELD_MODES = [dict(scatter_rng=rng_mode, trilinear_texture=tri, soft_scattering=soft,
+                    volume_size=size)
+               for rng_mode in ("bitsum", "boxmuller") for tri in (False, True)
+               for soft in (False, True) for size in (256, 48)] + [dict(texture_mode="table")]
+
+
+@pytest.mark.parametrize("overrides", FIELD_MODES, ids=lambda o: "-".join(map(str, o.values())))
+def test_march_kernels_in_every_field_mode(cuda, overrides):
+    """K2 and K8 against their plain versions on the card in every mode of
+    the scatterer field: K2 bitwise with bitsum normals; with Box–Muller
+    (the card's logf/cosf/sinf on both sides) rtol 1e-4 / atol 1e-5, cells
+    outside it counted as gate flips, at most 0.1% of the image; K8 per
+    field within 1e-4 of the field's largest plain entry, outside the
+    columns of a flipped cell."""
+    cfg = small_test_config(**overrides)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda)
+    soa, seeds = sim.render_frame(1)["soa"], sim.seeds
+    g = torch.randn((cfg.rf_rows, cfg.rf_cols), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6))
+    got = march.march_forward(soa, seeds, cfg, cfg.rf_cols)
+    want = march.march_plain(soa, seeds, cfg, cfg.rf_cols)
+    keep = torch.ones(cfg.rf_cols, dtype=torch.bool, device=cuda)
+    if cfg.scatter_rng == "bitsum":
+        assert torch.equal(got, want)
+    else:
+        off = ~torch.isclose(got, want, rtol=1e-4, atol=1e-5)
+        assert int(off.sum()) <= 1e-3 * off.numel()
+        keep = ~off.any(dim=0)
+    got_g = march.march_backward(soa, seeds, g, cfg)[:, :, : cfg.rf_cols]
+    want_g = march.march_bwd_plain(soa, seeds, g, cfg)[:, :, : cfg.rf_cols]
+    assert float(want_g.abs().max()) > 0
+    for f in range(march.N_FIELDS):
+        err = float((got_g[:, f] - want_g[:, f])[:, keep].abs().max())
+        assert err <= 1e-4 * float(want_g[:, f].abs().max()), (f, err)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"centered_psf": True}, {"envelope_mode": "hilbert"}, {"soft_row_binning": True},
+    {"texture_mode": "table"}, {"texture_mode": "table", "soft_row_binning": True},
+], ids=["centered-psf", "hilbert", "soft-row-binning", "table", "table-soft-row-binning"])
+def test_modes_on_the_card_match_the_cpu(cuda, overrides):
+    """The modes the reference runs outside its kernels render on the card
+    (plain torch there, on the CUDA tensors) as on the CPU, same draws;
+    the march kernel is skipped under soft row binning, K3 under the
+    centered PSF and the Hilbert envelope."""
+    cfg = small_test_config(**overrides)
+    pack = load_and_compile(SPHERE_SCENE)
+    cpu = Simulator(pack, cfg, device="cpu", seed=5)
+    gpu = Simulator(pack, cfg, device=cuda, seed=5)
+    draws = cpu.draws(5)
+    before = (march.launches, postproc.launches)
+    on_gpu = gpu.render_frame(draws={k: v.to(cuda) for k, v in draws.items()})
+    on_cpu = cpu.render_frame(draws=draws)
+    assert march.launches - before[0] == int(not cfg.soft_row_binning)
+    assert postproc.launches - before[1] == int(postproc.kernel_modes(cfg))
+    # the scatter march sums a pixel's echoes in another order on the card
+    # (index_put_ sorts by index there; the same order every run): atol 1e-4
+    atol = 1e-4 if cfg.soft_row_binning else 1e-5
+    for key in ("rf_raw", "bmode"):
+        np.testing.assert_allclose(on_gpu[key].cpu(), on_cpu[key], rtol=1e-4, atol=atol)
+    again = gpu.render_frame(draws={k: v.to(cuda) for k, v in draws.items()})
+    assert torch.equal(again["rf_raw"], on_gpu["rf_raw"])  # deterministic on the card
 
 
 def test_scan_convert_backward_kernel_matches_plain(cuda):
@@ -325,6 +407,7 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         scanconv.scan_convert_cuda(rf, on_cpu)  # maps left on the CPU
     soa = torch.zeros((4, march.N_FIELDS, 128), device=cuda)
-    with pytest.raises(NotImplementedError):
-        march.march_cuda(soa, torch.zeros(2, dtype=torch.int64),
-                         SimConfig(scatter_rng="boxmuller"), 128)
+    with pytest.raises(TypeError):
+        march.march_cuda(soa.double(), torch.zeros(2, dtype=torch.int64), cfg, 128)
+    with pytest.raises(ValueError):
+        march.march_cuda(soa, torch.zeros(2, dtype=torch.int64), cfg, 256)  # wider than the SoA

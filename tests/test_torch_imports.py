@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``mcray_tpu_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or anything of ``mcray_tpu``, and the
-copies it keeps of the reference's JAX-free modules agree with them."""
+``chip_smoke.py`` and ``fit_step_timing.py``) imports ``jax`` or anything of
+``mcray_tpu``, and the copies it keeps of the reference's JAX-free modules
+agree with them."""
 
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from mcray_tpu_torch import config as port_config
 from mcray_tpu_torch.scene import compile as port_compile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "mcray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = [ROOT / "fit_step_timing.py", ROOT / "chip_smoke.py"]  # run on the card, not imported
+PORT_FILES = sorted((ROOT / "mcray_tpu_torch").rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "mcray_tpu")
 DERIVED = ("axial_resolution_mm", "axial_resolution_um", "max_travel_time_us", "rf_rows",
            "rf_cols", "rf_row_dt_us", "march_dt_us", "max_march_steps",
@@ -46,7 +48,7 @@ def test_file_imports_no_jax_and_no_reference(path):
 def test_every_module_imports_with_jax_and_reference_blocked(tmp_path):
     """In a fresh interpreter whose import system raises on ``jax`` and
     ``mcray_tpu``, every module of the port imports."""
-    modules = [".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PORT_FILES[:-1]]
+    modules = [".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PORT_FILES[:-len(SCRIPTS)]]
     modules = [m.removesuffix(".__init__") for m in modules]
     code = (
         "import importlib, importlib.abc, sys\n"

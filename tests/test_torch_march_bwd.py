@@ -160,12 +160,25 @@ def test_segment_walk_matches_the_forward_row_match(frame):
     assert n_matched > 1000
 
 
-def test_cuda_modes_that_are_not_ported_raise():
-    _, cfg = both_configs(scatter_rng="boxmuller")
-    with pytest.raises(NotImplementedError, match="boxmuller"):
-        march._check_kernel_modes(cfg)
-    _, cfg = both_configs(volume_size=48)
-    with pytest.raises(NotImplementedError, match="power of two"):
-        march._check_kernel_modes(cfg)
-    _, cfg = both_configs(soft_scattering=True, trilinear_texture=True)
-    march._check_kernel_modes(cfg)  # the fit's modes are ported
+@pytest.mark.parametrize("overrides", [
+    {"scatter_rng": "boxmuller"},
+    {"volume_size": 48},
+    {"soft_scattering": True, "trilinear_texture": True},
+    {"texture_mode": "table"},
+    {"scatter_rng": "boxmuller", "volume_size": 48, "trilinear_texture": True,
+     "soft_scattering": True},
+], ids=["boxmuller", "volume-48", "fit-modes", "table", "all-at-once"])
+def test_kernel_modes_pass_the_argument_checks(frame, monkeypatch, overrides):
+    """Every mode of the reference's kernel is a mode of K2 and K8: the
+    wrappers' checks take it (here with the device check stubbed, as there
+    is no card) and pass its flags to the C entries."""
+    soa, seeds, _ = frame
+    _, cfg = both_configs(**overrides)
+    monkeypatch.setattr(march._build, "require", lambda *args, **kw: None)
+    sd, c_pad, seed0, seed1 = march._kernel_args(soa, seeds, cfg, cfg.rf_cols)
+    assert (sd, c_pad) == (soa.shape[0], soa.shape[2])
+    assert [seed0, seed1] == [int(v) & 0xFFFFFFFF for v in seeds.tolist()]
+    _, size, _, trilinear, soft, boxmuller, _ = march._texture_args(cfg)
+    assert (size, trilinear, soft, boxmuller) == (
+        cfg.volume_size, int(cfg.trilinear_texture), int(cfg.soft_scattering),
+        int(cfg.scatter_rng == "boxmuller"))

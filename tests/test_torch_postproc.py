@@ -15,10 +15,13 @@ first row. The sparse case is therefore held against the jnp form, the
 dense cases against both, and a hand-built plateau column pins the rule.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_port import both_configs, to_np, to_torch
 from mcray_tpu.ops import imaging as ref_imaging
@@ -80,8 +83,11 @@ def test_plateau_peak_follows_jnp_envelope():
 
 
 def test_unported_modes_raise():
+    """The Hilbert envelope and the centered PSF are ported (values in
+    ``tests/test_torch_imaging_modes.py``); an envelope mode that neither
+    package has raises."""
     rf = to_torch(np.zeros((40, 20), np.float32))
-    with pytest.raises(NotImplementedError):
-        imaging.apply_envelope(rf, both_configs(envelope_mode="hilbert")[1])
-    with pytest.raises(NotImplementedError):
-        imaging.convolve_psf(rf, both_configs(centered_psf=True)[1])
+    assert torch.equal(imaging.apply_envelope(rf, both_configs(envelope_mode="hilbert")[1]), rf)
+    assert torch.equal(imaging.convolve_psf(rf, both_configs(centered_psf=True)[1]), rf)
+    with pytest.raises(ValueError, match="envelope_mode"):
+        imaging.apply_envelope(rf, dataclasses.replace(both_configs()[1], envelope_mode="walk"))

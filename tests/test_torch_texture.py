@@ -69,5 +69,7 @@ def test_make_texture_volume_seeds():
     assert torch.equal(a, b)
     assert ((a >= 0) & (a < 2**31 - 1)).all()
     assert not torch.equal(a, texture.make_texture_volume(prng_key(8), cfg)["seeds"])
-    with pytest.raises(NotImplementedError):
-        texture.make_texture_volume(prng_key(0), both_configs(texture_mode="table")[1])
+    # "table" mode keeps the same seeds beside the tables filled from them
+    table = texture.make_texture_volume(prng_key(7), both_configs(texture_mode="table")[1])
+    assert torch.equal(table["seeds"], a)
+    assert table["noise"].shape == table["prob"].shape == (cfg.volume_size,) * 3
