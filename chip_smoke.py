@@ -873,45 +873,6 @@ def check_tall_images(cfg) -> dict:
     return out
 
 
-def design_sweep(soa, seeds, cfg, fit_soa, fit_seeds, fit_cfg, g) -> None:
-    """[design] lines: K2's launch shapes (columns per block x rows per
-    lane) and K8's lanes per (segment, column), device ms by graph replay
-    on the sphere frame and the fit's set-up; each shape's output against
-    the default shape's (K2 bitwise, K8 within MARCH_BWD_TOL per field)."""
-    shape = (march.FWD_WARPS, march.FWD_ROWS_PER_LANE, march.BWD_LANES)
-    k2_frame = march.march_forward(soa, seeds, cfg, cfg.rf_cols)
-    k2_fit = march.march_forward(fit_soa, fit_seeds, fit_cfg, cfg.rf_cols)
-    k8_fit = march.march_backward(fit_soa, fit_seeds, g, fit_cfg)
-    try:
-        for warps in (4, 8, 16):
-            for rows_per_lane in (1, 2):
-                march.FWD_WARPS, march.FWD_ROWS_PER_LANE = warps, rows_per_lane
-                same = (torch.equal(march.march_forward(soa, seeds, cfg, cfg.rf_cols), k2_frame)
-                        and torch.equal(march.march_forward(fit_soa, fit_seeds, fit_cfg,
-                                                            cfg.rf_cols), k2_fit))
-                t = graph_ms(lambda: march.march_forward(soa, seeds, cfg, cfg.rf_cols), 1)
-                t_fit = graph_ms(lambda: march.march_forward(fit_soa, fit_seeds, fit_cfg,
-                                                             cfg.rf_cols), 1)
-                print(f"  [design] march {warps} columns x {rows_per_lane} rows per lane "
-                      f"({march.last_blocks} blocks): frame {t:.4f} ms, fit mode {t_fit:.4f} ms "
-                      f"device; equal to the default shape {same}")
-                if not same:
-                    raise AssertionError("a K2 launch shape changes the image")
-        march.FWD_WARPS, march.FWD_ROWS_PER_LANE = shape[:2]
-        for lanes in (8, 16, 32):
-            march.BWD_LANES = lanes
-            got = march.march_backward(fit_soa, fit_seeds, g, fit_cfg)
-            worst = max(float((got[:, f] - k8_fit[:, f]).abs().max())
-                        / max(float(k8_fit[:, f].abs().max()), 1e-30) for f in range(march.N_FIELDS))
-            t = graph_ms(lambda: march.march_backward(fit_soa, fit_seeds, g, fit_cfg), 1)
-            print(f"  [design] march_bwd {lanes} lanes per (segment, column) "
-                  f"({march.last_blocks_bwd} blocks): fit mode {t:.4f} ms device; worst field "
-                  f"err / max vs the default shape {worst:.3e}")
-            if worst > MARCH_BWD_TOL:
-                raise AssertionError("a K8 launch shape moves the gradient")
-    finally:
-        march.FWD_WARPS, march.FWD_ROWS_PER_LANE, march.BWD_LANES = shape
-
 
 def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -1235,7 +1196,6 @@ def main() -> int:
         f"{k} {v:.4f}" for k, v in k2_device_ms.items()) + "; march_bwd " + ", ".join(
         f"{k} {v:.4f}" for k, v in k8_device_ms.items())
           + f"; blocks march {k2_blocks}, march_bwd {k8_blocks}")
-    design_sweep(soa, sim.seeds, cfg, fit_soa, fit_sim.seeds, fit_cfg, g_rf)
     # the grid of one sphere launch of each, as the launch reported it
     intersect_listed.listed_best(*cluster_calls["sphere"][0][2])
     postproc.postproc_forward(rf_raw, cfg)

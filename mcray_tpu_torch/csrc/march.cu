@@ -16,9 +16,10 @@
 // covers ~47 of 465 rows, so matching every (pixel, segment) pair, as this
 // kernel did before, spent ~90% of its work on pairs with no step. The
 // design does in the kernel what _touch_tables does in jnp:
-//   - A warp owns one column and 32 x ROWS_PER_LANE consecutive rows (a
-//     lane per row), so the segments it visits are the same for every lane
-//     and their fields are read once per warp (one address for all lanes).
+//   - A warp owns one column and 32 x ROWS_PER_LANE consecutive rows (lane
+//     j rows j and j + 32), so the segments it visits are the same for every
+//     lane and their fields are read once per warp (one address for all
+//     lanes).
 //   - The warp builds its list itself: 32 segments at a time, lane j tests
 //     segment base + j with the conservative span of _touch_tables,
 //     floor(t0/rdt) - 1 .. floor((t0 + steps*dt)/rdt) + 1 (valid segments
@@ -28,6 +29,10 @@
 //     second launch.
 //   - A block is WARPS neighbouring columns; the rows of the block's tile
 //     go out through shared memory, WARPS consecutive floats per row.
+// Chosen on an H100 from a sweep of columns per block {4, 8, 16} x rows per
+// lane {1, 2}: 4 x 2 (1,024 blocks of 128 threads on the sphere frame) was
+// the fastest on the frame and in the fit's soft + trilinear mode; 16
+// columns per block was up to 60% slower.
 // Bitwise what the kernel gave before the lists, and what march_plain gives:
 // the span holds every row a matched step can land in (k >= 0 and k <
 // steps, rounding is monotone, so t0 <= t_k <= t0 + steps*dt and the
@@ -45,23 +50,23 @@ namespace {
 using namespace march;
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_WARPS = 16;          // columns per block at most
-constexpr int MAX_ROWS_PER_LANE = 2;   // rows per lane at most
+constexpr int WARPS = 4;              // columns per block, a warp each
+constexpr int ROWS_PER_LANE = 2;      // a warp's rows: 32 x ROWS_PER_LANE
 
 template <bool TRILINEAR, bool SOFT, bool BOXMULLER, bool POW2>
-__global__ void march_kernel(const float* __restrict__ soa, int sd, int c_pad, int n_cols,
-                             int rf_rows, Texture tx, float rdt, float dt, float inv_a,
-                             float t_window, float axres, int rows_per_lane,
-                             float* __restrict__ out) {
-  __shared__ float tile[32 * MAX_ROWS_PER_LANE][MAX_WARPS + 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  const int c0 = blockIdx.x * warps, c = c0 + warp;
-  const int rows_per_warp = 32 * rows_per_lane;
+__global__ void __launch_bounds__(32 * WARPS)
+march_kernel(const float* __restrict__ soa, int sd, int c_pad, int n_cols, int rf_rows, Texture tx,
+             float rdt, float dt, float inv_a, float t_window, float axres,
+             float* __restrict__ out) {
+  __shared__ float tile[32 * ROWS_PER_LANE][WARPS + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * WARPS, c = c0 + warp;
+  constexpr int rows_per_warp = 32 * ROWS_PER_LANE;
   const int r_lo = blockIdx.y * rows_per_warp;
   const float lo_f = (float)r_lo, hi_f = (float)(min(r_lo + rows_per_warp, rf_rows) - 1);
-  float acc[MAX_ROWS_PER_LANE];
+  float acc[ROWS_PER_LANE];
 #pragma unroll
-  for (int q = 0; q < MAX_ROWS_PER_LANE; ++q) acc[q] = 0.0f;
+  for (int q = 0; q < ROWS_PER_LANE; ++q) acc[q] = 0.0f;
 
   if (c < n_cols) {  // the same for the whole warp
     const float* col = soa + c;
@@ -83,9 +88,9 @@ __global__ void march_kernel(const float* __restrict__ soa, int sd, int c_pad, i
         const bool valid = f[F_VALID * c_pad] > 0.5f;
         const float b_row = f[F_B_ROW * c_pad];
 #pragma unroll
-        for (int q = 0; q < MAX_ROWS_PER_LANE; ++q) {
+        for (int q = 0; q < ROWS_PER_LANE; ++q) {
           const int r = r_lo + lane + 32 * q;
-          if (q >= rows_per_lane || r >= rf_rows) continue;
+          if (r >= rf_rows) continue;
           const float rows_f = (float)r;
           const float k_guess = floorf((rows_f - t0 / rdt) * inv_a);
           float k_sel = 0.0f;
@@ -115,11 +120,10 @@ __global__ void march_kernel(const float* __restrict__ soa, int sd, int c_pad, i
   }
 
 #pragma unroll
-  for (int q = 0; q < MAX_ROWS_PER_LANE; ++q)
-    if (q < rows_per_lane) tile[lane + 32 * q][warp] = acc[q];
+  for (int q = 0; q < ROWS_PER_LANE; ++q) tile[lane + 32 * q][warp] = acc[q];
   __syncthreads();
-  for (int k = threadIdx.x; k < rows_per_warp * warps; k += blockDim.x) {
-    const int rr = k / warps, cc = k - rr * warps;
+  for (int k = threadIdx.x; k < rows_per_warp * WARPS; k += 32 * WARPS) {
+    const int rr = k / WARPS, cc = k - rr * WARPS;
     const int r = r_lo + rr;
     if (r < rf_rows && c0 + cc < n_cols) out[(size_t)r * n_cols + c0 + cc] = tile[rr][cc];
   }
@@ -127,27 +131,23 @@ __global__ void march_kernel(const float* __restrict__ soa, int sd, int c_pad, i
 
 }  // namespace
 
-// soa (sd, 16, c_pad); out (rf_rows, n_cols). warps (columns per block) in
-// [1, MAX_WARPS], rows_per_lane in [1, MAX_ROWS_PER_LANE]. `blocks` (host
-// memory) receives the grid that was launched.
+// soa (sd, 16, c_pad); out (rf_rows, n_cols). `blocks` (host memory)
+// receives the grid that was launched.
 extern "C" int mcray_march(const float* soa, int sd, int c_pad, int n_cols, int rf_rows,
                            uint32_t seed0, uint32_t seed1, float rdt, float dt, float inv_a,
                            float t_window, float axres, float res, int size,
                            float bitsum_scale, int trilinear, int soft, int boxmuller, float tau,
-                           int warps, int rows_per_lane, float* out, int* blocks,
-                           cudaStream_t stream) {
+                           float* out, int* blocks, cudaStream_t stream) {
   *blocks = 0;
   if (n_cols <= 0 || rf_rows <= 0) return (int)cudaGetLastError();
-  if (warps < 1 || warps > MAX_WARPS || rows_per_lane < 1 || rows_per_lane > MAX_ROWS_PER_LANE ||
-      size < 1)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_cols + warps - 1) / warps,
-                  (rf_rows + 32 * rows_per_lane - 1) / (32 * rows_per_lane));
+  if (size < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_cols + WARPS - 1) / WARPS,
+                  (rf_rows + 32 * ROWS_PER_LANE - 1) / (32 * ROWS_PER_LANE));
   const Texture tx = {seed0, seed1, res, size, bitsum_scale, tau};
   const bool pow2 = (size & (size - 1)) == 0;
 #define LAUNCH(TRI, SOFT, BM, POW2)                                                          \
-  march_kernel<TRI, SOFT, BM, POW2><<<grid, 32 * warps, 0, stream>>>(                        \
-      soa, sd, c_pad, n_cols, rf_rows, tx, rdt, dt, inv_a, t_window, axres, rows_per_lane, out)
+  march_kernel<TRI, SOFT, BM, POW2><<<grid, 32 * WARPS, 0, stream>>>(                        \
+      soa, sd, c_pad, n_cols, rf_rows, tx, rdt, dt, inv_a, t_window, axres, out)
   MARCH_DISPATCH_MODES(trilinear, soft, boxmuller, pow2, LAUNCH);
 #undef LAUNCH
   *blocks = (int)(grid.x * grid.y);

@@ -21,8 +21,8 @@
 // hashes, the normals and the partials), and before this design latency:
 // one thread per (segment, column) walked up to window/dt steps alone, 800
 // warps on 132 SMs, and the longest segment of a warp set its time. Now a
-// group of LANES threads shares one (segment, column): lane j walks k = j,
-// j + LANES, ..., so a segment's steps spread over the group, and a
+// group of LANES threads (a warp) shares one (segment, column): lane j walks
+// k = j, j + LANES, ..., so a segment's steps spread over the group, and a
 // block holds THREADS / LANES neighbouring columns of one segment index
 // (the same sample and bounce, so similar step counts). The group's twelve
 // sums are reduced in one fixed order — each lane's own in ascending k,
@@ -32,6 +32,9 @@
 // as consecutive floats. One writer per output element, no atomics, no
 // second pass. The per-field sums run in another order than before and
 // than march_bwd_plain's row reduction: a tolerance, not bitwise.
+// Chosen on an H100 from 8, 16 and 32 lanes per (segment, column): 32, a
+// warp per segment and column (3,200 blocks of 256 threads at full width),
+// was the fastest (8 lanes 1.5x, 16 lanes 1.1x its time).
 
 #include "march_common.cuh"
 
@@ -41,19 +44,18 @@ using namespace march;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;           // per block
-constexpr int MIN_LANES = 8;           // lanes per (segment, column) at least
-constexpr int MAX_COLS = THREADS / MIN_LANES;
+constexpr int LANES = 32;              // per (segment, column); a power of two, <= 32
+constexpr int COLS = THREADS / LANES;  // columns per block
 
 template <bool TRILINEAR, bool SOFT, bool BOXMULLER, bool POW2>
 __global__ void __launch_bounds__(THREADS)
 march_bwd_kernel(const float* __restrict__ soa, const float* __restrict__ g, int sd, int c_pad,
                  int n_cols, int rf_rows, Texture tx, float rdt, float dt, float t_window,
-                 float axres, int lanes, float* __restrict__ gout) {
-  __shared__ float sums[N_FIELDS][MAX_COLS];
-  const int cols = THREADS / lanes;
-  const int group = threadIdx.x / lanes, sub = threadIdx.x % lanes;
+                 float axres, float* __restrict__ gout) {
+  __shared__ float sums[N_FIELDS][COLS];
+  const int group = threadIdx.x / LANES, sub = threadIdx.x % LANES;
   const int i = blockIdx.y;
-  const int c0 = blockIdx.x * cols, c = c0 + group;
+  const int c0 = blockIdx.x * COLS, c = c0 + group;
   const float* f = soa + (size_t)i * N_FIELDS * c_pad + c;
 
   float acc[N_FIELDS];
@@ -67,7 +69,7 @@ march_bwd_kernel(const float* __restrict__ soa, const float* __restrict__ g, int
     const float dx = f[F_DIR_X * c_pad], dy = f[F_DIR_Y * c_pad], dz = f[F_DIR_Z * c_pad];
     const float lnatt = f[F_LN_ATT * c_pad], i0 = f[F_I0 * c_pad];
     const float mu0 = f[F_MU0 * c_pad], mu1 = f[F_MU1 * c_pad], sigma = f[F_SIGMA * c_pad];
-    for (float k = (float)sub; k < steps; k += (float)lanes) {
+    for (float k = (float)sub; k < steps; k += (float)LANES) {
       const float t_k = t0 + k * dt;
       if (!(t_k < t_window)) break;  // t_k grows with k: no later step is inside
       const float row_f = floorf(t_k / rdt);
@@ -92,8 +94,9 @@ march_bwd_kernel(const float* __restrict__ soa, const float* __restrict__ g, int
       acc[F_DIR_Z] += gpz * scale;
     }
   }
-  // the group's sums (lanes is a power of two and divides 32: xor stays in the group)
-  for (int off = lanes >> 1; off > 0; off >>= 1) {
+  // the group's sums (LANES is a power of two and divides 32: xor stays in the group)
+#pragma unroll
+  for (int off = LANES >> 1; off > 0; off >>= 1) {
 #pragma unroll
     for (int q = 0; q < N_FIELDS; ++q) acc[q] += __shfl_xor_sync(FULL, acc[q], off);
   }
@@ -110,33 +113,30 @@ march_bwd_kernel(const float* __restrict__ soa, const float* __restrict__ g, int
   }
   __syncthreads();
   float* go = gout + (size_t)i * N_FIELDS * c_pad + c0;
-  for (int k = threadIdx.x; k < N_FIELDS * cols; k += THREADS) {
-    const int q = k / cols, cc = k - q * cols;
+  for (int k = threadIdx.x; k < N_FIELDS * COLS; k += THREADS) {
+    const int q = k / COLS, cc = k - q * COLS;
     go[(size_t)q * c_pad + cc] = sums[q][cc];
   }
 }
 
 }  // namespace
 
-// soa, gout (sd, 16, c_pad), c_pad a multiple of THREADS / MIN_LANES; g
-// (rf_rows, n_cols). lanes per (segment, column): a power of two in
-// [MIN_LANES, 32]. `blocks` (host memory) receives the grid launched.
+// soa, gout (sd, 16, c_pad), c_pad a multiple of COLS; g (rf_rows,
+// n_cols). `blocks` (host memory) receives the grid launched.
 extern "C" int mcray_march_bwd(const float* soa, const float* g, int sd, int c_pad, int n_cols,
                                int rf_rows, uint32_t seed0, uint32_t seed1, float rdt, float dt,
                                float t_window, float axres, float res, int size,
                                float bitsum_scale, int trilinear, int soft, int boxmuller,
-                               float tau, int lanes, float* gout, int* blocks,
-                               cudaStream_t stream) {
+                               float tau, float* gout, int* blocks, cudaStream_t stream) {
   *blocks = 0;
   if (sd <= 0 || c_pad <= 0) return (int)cudaGetLastError();
-  if (lanes < MIN_LANES || lanes > 32 || (lanes & (lanes - 1)) || c_pad % MAX_COLS || size < 1)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(c_pad / (THREADS / lanes), sd);
+  if (c_pad % COLS || size < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid(c_pad / COLS, sd);
   const Texture tx = {seed0, seed1, res, size, bitsum_scale, tau};
   const bool pow2 = (size & (size - 1)) == 0;
 #define LAUNCH(TRI, SOFT, BM, POW2)                                                            \
   march_bwd_kernel<TRI, SOFT, BM, POW2><<<grid, THREADS, 0, stream>>>(                         \
-      soa, g, sd, c_pad, n_cols, rf_rows, tx, rdt, dt, t_window, axres, lanes, gout)
+      soa, g, sd, c_pad, n_cols, rf_rows, tx, rdt, dt, t_window, axres, gout)
   MARCH_DISPATCH_MODES(trilinear, soft, boxmuller, pow2, LAUNCH);
 #undef LAUNCH
   *blocks = (int)(grid.x * grid.y);

@@ -42,10 +42,10 @@
 // expression. Where the strip's buffers do not fit a block's shared memory
 // (~1,600 rows at 13 lateral taps), a third instance (SLAB) keeps them in a
 // slab of device memory per block that the wrapper allocates: slower, the
-// same result. (A first version looped over 992-row chunks with the scans
-// inside the loop; on the H100 every launch of it faulted with an illegal
-// address, also at one chunk, unless built with -G — so each instance has
-// one envelope path and no loop around its shuffles.)
+// same result. Each instance has one envelope path and no loop around its
+// shuffles: a version that looped over 992-row chunks with the scans inside
+// the loop faulted with an illegal address on the H100 at every launch, one
+// chunk too, unless built with -G.
 
 #include <climits>
 

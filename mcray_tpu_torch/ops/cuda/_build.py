@@ -46,8 +46,8 @@ SIGNATURES = {
     "mcray_intersect_grouped": [P, I, P, P, I, I, P, I, P, P, P],
     "mcray_intersect_culled": [P, I, I, P, I, I, P, P, P],
     "mcray_intersect_staged": [P, I, I, P, I, I, P, P, I, P, P, P],
-    "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, I, F, I, I, P, P, P],
-    "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, I, F, I, P, P, P],
+    "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
+    "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
     "mcray_postproc": [P, I, I, P, I, P, I, I, P, P, P, P],
     "mcray_postproc_slab_floats": [I, I, I, I],
     "mcray_scan_convert": [P, I, I, P, I, I, I, P, P],

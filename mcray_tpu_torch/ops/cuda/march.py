@@ -11,8 +11,8 @@ scatterer field at that step, adds ``I0 * exp(ln_att * k) * scat``, and
 adds the segment's boundary echo if it lands in row r. No scatter, no
 atomics: one fixed accumulation order (ascending segment) per pixel.
 
-On the card K2 gives each warp one column and 32 consecutive rows; the
-warp lists, 32 segments at a time with a ballot, the segments whose
+On the card K2 gives each warp one column and 64 consecutive rows (two per
+lane); the warp lists, 32 segments at a time with a ballot, the segments whose
 conservative row span (the reference's ``_touch_tables``) or boundary-echo
 row meets its rows, and visits only those, in ascending order. A skipped
 segment would have added exactly +0.0, so the image is bitwise what
@@ -23,8 +23,8 @@ K8 replaces ``mcray_tpu/ops/pallas/march.py:_march_bwd_kernel``: the
 gradient of every SoA field from the RF cotangent, by rematerialisation
 (nothing is saved but the SoA). The reference accumulates per (column tile,
 row tile) into a revisited output block; on the card the loop is
-segment-stationary instead: a group of lanes per (segment, column) walks
-the segment's own march steps (lane j takes k = j, j + lanes, ...), bins
+segment-stationary instead: a warp per (segment, column) walks the
+segment's own march steps (lane j takes k = j, j + 32, ...), bins
 each into its row with the forward's formula and guards, and the group's
 twelve non-zero field sums are reduced by shuffles in one fixed order —
 one writer per output element, no atomics. ``march_bwd_plain`` holds the
@@ -69,9 +69,6 @@ launches_bwd = 0
 #: the grids of the latest K2 and K8 launches, as the C entries reported them
 last_blocks = 0
 last_blocks_bwd = 0
-#: launch shapes: K2 columns per block (a warp each) and rows per lane; K8
-#: lanes per (segment, column)
-FWD_WARPS, FWD_ROWS_PER_LANE, BWD_LANES = 8, 1, 16
 
 
 def pack_segments(segments, materials, cfg: SimConfig, n_cols: int) -> torch.Tensor:
@@ -273,8 +270,7 @@ def march_forward(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols
         soa.data_ptr(), sd, c_pad, n_cols, cfg.rf_rows, seed0, seed1,
         f32(cfg.rf_row_dt_us), f32(cfg.march_dt_us), f32(cfg.rf_row_dt_us / cfg.march_dt_us),
         f32(float(cfg.max_travel_time_us)), f32(cfg.axial_resolution_mm),
-        *_texture_args(cfg), FWD_WARPS, FWD_ROWS_PER_LANE, out.data_ptr(),
-        ctypes.byref(blocks), _build.stream_of(soa),
+        *_texture_args(cfg), out.data_ptr(), ctypes.byref(blocks), _build.stream_of(soa),
     )
     _build.check(code, "mcray_march")
     launches += 1
@@ -298,7 +294,7 @@ def march_backward(soa: torch.Tensor, seeds: torch.Tensor, g: torch.Tensor,
     code = _build.library().mcray_march_bwd(
         soa.data_ptr(), g.data_ptr(), sd, c_pad, n_cols, cfg.rf_rows, seed0, seed1,
         f32(cfg.rf_row_dt_us), f32(cfg.march_dt_us), f32(float(cfg.max_travel_time_us)),
-        f32(cfg.axial_resolution_mm), *_texture_args(cfg), BWD_LANES, gout.data_ptr(),
+        f32(cfg.axial_resolution_mm), *_texture_args(cfg), gout.data_ptr(),
         ctypes.byref(blocks), _build.stream_of(soa),
     )
     _build.check(code, "mcray_march_bwd")
