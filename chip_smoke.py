@@ -760,10 +760,12 @@ FIELD_MODES = [dict(scatter_rng=rng_mode, trilinear_texture=tri, soft_scattering
 # torch.log/sqrt/cos/sin on the card; a cell outside (rtol, atol) is a gate
 # flip (hard gate, prob within rounding of mu1), at most FLIP_SHARE of them
 BOXMULLER_RTOL, BOXMULLER_ATOL, FLIP_SHARE = 1e-4, 1e-5, 1e-3
-# the modes the reference runs outside its kernels, on the card against the CPU
+# the modes the reference runs outside its kernels and the field modes K2/K8
+# gained, each a frame on the card against the CPU
 PLAIN_MODES = {"centered psf": {"centered_psf": True}, "hilbert": {"envelope_mode": "hilbert"},
                "soft row binning": {"soft_row_binning": True}, "table": {"texture_mode": "table"},
-               "table + soft row binning": {"texture_mode": "table", "soft_row_binning": True}}
+               "table + soft row binning": {"texture_mode": "table", "soft_row_binning": True},
+               "box-muller": {"scatter_rng": "boxmuller"}, "volume 48": {"volume_size": 48}}
 # the scatter march (soft row binning) sums a pixel's echoes in index_put_'s
 # order: in turn on the CPU, sorted by index on the card (the same on every
 # run there, not atomics); where echoes of both signs cancel, a cell near 0
@@ -821,10 +823,10 @@ def march_modes_phase(pack) -> dict:
 
 
 def plain_modes_phase(pack) -> None:
-    """The modes the reference runs outside its kernels, each a frame on the
-    card (plain torch on CUDA tensors where it leaves the kernel) against
-    the CPU path, same draws, at the small config; the counts set to 0
-    just before each frame and read just after."""
+    """The modes the reference runs outside its kernels (plain torch on CUDA
+    tensors where it leaves the kernel) and the field modes of K2 and K8,
+    each a frame on the card against the CPU path, same draws, at the small
+    config; the counts set to 0 just before each frame and read just after."""
     print("[plain modes] small config, card against CPU")
     for name, overrides in PLAIN_MODES.items():
         cfg = small_test_config(**overrides)

@@ -331,12 +331,14 @@ def test_march_kernels_in_every_field_mode(cuda, overrides):
 @pytest.mark.parametrize("overrides", [
     {"centered_psf": True}, {"envelope_mode": "hilbert"}, {"soft_row_binning": True},
     {"texture_mode": "table"}, {"texture_mode": "table", "soft_row_binning": True},
-], ids=["centered-psf", "hilbert", "soft-row-binning", "table", "table-soft-row-binning"])
+    {"scatter_rng": "boxmuller"}, {"volume_size": 48},
+], ids=["centered-psf", "hilbert", "soft-row-binning", "table", "table-soft-row-binning",
+        "boxmuller", "volume-48"])
 def test_modes_on_the_card_match_the_cpu(cuda, overrides):
     """The modes the reference runs outside its kernels render on the card
-    (plain torch there, on the CUDA tensors) as on the CPU, same draws;
-    the march kernel is skipped under soft row binning, K3 under the
-    centered PSF and the Hilbert envelope."""
+    (plain torch there, on the CUDA tensors) as on the CPU, same draws, and
+    so do K2's field modes; the march kernel is skipped under soft row
+    binning, K3 under the centered PSF and the Hilbert envelope."""
     cfg = small_test_config(**overrides)
     pack = load_and_compile(SPHERE_SCENE)
     cpu = Simulator(pack, cfg, device="cpu", seed=5)
