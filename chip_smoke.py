@@ -28,7 +28,10 @@ Every kernel is held against its plain PyTorch version at the shapes its
 path gave it (closest hits bitwise in t and slot, at every bounce; the
 cluster paths' hit and t also against K1's bitwise), K5 also at other
 packet sizes and in two passes on the mega
-frame's first and a late bounce and on both 200,000-triangle sets, K3 also
+frame's first and a late bounce, on both 200,000-triangle sets and at
+every bounce of the sphere and ircad_hd frames, K6 and K7 at packets of
+100, 128, 512 and 2,048 rays at every bounce of both frames (against the
+plain version at the kernel's group and at the whole packet), K3 also
 on made-up images (zeros, plateaus, no peak, no convolution) and bitwise
 on a 1,200- and a 2,000-row image, the CUDA path against the plain CPU path
 on a small config (the frame, and the loss and material gradient of one
@@ -46,11 +49,14 @@ Frames, fit steps, stages and kernels (beside their plain versions and,
 where one PyTorch call computes the same function, beside that call) are
 timed with CUDA events; each kernel's bound (the least time the card could
 take: bytes over 3.35 TB/s or operations over 67 TFLOP/s of plain f32,
-whichever is larger) is computed from the run's own inputs. K5, K3, K2
-and K8, which run in microseconds, are also timed replayed from a CUDA
-graph (the kernels back to back, without the host's time to launch each),
-K5 on each of its ray sets, K2 and K8 in their default and Box–Muller
-modes, beside the time of one launch of the library's cheapest call.
+whichever is larger) is computed from the run's own inputs. K5, K6, K7,
+K3, K2, K8, K4 and K9, which run in microseconds, are also timed replayed
+from a CUDA graph (the kernels back to back, without the host's time to
+launch each), K5 on each of its ray sets, K6 and K7 on the sphere and
+ircad_hd frames, K2 and K8 in their default and Box–Muller modes, K4 and K9
+beside their library calls, and beside the time of one launch of the
+library's cheapest call. The ircad_hd frames (listed, culled, staged) are
+profiled as the sphere's and the mega scene's are.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
@@ -93,8 +99,15 @@ IRCAD_HD_SCENE = os.path.join(REPO, "assets", "ircad11_hd", "santi-liver-hd.scen
 IRCAD_HD_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_hd")
 MEGA_SCENE = os.path.join(REPO, "assets", "ircad11_mega", "santi-liver-mega.scene")
 MEGA_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_mega")
-TIMED_FRAMES = {"sphere": 10, "sphere brute": 5, "ircad_hd": 5, "mega listed": 5,
-                "mega grouped": 5}
+TIMED_FRAMES = {"sphere": 10, "sphere brute": 5, "ircad_hd": 5, "ircad_hd culled": 5,
+                "ircad_hd staged": 5, "mega listed": 5, "mega grouped": 5}
+PROFILED_FRAMES = ("sphere", "ircad_hd", "ircad_hd culled", "ircad_hd staged", "mega listed",
+                   "mega grouped")
+# packet sizes K6 and K7 are also checked at, beyond the frame's 512 (any
+# divisor of the padded ray count runs; 100 is no multiple of 32, 2,048 more
+# rays than a block has threads), and K5 at the two its other checks leave out
+CLUSTER_TILE_RS = (100, 128, 512, 2048)
+LISTED_TILE_RS = (100, 2048)
 MEGA_LATE_BOUNCE = 5          # the bounce timed beside bounce 0 (coherent fan) on the mega frame
 ISOTROPIC_TRIS, ISOTROPIC_RAYS = 200_000, 2560
 # the two mega frames (one seed, two closest-hit modes) against each other
@@ -102,7 +115,6 @@ MEGA_FRAME_RTOL, MEGA_FRAME_ATOL = 1e-3, 1e-4
 # the normal draw goes through each device's erfinv
 NORMAL_RTOL, NORMAL_ATOL = 1e-5, 1e-6
 FIT_STEPS = 5
-GRAPH_TIMED = ("intersect_listed", "postproc")  # a few microseconds a launch: also timed from a graph
 TOLERANCES = {  # (rtol, atol) of kernel vs plain at the frame's shapes
     "march": (1e-4, 1e-5),
     "postproc": (1e-5, 1e-6),
@@ -151,6 +163,10 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "scanconv_bwd": ("mcray_tpu_torch/csrc/scanconv_bwd.cu",
                      "mcray_tpu/ops/pallas/scanconv.py:482"),
 }
+# the TPU kernels K4 and K9 replace beside the one in SOURCES (one gather
+# each for the banded and the full remap, and for their backward passes)
+ALSO_REPLACES = {"scanconv": "mcray_tpu/ops/pallas/scanconv.py:162",
+                 "scanconv_bwd": "mcray_tpu/ops/pallas/scanconv.py:199"}
 CLUSTER_KERNEL = {"listed": "intersect_listed", "culled": "intersect_culled",
                   "staged": "intersect_staged", "grouped": "intersect_grouped"}
 
@@ -267,30 +283,65 @@ def cluster_call(mode: str, o, s, packed, tile_r: int):
     return getattr(mod, f"{mode}_best"), getattr(mod, f"{mode}_best_plain"), (padded, packed, tile_r)
 
 
-def check_listed_shapes(label: str, o, s, packed, tri_soa) -> None:
-    """K5 on one ray set at other shapes than its frame launches it with:
-    128- and 512-ray packets, each against the plain version at the kernel's
-    group size and at the whole packet (t and slot bitwise), and the closest
-    hit in one pass and in two (the second launch seeded with the first's
-    running best) against K1 (hit and t bitwise)."""
-    bt, _ = intersect.intersect_best(torch.cat([o, s], dim=1).T.contiguous(), tri_soa)
-    vs_plain = vs_brute = 0
-    for tile_r in (128, 512):
-        args = listed_args(o, s, packed, tile_r)
-        t_k, i_k = intersect_listed.listed_best(*args)
-        for group in (intersect_listed.GROUP, None):
-            t_p, i_p = intersect_listed.listed_best_plain(*args, group=group)
-            vs_plain += int((t_k != t_p).sum() + (i_k != i_p).sum())
-        for passes in (1, 2):
-            got = intersect_listed.intersect_closest_listed(o, s, packed, tile_r=tile_r,
-                                                            passes=passes)
-            vs_brute += int((got["hit"] != (bt < 1.5)).sum() + (got["t"] != bt).sum())
-    print(f"  intersect_listed ({label}; tile_r 128 and 512; plain at group "
+def check_listed_shapes(label: str, ray_sets, packed, tri_soa, tile_rs=(128, 512)) -> None:
+    """K5 on ray sets [(origins, segments), ...] at other shapes than its
+    frame launches it with: packets of each of ``tile_rs`` rays, each
+    against the plain version at the kernel's group size and at the whole
+    packet (t and slot bitwise), and the closest hit in one pass and in two
+    (the second launch seeded with the first's running best) against K1
+    (hit and t bitwise)."""
+    vs_plain = vs_brute = n_hit = 0
+    for o, s in ray_sets:
+        bt, _ = intersect.intersect_best(torch.cat([o, s], dim=1).T.contiguous(), tri_soa)
+        n_hit += int((bt < 1.5).sum())
+        for tile_r in tile_rs:
+            args = listed_args(o, s, packed, tile_r)
+            t_k, i_k = intersect_listed.listed_best(*args)
+            for group in (intersect_listed.GROUP, None):
+                t_p, i_p = intersect_listed.listed_best_plain(*args, group=group)
+                vs_plain += int((t_k != t_p).sum() + (i_k != i_p).sum())
+            for passes in (1, 2):
+                got = intersect_listed.intersect_closest_listed(o, s, packed, tile_r=tile_r,
+                                                                passes=passes)
+                vs_brute += int((got["hit"] != (bt < 1.5)).sum() + (got["t"] != bt).sum())
+    print(f"  intersect_listed ({label}; tile_r {', '.join(map(str, tile_rs))}; plain at group "
           f"{intersect_listed.GROUP} and at the whole packet; passes 1 and 2): {vs_plain} "
           f"differing (t, slot) vs plain, {vs_brute} differing (hit, t) vs K1 brute; "
-          f"{int((bt < 1.5).sum())} of {o.shape[0]} rays hit")
+          f"{n_hit} of {sum(o.shape[0] for o, _ in ray_sets)} rays hit")
     if vs_plain or vs_brute:
         raise AssertionError(f"{label}: intersect_listed disagrees")
+
+
+def bounce_sets(rays: torch.Tensor) -> list:
+    """A frame's (depth, 6, n) bounce rays as [(origins, segments), ...]."""
+    return [(rays[d][0:3].T.contiguous(), rays[d][3:6].T.contiguous())
+            for d in range(rays.shape[0])]
+
+
+def check_cluster_shapes(name: str, sim, rays: torch.Tensor, tri_soa) -> None:
+    """K6 or K7 (the path's kernel) at packets of CLUSTER_TILE_RS rays, at
+    every bounce of the frame: t and slot bitwise against the plain version
+    at the kernel's group and at the whole packet, and the whole closest
+    hit's hit and t against K1's (bitwise)."""
+    packed, mode = sim.culled_tris
+    mod = intersect_culled if mode == "culled" else intersect_staged
+    kernel, plain = getattr(mod, f"{mode}_best"), getattr(mod, f"{mode}_best_plain")
+    vs_plain = vs_brute = 0
+    for d, (o, s) in enumerate(bounce_sets(rays)):
+        bt, _ = intersect.intersect_best(rays[d].contiguous(), tri_soa)
+        for tile_r in CLUSTER_TILE_RS:
+            padded = clusters.pad_rays(o, s, tile_r)[2]
+            t_k, i_k = kernel(padded, packed, tile_r)
+            for group in (mod.GROUP, None):
+                t_p, i_p = plain(padded, packed, tile_r, group=group)
+                vs_plain += int((t_k != t_p).sum() + (i_k != i_p).sum())
+            got = simulator.cluster_intersect(mode, tile_r)(o, s, packed)
+            vs_brute += int((got["hit"] != (bt < 1.5)).sum() + (got["t"] != bt).sum())
+    print(f"  {CLUSTER_KERNEL[mode]} ({name}; tile_r {', '.join(map(str, CLUSTER_TILE_RS))}; plain "
+          f"at group {mod.GROUP} and at the whole packet; {rays.shape[0]} bounces): {vs_plain} "
+          f"differing (t, slot) vs plain, {vs_brute} differing (hit, t) vs K1 brute")
+    if vs_plain or vs_brute:
+        raise AssertionError(f"{name}: {CLUSTER_KERNEL[mode]} disagrees at another packet size")
 
 
 def graph_ms(fn, launches: int, copies: int = 10, reps: int = 10) -> float:
@@ -708,7 +759,7 @@ def isotropic_phase(smi: str) -> tuple[dict, dict]:
         if differing or counts["intersect_grouped"] != 1 or counts["intersect_listed"] != 1 \
                 or not int(got["hit"].sum()) > 100:
             raise AssertionError(f"isotropic phase, {name} rays: grouped, listed and K1 disagree")
-        check_listed_shapes(f"stress 200k {name}", o, s, packed, tri_soa)
+        check_listed_shapes(f"stress 200k {name}", [(o, s)], packed, tri_soa)
         result[name] = time_grouped_query(f"{name} rays", o, s, packed, tile_r)
         ray_sets[name] = listed_args(o, s, packed, tile_r)
         result[name]["k1_ms"] = cuda_ms(lambda: intersect.intersect_best(
@@ -994,11 +1045,17 @@ def main() -> int:
         cluster_calls[name] = check_cluster_bounces(
             name, sims[name], outs[name]["segments"]["rays"], tri_soa[scene])
         errs[CLUSTER_KERNEL[sims[name].culled_tris[1]]] = 0.0
-    mega_listed_rays = outs["mega listed"]["segments"]["rays"]
+    mega_sets = bounce_sets(outs["mega listed"]["segments"]["rays"])
     for d in (0, MEGA_LATE_BOUNCE):
-        check_listed_shapes(f"mega bounce {d}", mega_listed_rays[d][0:3].T.contiguous(),
-                            mega_listed_rays[d][3:6].T.contiguous(),
-                            sims["mega listed"].culled_tris[0], tri_soa["mega"])
+        check_listed_shapes(f"mega bounce {d}", [mega_sets[d]], sims["mega listed"].culled_tris[0],
+                            tri_soa["mega"])
+    # other packet sizes, at every bounce of the sphere and ircad_hd frames
+    for scene in ("sphere", "ircad_hd"):
+        check_listed_shapes(f"{scene}, every bounce", bounce_sets(outs[scene]["segments"]["rays"]),
+                            sims[scene].culled_tris[0], tri_soa[scene], LISTED_TILE_RS)
+        for mode in ("culled", "staged"):
+            name = f"{scene} {mode}"
+            check_cluster_shapes(name, sims[name], outs[name]["segments"]["rays"], tri_soa[scene])
     out, maps = outs["sphere"], sim.scan_maps
     soa, rf_raw, rf_env = out["soa"], out["rf_raw"], out["rf_env"]
     errs["march"] = check_close("march", march.march_cuda(soa, sim.seeds, cfg, cfg.rf_cols),
@@ -1083,14 +1140,16 @@ def main() -> int:
         time_stages(name, sims[name], outs[name])
     views = {name: device_view(f"{name} frame", lambda sim=sims[name]: sim.render_frame(seed=7),
                                frame_ms[name])
-             for name in ("sphere", "mega listed", "mega grouped")}
+             for name in PROFILED_FRAMES}
     for name, view in views.items():
-        ours = {k: sum(v for n, v in view["by_name"].items() if k in n)
-                for k in ("intersect_grouped_kernel", "intersect_listed_kernel")}
-        print(f"  {name} frame, per frame on the device: K10 {ours['intersect_grouped_kernel']:.3f} "
-              f"ms, K5 {ours['intersect_listed_kernel']:.3f} ms of {view['busy_ms']:.3f} ms busy; "
-              f"the frame's draws are {drawn['draws_operations']:.0f} of its "
-              f"{view['operations']:.0f} device operations")
+        mode = sims[name].culled_tris[1]
+        # grouped mode also runs a residual K5 pass
+        names = {CLUSTER_KERNEL[mode], CLUSTER_KERNEL["listed" if mode == "grouped" else mode]}
+        ours = {k: sum(v for n, v in view["by_name"].items() if f"{k}_kernel" in n) for k in names}
+        print(f"  {name} frame, per frame on the device: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(ours.items()))
+              + f" of {view['busy_ms']:.3f} ms busy; the frame's draws are "
+              f"{drawn['draws_operations']:.0f} of its {view['operations']:.0f} device operations")
 
     timed = {"sphere": {}, "ircad_hd": {}}
     for scene in ("sphere", "ircad_hd"):
@@ -1179,6 +1238,22 @@ def main() -> int:
     print("  device ms per launch (graph replay): intersect_listed "
           + ", ".join(f"{name} {v:.4f}" for name, v in k5_device_ms.items())
           + f"; postproc {k3_device_ms:.4f}")
+    # K6 and K7 on their frames' ten bounces, both scenes; the grid of a sphere launch
+    cluster_device_ms = {
+        CLUSTER_KERNEL[mode]: {
+            scene: graph_ms(lambda c=cluster_calls[f"{scene} {mode}"]: [k(*a) for k, _, a in c],
+                            cfg.max_depth)
+            for scene in ("sphere", "ircad_hd")}
+        for mode in ("culled", "staged")}
+    cluster_blocks = {}
+    for mode in ("culled", "staged"):
+        kernel, _, args = cluster_calls[f"sphere {mode}"][0]
+        kernel(*args)
+        cluster_blocks[CLUSTER_KERNEL[mode]] = getattr(kernels, CLUSTER_KERNEL[mode]).last_blocks
+    print("  device ms per launch (graph replay): " + "; ".join(
+        f"{name} " + ", ".join(f"{scene} {v:.4f}" for scene, v in by_scene.items())
+        for name, by_scene in cluster_device_ms.items())
+          + f"; blocks {cluster_blocks}")
     # K2 and K8, default and Box–Muller, replayed from a graph; their grids
     k2_device_ms = {
         "frame": graph_ms(lambda: march.march_forward(soa, sim.seeds, cfg, cfg.rf_cols), 1),
@@ -1204,7 +1279,7 @@ def main() -> int:
     k5_blocks, k3_blocks = intersect_listed.last_blocks, postproc.last_blocks
     print(f"  blocks per launch on the sphere frame: intersect_listed {k5_blocks}, postproc "
           f"{k3_blocks} (132 SMs)")
-    if k5_blocks < 66 or k3_blocks < 64:
+    if min(k5_blocks, *cluster_blocks.values()) < 66 or k3_blocks < 64:
         raise AssertionError("a redesigned kernel launches too few blocks to fill half the card")
     # the floor small kernels are read against: the cheapest call of the library, back to back
     one_ray, one_tri = brute_rays[0][:, :1].contiguous(), tri_soa["sphere"][:, :1].contiguous()
@@ -1227,11 +1302,25 @@ def main() -> int:
     print(f"  library calls: grid_sample {library_ms['scanconv']:.4f} ms (max |diff| to K4 "
           f"{gs_err:.3e}), sparse CSR mv {library_ms['scanconv_bwd']:.4f} ms (max |diff| to K9 "
           f"{mv_err:.3e}); no single PyTorch call computes K1-K3, K5-K8, K10")
+    # K4 and K9 beside their library calls without the host's time per launch
+    scan_device_ms = {
+        "scanconv": (graph_ms(lambda: scanconv.scan_convert_forward(rf_env, maps), 1),
+                     graph_ms(lambda: grid_sample(rf_env), 1)),
+        "scanconv_bwd": (graph_ms(lambda: scanconv.scan_convert_backward(g_bm, maps), 1),
+                         graph_ms(lambda: torch.mv(transposed, g_bm.reshape(-1)), 1))}
+    print("  device ms per launch (graph replay), kernel / library: " + "; ".join(
+        f"{name} {k:.4f} / {lib:.4f}" for name, (k, lib) in scan_device_ms.items()))
 
     # the least time the card could take for each kernel's work on this run's inputs
     n_rf, n_bm = cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols
     steps_frame, steps_fit = matched_steps(soa, cfg, cfg.rf_cols), matched_steps(
         fit_soa, fit_cfg, cfg.rf_cols)
+    ircad_rays = outs["ircad_hd"]["segments"]["rays"]
+    ircad_bounds = {
+        "intersect": brute_bound([ircad_rays[d].contiguous() for d in range(cfg.max_depth)],
+                                 tri_soa["ircad_hd"]),
+        **{CLUSTER_KERNEL[sims[name].culled_tris[1]]: cluster_bound(sims[name], cluster_calls[name])
+           for name in ("ircad_hd", "ircad_hd culled", "ircad_hd staged")}}
     bounds = {
         "intersect": brute_bound([brute_rays[d].contiguous() for d in range(cfg.max_depth)],
                                  tri_soa["sphere"]),
@@ -1272,9 +1361,17 @@ def main() -> int:
                  "fit_step_launches": fit_launches}
         if name in ms["ircad_hd"]:
             entry["ircad_hd_ms"], entry["ircad_hd_plain_ms"] = ms["ircad_hd"][name]
-        if name in GRAPH_TIMED:
+        if name in ircad_bounds:
+            entry["ircad_hd_bound_ms"], entry["ircad_hd_bound_by"] = ircad_bounds[name]
+        if name in ("intersect_listed", "postproc"):
             entry["empty_launch_ms"] = empty_launch_ms
             entry["device_ms"] = k5_device_ms if name == "intersect_listed" else k3_device_ms
+        if name in cluster_device_ms:  # by scene
+            entry.update({"device_ms": cluster_device_ms[name], "blocks": cluster_blocks[name],
+                          "tile_rs_checked": list(CLUSTER_TILE_RS)})
+        if name in scan_device_ms:
+            entry["device_ms"], entry["library_device_ms"] = scan_device_ms[name]
+            entry["also_replaces"] = ALSO_REPLACES[name]
         if name == "intersect_listed":  # where K5 is the device's largest item, K10's rays
             entry.update({"blocks": k5_blocks, "mega_ms": k5_mega_ms,
                           "mega_late_bounce_ms": mega_queries[MEGA_LATE_BOUNCE]["k5_ms"],

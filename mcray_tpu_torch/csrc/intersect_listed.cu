@@ -50,62 +50,18 @@
 // the large scenes); 2 or 1 rays per block gained up to 40% on incoherent
 // rays and lost 10-40% on the sphere and on a coherent fan. Staging 128 list
 // entries at a time instead of 32 was slower on coherent rays (boxes staged
-// past the stop).
-
-#include <climits>
-#include <cstdint>
+// past the stop). The launch shape (GROUP, PARTS), the tile ring and the
+// lanes' merge are intersect_common.cuh's, shared with K6 and K7.
 
 #include "intersect_common.cuh"
 
 namespace {
 
+using mcray::GROUP;
+using mcray::PARTS;
 using mcray::Ray;
 
-constexpr int GROUP = 4;   // rays per block: a divisor of every packet size (a multiple of 32)
-constexpr int PARTS = 32;  // threads per ray: a warp
 constexpr int CHUNK = 32;  // list entries staged at a time: one bit each in the candidate mask
-
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbarrier_init(uint64_t* bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_addr(bar)), "r"(arrivals)
-               : "memory");
-}
-
-// Wait until the barrier has completed the phase of this parity.
-__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(shared_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One thread: copy `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from device memory into shared memory; the barrier's phase completes when
-// they have arrived. The fence orders the block's earlier reads of `dst`
-// before the copy's writes.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(shared_addr(dst)),
-      "l"(src), "r"(bytes), "r"(shared_addr(bar))
-      : "memory");
-}
 
 __global__ void __launch_bounds__(GROUP * PARTS)
 intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
@@ -135,16 +91,11 @@ intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
   if (__syncthreads_or(bt > 0.f) && n > 0) {
     const int* id_row = ids + (size_t)p * n_c;
     const float* key_row = keys + (size_t)p * n_c;
-    const uint32_t tile_bytes = 9u * (uint32_t)tile_t * sizeof(float);
-    if (threadIdx.x == 0) {
-      s_mask[0] = s_mask[1] = 0u;
-      mbarrier_init(&s_full[0], 1);
-      mbarrier_init(&s_full[1], 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
+    mcray::TileRing ring{s_tiles, s_full, tiles, tile_t, 0};
+    ring.init();
+    if (threadIdx.x == 0) s_mask[0] = s_mask[1] = 0u;
     float bt_old = bt;    // the running t before the last cluster tested
     int last = -2;        // list index of the last cluster tested
-    unsigned copies = 0;  // tile copies retired so far: copy q uses stage q & 1
     bool ahead = false;   // the next candidate's copy is already on its way
     bool go = true;
     for (int base = 0, chunk = 0; go && base < n; base += CHUNK, ++chunk) {
@@ -176,44 +127,20 @@ intersect_listed_kernel(const float* __restrict__ rays, int n_tot, int tile_r,
         const int e_next = __ffs(cand) - 1;  // the chunk's next candidate, or -1
         const int at = base + e;
         const int c = s_id[e];
-        float* tile = s_tiles + (copies & 1u) * 9 * (size_t)tile_t;
-        if (!ahead && threadIdx.x == 0)
-          bulk_copy(tile, tiles + (size_t)c * 16 * tile_t, tile_bytes, &s_full[copies & 1u]);
+        if (!ahead) ring.request(ring.copies, c);
         // reached: the stop rule, on the t before the cluster just tested
         // where that was this entry's predecessor (one cluster stale)
         go = __syncthreads_or(at == 0 || s_key[e] < (at == last + 1 ? bt_old : bt));
         const bool active =
             go && __syncthreads_or(mcray::slab_active(s_box[e], 1, r, ix, iy, iz, bt));
-        ahead = false;
-        if (go && e_next >= 0) {  // the next candidate's tile, into the other stage
-          ahead = true;
-          if (threadIdx.x == 0)
-            bulk_copy(s_tiles + ((copies + 1u) & 1u) * 9 * (size_t)tile_t,
-                      tiles + (size_t)s_id[e_next] * 16 * tile_t, tile_bytes,
-                      &s_full[(copies + 1u) & 1u]);
-        }
-        mbarrier_wait(&s_full[copies & 1u], (copies >> 1) & 1u);  // every copy is retired
-        ++copies;
+        ahead = go && e_next >= 0;
+        if (ahead) ring.request(ring.copies + 1, s_id[e_next]);  // into the other stage
+        const float* tile = ring.wait();  // every copy is waited for
         if (!go) break;
         if (active) {
-          float ct = bt;
-          int ci = INT_MAX;
-          mcray::closest_strided(tile, tile_t, part, PARTS, c * tile_t, r, ct, ci);
-          // merge the PARTS lanes of a ray (they share a warp; every lane shuffles)
-          for (int off = 1; off < PARTS; off <<= 1) {
-            const float ot = __shfl_xor_sync(0xffffffffu, ct, off);
-            const int oi = __shfl_xor_sync(0xffffffffu, ci, off);
-            if (ot < ct || (ot == ct && oi < ci)) {
-              ct = ot;
-              ci = oi;
-            }
-          }
           bt_old = bt;
           last = at;
-          if (ct < bt) {
-            bt = ct;
-            bi = ci;
-          }
+          mcray::warp_tile_update(tile, tile_t, part, c * tile_t, r, bt, bi);
         }
       }
     }

@@ -399,6 +399,23 @@ def ray_winners(ray_ids, inc_t, inc_slot, n_tot: int):
 # The per-cluster steps of the kernels, in plain torch
 # ---------------------------------------------------------------------------
 
+def ray_groups(rays, size: int):
+    """Rays (6, n) cut into groups of ``size`` consecutive rays, the last
+    padded with zero rays, as the culled and staged kernels take them:
+    origins and segments (G, size, 3), inverse directions, which rays can hit
+    anything (a zero segment cannot: padding and parked dead paths), and the
+    running best (t NO_HIT_T, slot 0), each (G, size)."""
+    n_pad = (-rays.shape[1]) % size
+    if n_pad:
+        rays = torch.cat([rays, rays.new_zeros((6, n_pad))], dim=1)
+    g = rays.shape[1] // size
+    o = rays[0:3].T.reshape(g, size, 3)
+    s = rays[3:6].T.reshape(g, size, 3)
+    t = torch.full((g, size), NO_HIT_T, device=rays.device)
+    idx = torch.zeros((g, size), dtype=torch.int32, device=rays.device)
+    return o, s, inverse_dirs(s), (s != 0).any(dim=2), t, idx
+
+
 def box_active(o, inv, box, t):
     """(P, R): each ray's slab test against its packet's box (P, >=6) [min
     xyz, max xyz], as the kernels test it: entry before ``min(t, 1)``."""

@@ -44,8 +44,8 @@ SIGNATURES = {
     "mcray_intersect_closest": [P, I, P, I, P, P, P],
     "mcray_intersect_listed": [P, I, I, P, P, P, I, P, P, P, P, I, P, P, P, P],
     "mcray_intersect_grouped": [P, I, P, P, I, I, P, I, P, P, P],
-    "mcray_intersect_culled": [P, I, I, P, I, I, P, P, P],
-    "mcray_intersect_staged": [P, I, I, P, I, I, P, P, I, P, P, P],
+    "mcray_intersect_culled": [P, I, P, P, I, I, P, P, P, P],
+    "mcray_intersect_staged": [P, I, P, I, I, P, P, I, P, P, P, P],
     "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
     "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
     "mcray_postproc": [P, I, I, P, I, P, I, I, P, P, P, P],
@@ -147,3 +147,23 @@ def require(t, name: str, dtype, shape: tuple | None = None) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+#: shared memory a block may take without opting in (cudaFuncSetAttribute)
+SHARED_BYTES = 48 * 1024
+
+
+def require_tiles(packed) -> None:
+    """Raise unless the cluster kernels (K5, K6, K7) can take ``packed``'s
+    tiles: they copy rows 0-8 of a tile into a two-stage ring in shared
+    memory in 16-byte units, so ``hbm_tris`` and ``aabb_cluster`` must be
+    16-byte aligned, ``tile_t`` a multiple of 4, and two stages of 9 x
+    ``tile_t`` floats must fit in ``SHARED_BYTES``."""
+    tiles, boxes, tile_t = packed.hbm_tris, packed.aabb_cluster, packed.tile_t
+    if tiles.data_ptr() % 16 or boxes.data_ptr() % 16 or tile_t % 4:
+        raise ValueError("hbm_tris and aabb_cluster must be 16-byte aligned and tile_t a "
+                         "multiple of 4 (the kernels copy rows 0-8 of a tile in 16-byte units)")
+    if 2 * 9 * tile_t * 4 > SHARED_BYTES:
+        raise ValueError(f"tile_t {tile_t}: two tiles of 9 x tile_t floats must fit in "
+                         f"{SHARED_BYTES} bytes of shared memory (tile_t <= "
+                         f"{SHARED_BYTES // 72})")

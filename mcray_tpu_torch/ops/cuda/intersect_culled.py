@@ -2,67 +2,90 @@
 
 Replaces ``mcray_tpu/ops/pallas/intersect.py:_intersect_culled_kernel``
 (wrapper ``intersect_closest_culled``): every packet of rays visits every
-cluster tile of the permuted SoA in order and skips a tile when no ray of
-the packet passes its AABB against its own running t. The winner tail
+cluster tile of the permuted SoA in slot order and skips a tile when no ray
+of the packet passes its AABB against its own running t. The winner tail
 (``clusters.winner_hits``) recomputes t from the winning slot.
 
-The plain version visits the tiles for all packets at once, one tile per
+On the card the kernel is bound by latency, as K5 is, and has K5's shape: a
+block takes ``GROUP`` rays with a warp each, not a packet, so the packet
+size no longer shapes the launch and any ``tile_r`` that divides the padded
+ray count runs. The group skips a tile when none of its rays reaches the
+box; such a tile could at best tie for any of them, which a strict ``<``
+never takes, so the winning t and slot do not depend on the group. Boxes
+are tested 32 at a time into a candidate mask (from ``aabb_cluster``, the
+same floats as the SoA's rows 9-14), and the next candidate's tile comes by
+bulk asynchronous copy from the cluster-major ``hbm_tris`` while the
+current one is tested (the source's header note has the details).
+
+The plain version visits the tiles for all groups at once, one tile per
 step, with the kernel's skip rule and strict ``<``; t and slot equal the
-kernel's bitwise.
+kernel's bitwise at the kernel's group, and at the whole packet.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import clusters
-from ..geometry import NO_HIT_T
 from . import _build
 
 #: kernel launches since the last reset (one per call on CUDA tensors)
 launches = 0
+#: the grid of the latest launch, as the C entry reported it
+last_blocks = 0
 
 TILE_R = 128
+#: rays per block of the kernel (``GROUP`` of ``csrc/intersect_common.cuh``)
+GROUP = 4
 
 
-def culled_best_plain(rays, packed: clusters.CulledTris, tile_r: int):
-    """Plain version: rays (6, n_tot) -> (best_t (n_tot,) f32, best_slot (n_tot,) i32)."""
-    p = rays.shape[1] // tile_r
-    o = rays[0:3].T.reshape(p, tile_r, 3)
-    s = rays[3:6].T.reshape(p, tile_r, 3)
-    inv = clusters.inverse_dirs(s)
-    t = torch.full((p, tile_r), NO_HIT_T, device=rays.device)
-    idx = torch.zeros((p, tile_r), dtype=torch.int32, device=rays.device)
+def culled_best_plain(rays, packed: clusters.CulledTris, tile_r: int, group: int | None = None):
+    """Plain version: rays (6, n_tot) -> (best_t (n_tot,) f32, best_slot (n_tot,) i32).
+
+    ``group`` consecutive rays (``None``: the ``tile_r``-ray packet, as the
+    reference) skip a tile together, as a block of the kernel does; rays
+    with a zero segment take no part in the skip."""
+    o, s, inv, live, t, idx = clusters.ray_groups(rays, tile_r if group is None else group)
     tt = packed.tile_t
     for base in range(0, packed.n_slots, tt):
-        tiles = packed.soa[:, base : base + tt].expand(p, -1, -1)
-        take = clusters.box_active(o, inv, tiles[:, 9:15, 0], t).any(dim=1)
+        tiles = packed.soa[:, base : base + tt].expand(o.shape[0], -1, -1)
+        take = (clusters.box_active(o, inv, tiles[:, 9:15, 0], t) & live).any(dim=1)
         if bool(take.any()):
             t, idx = clusters.tile_update(o, s, t, idx, tiles,
-                                          torch.full((p,), base, dtype=torch.int32,
+                                          torch.full((o.shape[0],), base, dtype=torch.int32,
                                                      device=rays.device), take)
-    return t.reshape(-1), idx.reshape(-1)
+    n_tot = rays.shape[1]
+    return t.reshape(-1)[:n_tot], idx.reshape(-1)[:n_tot]
 
 
 def culled_best(rays, packed: clusters.CulledTris, tile_r: int):
     """(best_t, best_slot) of every ray: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    global launches
+    global launches, last_blocks
     if rays.device.type == "cpu" and packed.device.type == "cpu":
         return culled_best_plain(rays, packed, tile_r)
     n_tot = rays.shape[1]
-    if n_tot % tile_r or not 32 <= tile_r <= 1024 or tile_r % 32:
-        raise ValueError(f"tile_r {tile_r} must be a multiple of 32 in [32, 1024] dividing {n_tot}")
+    if tile_r < 1 or n_tot % tile_r:
+        raise ValueError(f"tile_r {tile_r} must be a positive divisor of the padded ray count "
+                         f"{n_tot}")
+    n_c, tt = packed.n_clusters, packed.tile_t
     _build.require(rays, "rays", torch.float32, (6, n_tot))
-    _build.require(packed.soa, "soa", torch.float32, (clusters.SOA_ROWS, packed.n_slots))
+    _build.require(packed.hbm_tris, "hbm_tris", torch.float32, (n_c, clusters.SOA_ROWS, tt))
+    _build.require(packed.aabb_cluster, "aabb_cluster", torch.float32, (n_c, 8))
+    _build.require_tiles(packed)
     best_t = torch.empty(n_tot, dtype=torch.float32, device=rays.device)
     best_slot = torch.empty(n_tot, dtype=torch.int32, device=rays.device)
+    blocks = ctypes.c_int(0)
     code = _build.library().mcray_intersect_culled(
-        rays.data_ptr(), n_tot, tile_r, packed.soa.data_ptr(), packed.n_slots, packed.tile_t,
-        best_t.data_ptr(), best_slot.data_ptr(), _build.stream_of(rays),
+        rays.data_ptr(), n_tot, packed.hbm_tris.data_ptr(), packed.aabb_cluster.data_ptr(),
+        packed.n_slots // tt, tt, best_t.data_ptr(), best_slot.data_ptr(), ctypes.byref(blocks),
+        _build.stream_of(rays),
     )
     _build.check(code, "mcray_intersect_culled")
     launches += 1
+    last_blocks = blocks.value
     return best_t, best_slot
 
 

@@ -42,8 +42,8 @@ launches = 0
 last_blocks = 0
 
 TILE_R = 128
-#: rays per block of the kernel (the source's GROUP; each ray has a warp):
-#: 640 blocks of 128 threads for a bounce of 2,560 rays
+#: rays per block of the kernel (``GROUP`` of ``csrc/intersect_common.cuh``;
+#: each ray has a warp): 640 blocks of 128 threads for a bounce of 2,560 rays
 GROUP = 4
 
 
@@ -94,8 +94,9 @@ def listed_best(rays, counts, ids, keys, t_init, idx_init, packed: clusters.Cull
         return listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed)
     n_tot, (p, n_c) = rays.shape[1], ids.shape
     tile_r = n_tot // p
-    if p * tile_r != n_tot or not 32 <= tile_r <= 1024 or tile_r % 32:
-        raise ValueError(f"rays per packet {n_tot}/{p} must be a multiple of 32 in [32, 1024]")
+    if p * tile_r != n_tot or tile_r % GROUP:
+        raise ValueError(f"rays per packet {n_tot}/{p} must be a whole multiple of {GROUP}: "
+                         f"a block of the kernel takes {GROUP} rays of one packet")
     _build.require(rays, "rays", torch.float32, (6, n_tot))
     _build.require(counts, "counts", torch.int32, (p,))
     _build.require(ids, "ids", torch.int32, (p, n_c))
@@ -105,9 +106,7 @@ def listed_best(rays, counts, ids, keys, t_init, idx_init, packed: clusters.Cull
     tiles, boxes = packed.hbm_tris, packed.aabb_cluster
     _build.require(tiles, "hbm_tris", torch.float32, (n_c, clusters.SOA_ROWS, packed.tile_t))
     _build.require(boxes, "aabb_cluster", torch.float32, (n_c, 8))
-    if packed.tile_t % 4 or tiles.data_ptr() % 16 or boxes.data_ptr() % 16:
-        raise ValueError("hbm_tris and aabb_cluster must be 16-byte aligned and tile_t a "
-                         "multiple of 4 (the kernel copies rows 0-8 of a tile in 16-byte units)")
+    _build.require_tiles(packed)
     best_t = torch.empty(n_tot, dtype=torch.float32, device=rays.device)
     best_slot = torch.empty(n_tot, dtype=torch.int32, device=rays.device)
     blocks = ctypes.c_int(0)

@@ -79,9 +79,14 @@ def _listed_start(s):
     return t0, torch.zeros_like(t0, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("mode,tile_r", [("listed", 512), ("listed", 128), ("culled", 512),
-                                         ("staged", 512)])
+@pytest.mark.parametrize("mode,tile_r", [("listed", 512), ("listed", 128), ("listed", 100),
+                                         ("listed", 2048)]
+                         + [(m, r) for m in ("culled", "staged") for r in (100, 128, 512, 2048)])
 def test_cluster_kernels_match_plain(cuda, mode, tile_r):
+    """Each cluster kernel at packets of ``tile_r`` rays (100 is no multiple
+    of 32, 2,048 more rays than a block has threads): t and slot bitwise
+    against its plain version at the kernel's group and at the whole packet,
+    and the closest hit's hit and t against K1."""
     pack, cases = _cluster_cases(cuda)
     tile_t = 128 if mode == "listed" else 256
     packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
@@ -105,7 +110,10 @@ def test_cluster_kernels_match_plain(cuda, mode, tile_r):
             best, plain = ((mod.culled_best, mod.culled_best_plain) if mode == "culled"
                            else (mod.staged_best, mod.staged_best_plain))
             t_k, i_k = best(padded, packed, tile_r)
+            assert mod.last_blocks == -(-padded.shape[1] // mod.GROUP), name
             t_p, i_p = plain(padded, packed, tile_r)
+            t_g, i_g = plain(padded, packed, tile_r, group=mod.GROUP)
+            assert torch.equal(t_k, t_g) and torch.equal(i_k, i_g), name
         assert mod.launches == before + 1, name
         assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
         # hit and t equal the brute kernel's

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``mcray_tpu_torch`` (nor
-``chip_smoke.py`` and ``fit_step_timing.py``) imports ``jax`` or anything of
+``chip_smoke.py``, ``fit_step_timing.py`` and ``cluster_timing.py``) imports ``jax`` or anything of
 ``mcray_tpu``, and the copies it keeps of the reference's JAX-free modules
 agree with them."""
 
@@ -22,7 +22,8 @@ from mcray_tpu_torch import config as port_config
 from mcray_tpu_torch.scene import compile as port_compile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SCRIPTS = [ROOT / "fit_step_timing.py", ROOT / "chip_smoke.py"]  # run on the card, not imported
+# run on the card, not imported
+SCRIPTS = [ROOT / "fit_step_timing.py", ROOT / "cluster_timing.py", ROOT / "chip_smoke.py"]
 PORT_FILES = sorted((ROOT / "mcray_tpu_torch").rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "mcray_tpu")
 DERIVED = ("axial_resolution_mm", "axial_resolution_um", "max_travel_time_us", "rf_rows",

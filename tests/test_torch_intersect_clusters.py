@@ -12,7 +12,10 @@ first cluster they visit, so only hit and t are compared there.
 
 Inside the port, every cluster path must give the brute plain version's
 hit and t bitwise: skips and early stops drop only clusters that could at
-best tie, and a strict ``<`` never takes a tie. The CUDA kernels
+best tie, and a strict ``<`` never takes a tie. That holds for the group of
+rays a block of the kernels takes as well as for the reference's packet:
+K5's plain version at every group size, K6's and K7's at their kernels'
+group and at packets of 75, 100 and 2,048 rays. The CUDA kernels
 themselves are held against these plain versions on the card
 (chip_smoke.py, tests/test_torch_cuda.py).
 """
@@ -216,3 +219,66 @@ def test_equal_t_in_two_clusters_keeps_the_first_visited(group):
     assert torch.equal(t[live], torch.full_like(t[live], 0.5))
     assert torch.equal(slot[live], torch.full_like(slot[live], want_slot))
     assert float(t[~live].max()) == 0.0
+
+
+# --- K6 and K7: a block of the kernel takes GROUP rays, not the packet ---
+
+@functools.lru_cache(maxsize=None)
+def _bounce_rays():
+    """384 sphere rays (bounces 0-2 of a 64-element frame, the later ones
+    with parked dead paths) as (tris, mesh ids, probe, origins, segments)."""
+    pack = load_and_compile(SPHERE_SCENE)
+    cfg = small_test_config(transducer_elements=64, samples_per_element=2)
+    rays = Simulator(pack, cfg, device="cpu", use_culled_intersect=False).render_frame(4)[
+        "segments"]["rays"]
+    q = to_np(torch.cat([rays[0], rays[1], rays[2]], dim=1)).T
+    return pack.tris, pack.tri_mesh_id, pack.transducer_position, q[:, :3], q[:, 3:]
+
+
+@pytest.mark.parametrize("case", ["sphere", "random"])
+def test_culled_kernel_inputs_equal_the_soa(case):
+    """K6 reads a cluster's box from ``aabb_cluster`` and its triangles from
+    the cluster-major ``hbm_tris``, where the reference reads the SoA: the
+    same floats bit for bit, and the padding clusters' boxes FAR in both
+    arrays."""
+    tris, mid, probe, _, _ = _case(case)
+    _, pack = _packs(tris, mid, probe, "culled")
+    tt, n_real = pack.tile_t, pack.n_slots // pack.tile_t
+    soa_tiles = pack.soa.reshape(clusters.SOA_ROWS, n_real, tt).transpose(0, 1)
+    assert torch.equal(pack.aabb_cluster[:n_real, :6], soa_tiles[:, 9:15, 0])
+    assert torch.equal(pack.hbm_tris[:n_real], soa_tiles)
+    assert torch.equal(pack.hbm_tris[:, 9:15, 0], pack.aabb_cluster[:, :6])
+    assert pack.n_clusters > n_real
+    assert bool((pack.aabb_cluster[n_real:, :6] == clusters.FAR).all())
+
+
+@pytest.mark.parametrize("tile_r", [75, 100, 2048])
+@pytest.mark.parametrize("mode", ["culled", "staged"])
+def test_culled_and_staged_plain_at_the_kernels_group(mode, tile_r):
+    """A block of K6 / K7 takes GROUP consecutive rays and skips a box only
+    when none of them reaches it: t and slot equal the whole packet's
+    bitwise, a ragged last group included (tile_r 75: 450 padded rays); the
+    closest hit equals the port's brute one's (hit and t bitwise) and the
+    reference's Pallas kernel's at that packet size (hit bitwise, t to the
+    reference's FMA rounding as above, the winner where t is unique)."""
+    tris, mid, probe, o, s = _bounce_rays()
+    want_pack, pack = _packs(tris, mid, probe, mode)
+    mod = intersect_culled if mode == "culled" else intersect_staged
+    plain = getattr(mod, f"{mode}_best_plain")
+    _, _, rays = clusters.pad_rays(to_torch(o), to_torch(s), tile_r)
+    t_g, i_g = plain(rays, pack, tile_r, group=mod.GROUP)
+    t_p, i_p = plain(rays, pack, tile_r)
+    assert torch.equal(t_g, t_p) and torch.equal(i_g, i_p)
+    port_fn, ref_fn, _ = MODES[mode]
+    want = {k: np.asarray(v) for k, v in ref_fn(
+        jnp.asarray(o), jnp.asarray(s), want_pack, interpret=True, tile_r=tile_r).items()}
+    got = port_fn(to_torch(o), to_torch(s), pack, tile_r=tile_r)
+    best_t, _ = geometry.closest_hit(to_torch(o), to_torch(s), geometry.triangle_soa(to_torch(tris)))
+    assert torch.equal(got["hit"], best_t < 1.5) and torch.equal(got["t"], best_t)
+    got = {k: to_np(v) for k, v in got.items()}
+    np.testing.assert_array_equal(got["hit"], want["hit"])
+    np.testing.assert_allclose(got["t"], want["t"], rtol=1e-5, atol=1e-7)
+    unique = _unique_winner(tris, o, s, got["t"], got["hit"])
+    assert unique.sum() > 100
+    np.testing.assert_array_equal(got["mesh_id"][unique], want["mesh_id"][unique])
+    np.testing.assert_allclose(got["normal"][unique], want["normal"][unique], atol=1e-5)
