@@ -70,12 +70,12 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
 
+from device_timing import busy_view, cuda_ms, event_ms, graph_ms, nvidia_smi
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models import simulator
 from mcray_tpu_torch.models.simulator import Simulator
@@ -169,25 +169,6 @@ ALSO_REPLACES = {"scanconv": "mcray_tpu/ops/pallas/scanconv.py:162",
                  "scanconv_bwd": "mcray_tpu/ops/pallas/scanconv.py:199"}
 CLUSTER_KERNEL = {"listed": "intersect_listed", "culled": "intersect_culled",
                   "staged": "intersect_staged", "grouped": "intersect_grouped"}
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events, after one warm-up."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def paired_ms(kernel_fn, plain_fn, per_call: int, k_reps: int = 10, p_reps: int = 3):
@@ -344,20 +325,6 @@ def check_cluster_shapes(name: str, sim, rays: torch.Tensor, tri_soa) -> None:
         raise AssertionError(f"{name}: {CLUSTER_KERNEL[mode]} disagrees at another packet size")
 
 
-def graph_ms(fn, launches: int, copies: int = 10, reps: int = 10) -> float:
-    """Device ms per launch of ``fn`` (``launches`` kernel launches a call)
-    replayed from a CUDA graph of ``copies`` calls: the kernels back to
-    back, without the host's time to launch each that CUDA events around a
-    Python call include."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(copies):
-            fn()
-    return cuda_ms(graph.replay, reps) / (copies * launches)
-
-
 def made_up_images() -> list:
     """(name, image) for K3 beside the frame's RF: all zeros; noise with a
     falling column (no peak), a column of 5-row plateaus, a flat column and a
@@ -404,14 +371,8 @@ def check_cluster_bounces(name: str, sim, rays: torch.Tensor, tri_soa) -> list:
 
 
 def time_frames(name: str, sim, n: int) -> float:
-    frame_ms = []
-    for i in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        sim.render_frame(seed=100 + i)
-        end.record()
-        end.synchronize()
-        frame_ms.append(start.elapsed_time(end))
+    seeds = iter(range(100, 100 + n))
+    frame_ms = event_ms(lambda: sim.render_frame(seed=next(seeds)), n)
     med = statistics.median(frame_ms)
     print(f"  {name} frame: median {med:.3f} ms over {n} frames (min {min(frame_ms):.3f}, "
           f"max {max(frame_ms):.3f}); {sim.rays_per_frame / med * 1e3:,.0f} rays/s "
@@ -462,27 +423,25 @@ def brute_bound(bounce_rays, tri_soa) -> tuple[float, str]:
 
 def cluster_bound(sim, calls) -> tuple[float, str]:
     """A cluster kernel per launch, mean over the bounces, for this run's
-    rays: a packet needs the clusters whose earliest slab entry (the exact
-    prepass key) lies before the packet's final worst t, each tested by the
-    packet's live rays and read once."""
+    rays: each live ray tested against the triangles of every cluster whose
+    box it enters before its own final t (no closest hit in slot order can
+    skip one of those); rows v0/e1/e2 and the box of every cluster some ray
+    needs read once, the rays (and K5's lists) read once, t and slot
+    written once."""
     packed, mode = sim.culled_tris
-    tile_r = sim.intersect_tile_r
     n_b = n_o = 0
     for kernel, _, args in calls:
         padded = args[0]
         best_t, _ = kernel(*args)
-        o, s = padded[0:3].T.contiguous(), padded[3:6].T.contiguous()
-        counts, ids, keys = (args[1:4] if mode == "listed"
-                             else clusters.packet_cluster_lists(o, s, packed, tile_r))
-        live = (s.abs().sum(dim=1) > 0).reshape(-1, tile_r)
-        worst = torch.where(live, best_t.reshape(-1, tile_r), 0.0).amax(dim=1)
-        slot = torch.arange(keys.shape[1], device=keys.device)[None, :]
-        need = (slot < counts[:, None]) & (keys < worst[:, None])
-        n_o += int((need.sum(dim=1) * live.sum(dim=1)).sum()) * packed.tile_t * OPS_MOLLER_TRUMBORE
+        o, s = padded[0:3].T, padded[3:6].T
+        live = s.abs().sum(dim=1) > 0
+        need = clusters.box_active(o[live][None], clusters.inverse_dirs(s[live])[None],
+                                   packed.aabb_cluster, best_t[live][None])  # (clusters, rays)
+        n_o += int(need.sum()) * packed.tile_t * OPS_MOLLER_TRUMBORE
         n_b += (nbytes(padded) + 8 * padded.shape[1]
-                + int(torch.unique(ids[need]).numel()) * clusters.SOA_ROWS * packed.tile_t * 4)
+                + int(need.any(dim=1).sum()) * (9 * packed.tile_t + 8) * 4)
         if mode == "listed":
-            n_b += nbytes(counts, ids, keys)
+            n_b += nbytes(*args[1:4])
     return bound(n_b / len(calls), n_o / len(calls))
 
 
@@ -541,32 +500,16 @@ def device_view(label: str, fn, unit_ms: float, n: int = 3, top: int = 8) -> dic
     """The device's view of ``n`` calls of ``fn`` by ``torch.profiler``: busy
     time (the union of the device events' intervals) per call, its share of
     the unprofiled median ``unit_ms``, device operations per call and the
-    largest kernels. Returns busy ms, operations and ms by kernel name, per
-    call. Raises if the profiler saw no device event."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
-        raise AssertionError(f"{label} profile: the profiler recorded no device event")
-    busy, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    by_name: dict[str, float] = {}
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    by_name = {k: v / 1e3 / n for k, v in by_name.items()}
-    busy_ms = busy / 1e3 / n
+    largest kernels. Returns ``device_timing.busy_view``'s busy ms,
+    operations and ms by kernel name, per call."""
+    view = busy_view(fn, n)
+    busy_ms = view["busy_ms"]
     print(f"  {label} profile over {n} calls: device busy {busy_ms:.3f} ms per call "
           f"({busy_ms / unit_ms:.1%} of the unprofiled median {unit_ms:.3f} ms, idle "
-          f"{1 - busy_ms / unit_ms:.1%}); {len(device) / n:.0f} device operations per call")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+          f"{1 - busy_ms / unit_ms:.1%}); {view['operations']:.0f} device operations per call")
+    for name, ms in sorted(view["by_name"].items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {ms:8.3f} ms per call  {name[:90]}")
-    return {"busy_ms": busy_ms, "operations": len(device) / n, "by_name": by_name}
+    return view
 
 
 def fit_phase(pack, smi: str) -> dict:
@@ -622,14 +565,7 @@ def fit_phase(pack, smi: str) -> dict:
     # timing: whole steps, then forward and backward apart, on a fresh fitter
     fit = fitter()
     fit.step(draws)
-    step_ms, fwd_ms, bwd_ms = [], [], []
-    for _ in range(FIT_STEPS):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        fit.step(draws)
-        ev[1].record()
-        ev[1].synchronize()
-        step_ms.append(ev[0].elapsed_time(ev[1]))
+    step_ms, fwd_ms, bwd_ms = event_ms(lambda: fit.step(draws), FIT_STEPS), [], []
     mats = fit.state.materials.requires_grad_(True)
     for _ in range(FIT_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]

@@ -5,7 +5,9 @@
 
 Imports ``mcray_tpu_torch`` from DIR (default: the directory of this
 script), so one copy of the script times two checkouts in turns: run it
-alternately with ``--tree`` of each, one process per run. At ``SimConfig()``
+alternately with ``--tree`` of each, one process per run. The times
+and the profile are taken as ``chip_smoke.py`` takes them, by
+``device_timing.py`` beside this script. At ``SimConfig()``
 widths it renders seed 0 of the sphere and the ircad_hd frames in listed
 (K5), culled (K6) and staged (K7) mode and of the mega frame in listed mode,
 takes each frame's ten bounces of rays, and times the frame's closest-hit
@@ -26,8 +28,9 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
+
+from device_timing import busy_view, event_ms, graph_ms, nvidia_smi
 
 SCENES = {  # name: (scene file, directory its meshes are generated into)
     "sphere": (("assets", "sphere", "sphere.scene"), None),
@@ -53,7 +56,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("cluster_timing: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
-    from torch.profiler import ProfilerActivity, profile
 
     import mcray_tpu_torch
     from mcray_tpu_torch.config import SimConfig
@@ -65,8 +67,7 @@ def main() -> int:
 
     if not os.path.abspath(mcray_tpu_torch.__file__).startswith(tree + os.sep):
         raise SystemExit(f"cluster_timing: imported {mcray_tpu_torch.__file__}, not from {tree}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -90,23 +91,6 @@ def main() -> int:
                 calls.append((best, (padded, packed, tile_r)))
         return calls
 
-    def graph_ms(fn, launches: int, copies: int = 10, reps: int = 10) -> float:
-        """Device ms per launch of ``fn`` replayed from a CUDA graph of ``copies`` calls."""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(copies):
-                fn()
-        graph.replay()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps / (copies * launches)
-
     cfg = SimConfig()
     packs, sims, out = {}, {}, {"tree": tree, "gpu": smi, "device_ms": {}, "rays_digest": {}}
     for scene, mode in RUNS:
@@ -126,33 +110,16 @@ def main() -> int:
     out["frames"] = {}
     for scene, mode in PROFILED:
         sim = sims[scene, mode]
-        frame_ms = []
-        for i in range(5):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            sim.render_frame(seed=100 + i)
-            end.record()
-            end.synchronize()
-            frame_ms.append(start.elapsed_time(end))
-        n = 3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                sim.render_frame(seed=7)
-            torch.cuda.synchronize()
-        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not device:
-            raise SystemExit("cluster_timing: the profiler recorded no device event")
-        busy, last = 0.0, float("-inf")
-        for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in device):
-            busy += max(0.0, t1 - max(t0, last))
-            last = max(last, t1)
-        kernel_us = sum(e.time_range.end - e.time_range.start for e in device
-                        if f"intersect_{mode}_kernel" in e.name)
+        seeds = iter(range(100, 105))
+        frame_ms = event_ms(lambda: sim.render_frame(seed=next(seeds)), 5)
+        view = busy_view(lambda: sim.render_frame(seed=7), 3)
         med = statistics.median(frame_ms)
         out["frames"][f"{scene} {mode}"] = {
             "median_ms": med, "min_ms": min(frame_ms), "max_ms": max(frame_ms),
-            "busy_ms": busy / 1e3 / n, "idle_share": 1 - busy / 1e3 / n / med,
-            "device_operations": len(device) / n, "kernel_ms": kernel_us / 1e3 / n}
+            "busy_ms": view["busy_ms"], "idle_share": 1 - view["busy_ms"] / med,
+            "device_operations": view["operations"],
+            "kernel_ms": sum(v for k, v in view["by_name"].items()
+                             if f"intersect_{mode}_kernel" in k)}
     print(json.dumps(out))
     return 0
 

@@ -1,0 +1,93 @@
+"""Device timing on one NVIDIA GPU, shared by the scripts that measure the port.
+
+``chip_smoke.py``, ``cluster_timing.py`` and ``fit_step_timing.py`` import
+this module; each time or view below is measured one way for all three:
+
+- ``cuda_ms``: mean ms per call over back-to-back calls, by CUDA events;
+- ``event_ms``: each call on its own, by CUDA events (a frame, a fit step);
+- ``graph_ms``: device ms per kernel launch, replayed from a CUDA graph, so
+  without the host's time to launch each that events around a Python call
+  include;
+- ``busy_view``: the device's view by ``torch.profiler``: busy time (the
+  union of the device events' intervals), device operations and ms by
+  kernel name, per call.
+
+Every function but ``nvidia_smi`` needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events, after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def event_ms(fn, n: int) -> list[float]:
+    """ms of each of ``n`` calls of ``fn``, each timed alone by CUDA events."""
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def graph_ms(fn, launches: int, copies: int = 10, reps: int = 10) -> float:
+    """Device ms per launch of ``fn`` (``launches`` kernel launches a call)
+    replayed from a CUDA graph of ``copies`` calls: the kernels back to
+    back, without the host's time to launch each."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(copies):
+            fn()
+    return cuda_ms(graph.replay, reps) / (copies * launches)
+
+
+def busy_view(fn, n: int = 3) -> dict:
+    """``n`` calls of ``fn`` under ``torch.profiler``, per call: ``busy_ms``
+    (the union of the device events' intervals), ``operations`` (device
+    events) and ``by_name`` (ms by kernel name). Raises if the profiler saw
+    no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise AssertionError("the profiler recorded no device event")
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name: dict[str, float] = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    return {"busy_ms": busy / 1e3 / n, "operations": len(device) / n,
+            "by_name": {k: v / 1e3 / n for k, v in by_name.items()}}

@@ -5,7 +5,9 @@
 
 Imports ``mcray_tpu_torch`` from DIR (default: the directory of this
 script), so one copy of the script times two checkouts in turns: run it
-alternately with ``--tree`` of each, one process per run. The set-up is
+alternately with ``--tree`` of each, one process per run. The times
+and the profile are taken as ``chip_smoke.py`` takes them, by
+``device_timing.py`` beside this script. The set-up is
 ``chip_smoke.py``'s fit phase: the sphere at ``SimConfig()`` widths in soft +
 trilinear mode, the target frame from fixed draws, LIVER's attenuation
 doubled and fitted back by Adam; one step to warm up, then N steps timed by
@@ -21,8 +23,9 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
+
+from device_timing import busy_view, event_ms, nvidia_smi
 
 
 def main() -> int:
@@ -38,7 +41,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("fit_step_timing: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
-    from torch.profiler import ProfilerActivity, profile
 
     from mcray_tpu_torch.config import SimConfig
     from mcray_tpu_torch.models.simulator import Simulator
@@ -49,8 +51,7 @@ def main() -> int:
     import mcray_tpu_torch
     if not os.path.abspath(mcray_tpu_torch.__file__).startswith(tree + os.sep):
         raise SystemExit(f"fit_step_timing: imported {mcray_tpu_torch.__file__}, not from {tree}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -66,32 +67,13 @@ def main() -> int:
     fit = MaterialFitter.from_simulator(sim, start, target, trainable=(col,),
                                         trainable_rows=[row], fixed_frame=draws)
     fit.step(draws)
-    step_ms = []
-    for _ in range(args.steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        fit.step(draws)
-        ev[1].record()
-        ev[1].synchronize()
-        step_ms.append(ev[0].elapsed_time(ev[1]))
-
-    n = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fit.step(draws)
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
-        raise SystemExit("fit_step_timing: the profiler recorded no device event")
-    busy, end = 0.0, float("-inf")
-    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in device):
-        busy += max(0.0, t1 - max(t0, end))
-        end = max(end, t1)
+    step_ms = event_ms(lambda: fit.step(draws), args.steps)
+    view = busy_view(lambda: fit.step(draws), 3)
     print(json.dumps({
         "tree": tree, "gpu": smi, "steps": args.steps,
         "step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
         "step_ms_max": max(step_ms), "step_ms": step_ms,
-        "busy_ms": busy / 1e3 / n, "device_operations": len(device) / n,
+        "busy_ms": view["busy_ms"], "device_operations": view["operations"],
     }))
     return 0
 

@@ -293,4 +293,13 @@ __device__ __forceinline__ void walk_candidates(Candidates& cand, TileRing& ring
   }
 }
 
+// Static shared bytes of `kernel` (beside the dynamic ring), as the runtime
+// reports them, or -1 if it cannot: the wrappers check the sum against the
+// 48 KB a block may take before a launch.
+template <typename Kernel>
+inline int static_shared_bytes(Kernel kernel) {
+  cudaFuncAttributes attr;
+  return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? (int)attr.sharedSizeBytes : -1;
+}
+
 }  // namespace mcray

@@ -115,3 +115,8 @@ extern "C" int mcray_intersect_culled(const float* rays, int n_tot, const float*
   *blocks = grid;
   return (int)cudaGetLastError();
 }
+
+// Static shared bytes of the kernel, or -1 (mcray::static_shared_bytes).
+extern "C" int mcray_intersect_culled_static_shared() {
+  return mcray::static_shared_bytes(intersect_culled_kernel);
+}

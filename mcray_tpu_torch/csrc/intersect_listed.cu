@@ -174,3 +174,8 @@ extern "C" int mcray_intersect_listed(const float* rays, int n_tot, int tile_r, 
   *blocks = grid;
   return (int)cudaGetLastError();
 }
+
+// Static shared bytes of the kernel, or -1 (mcray::static_shared_bytes).
+extern "C" int mcray_intersect_listed_static_shared() {
+  return mcray::static_shared_bytes(intersect_listed_kernel);
+}

@@ -152,3 +152,8 @@ extern "C" int mcray_intersect_staged(const float* rays, int n_tot, const float*
   *blocks = grid;
   return (int)cudaGetLastError();
 }
+
+// Static shared bytes of the kernel, or -1 (mcray::static_shared_bytes).
+extern "C" int mcray_intersect_staged_static_shared() {
+  return mcray::static_shared_bytes(intersect_staged_kernel);
+}

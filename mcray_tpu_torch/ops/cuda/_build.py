@@ -46,6 +46,9 @@ SIGNATURES = {
     "mcray_intersect_grouped": [P, I, P, P, I, I, P, I, P, P, P],
     "mcray_intersect_culled": [P, I, P, P, I, I, P, P, P, P],
     "mcray_intersect_staged": [P, I, P, I, I, P, P, I, P, P, P, P],
+    "mcray_intersect_listed_static_shared": [],
+    "mcray_intersect_culled_static_shared": [],
+    "mcray_intersect_staged_static_shared": [],
     "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
     "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
     "mcray_postproc": [P, I, I, P, I, P, I, I, P, P, P, P],
@@ -151,19 +154,34 @@ def require(t, name: str, dtype, shape: tuple | None = None) -> None:
 
 #: shared memory a block may take without opting in (cudaFuncSetAttribute)
 SHARED_BYTES = 48 * 1024
+#: rays per block of the cluster kernels K5, K6, K7 (``GROUP`` of
+#: ``csrc/intersect_common.cuh``); their plain versions group rays alike
+CLUSTER_GROUP = 4
 
 
-def require_tiles(packed) -> None:
-    """Raise unless the cluster kernels (K5, K6, K7) can take ``packed``'s
-    tiles: they copy rows 0-8 of a tile into a two-stage ring in shared
-    memory in 16-byte units, so ``hbm_tris`` and ``aabb_cluster`` must be
-    16-byte aligned, ``tile_t`` a multiple of 4, and two stages of 9 x
-    ``tile_t`` floats must fit in ``SHARED_BYTES``."""
+@functools.lru_cache(maxsize=None)
+def static_shared(entry: str) -> int:
+    """Static shared bytes of the kernel behind C entry ``entry``
+    (``mcray_intersect_listed`` etc.), as ``cudaFuncGetAttributes`` reports them."""
+    n = getattr(library(), f"{entry}_static_shared")()
+    if n < 0:
+        raise RuntimeError(f"{entry}: cudaFuncGetAttributes failed")
+    return n
+
+
+def require_tiles(packed, entry: str) -> None:
+    """Raise unless the cluster kernel behind C entry ``entry`` (K5, K6 or
+    K7) can take ``packed``'s tiles: it copies rows 0-8 of a tile into a
+    two-stage ring in shared memory in 16-byte units, so ``hbm_tris`` and
+    ``aabb_cluster`` must be 16-byte aligned, ``tile_t`` a multiple of 4,
+    and two stages of 9 x ``tile_t`` floats, with the kernel's static shared
+    memory, must fit in ``SHARED_BYTES``."""
     tiles, boxes, tile_t = packed.hbm_tris, packed.aabb_cluster, packed.tile_t
     if tiles.data_ptr() % 16 or boxes.data_ptr() % 16 or tile_t % 4:
         raise ValueError("hbm_tris and aabb_cluster must be 16-byte aligned and tile_t a "
                          "multiple of 4 (the kernels copy rows 0-8 of a tile in 16-byte units)")
-    if 2 * 9 * tile_t * 4 > SHARED_BYTES:
-        raise ValueError(f"tile_t {tile_t}: two tiles of 9 x tile_t floats must fit in "
-                         f"{SHARED_BYTES} bytes of shared memory (tile_t <= "
-                         f"{SHARED_BYTES // 72})")
+    ring, static = 2 * 9 * tile_t * 4, static_shared(entry)
+    if ring + static > SHARED_BYTES:
+        raise ValueError(f"tile_t {tile_t}: two tiles of 9 x tile_t floats ({ring} bytes) and "
+                         f"{entry}'s {static} bytes of static shared memory must fit in "
+                         f"{SHARED_BYTES} bytes (tile_t <= {(SHARED_BYTES - static) // 72})")

@@ -37,8 +37,8 @@ launches = 0
 last_blocks = 0
 
 TILE_R = 128
-#: rays per block of the kernel (``GROUP`` of ``csrc/intersect_common.cuh``)
-GROUP = 4
+#: rays per block of the kernel
+GROUP = _build.CLUSTER_GROUP
 
 
 def culled_best_plain(rays, packed: clusters.CulledTris, tile_r: int, group: int | None = None):
@@ -74,7 +74,7 @@ def culled_best(rays, packed: clusters.CulledTris, tile_r: int):
     _build.require(rays, "rays", torch.float32, (6, n_tot))
     _build.require(packed.hbm_tris, "hbm_tris", torch.float32, (n_c, clusters.SOA_ROWS, tt))
     _build.require(packed.aabb_cluster, "aabb_cluster", torch.float32, (n_c, 8))
-    _build.require_tiles(packed)
+    _build.require_tiles(packed, "mcray_intersect_culled")
     best_t = torch.empty(n_tot, dtype=torch.float32, device=rays.device)
     best_slot = torch.empty(n_tot, dtype=torch.int32, device=rays.device)
     blocks = ctypes.c_int(0)

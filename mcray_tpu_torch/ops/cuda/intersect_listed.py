@@ -42,9 +42,9 @@ launches = 0
 last_blocks = 0
 
 TILE_R = 128
-#: rays per block of the kernel (``GROUP`` of ``csrc/intersect_common.cuh``;
-#: each ray has a warp): 640 blocks of 128 threads for a bounce of 2,560 rays
-GROUP = 4
+#: rays per block of the kernel (each ray has a warp): 640 blocks of 128 threads
+#: for a bounce of 2,560 rays
+GROUP = _build.CLUSTER_GROUP
 
 
 def listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed: clusters.CulledTris,
@@ -106,7 +106,7 @@ def listed_best(rays, counts, ids, keys, t_init, idx_init, packed: clusters.Cull
     tiles, boxes = packed.hbm_tris, packed.aabb_cluster
     _build.require(tiles, "hbm_tris", torch.float32, (n_c, clusters.SOA_ROWS, packed.tile_t))
     _build.require(boxes, "aabb_cluster", torch.float32, (n_c, 8))
-    _build.require_tiles(packed)
+    _build.require_tiles(packed, "mcray_intersect_listed")
     best_t = torch.empty(n_tot, dtype=torch.float32, device=rays.device)
     best_slot = torch.empty(n_tot, dtype=torch.int32, device=rays.device)
     blocks = ctypes.c_int(0)

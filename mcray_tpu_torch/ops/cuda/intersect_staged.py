@@ -34,8 +34,8 @@ launches = 0
 last_blocks = 0
 
 TILE_R = 128
-#: rays per block of the kernel (``GROUP`` of ``csrc/intersect_common.cuh``)
-GROUP = 4
+#: rays per block of the kernel
+GROUP = _build.CLUSTER_GROUP
 
 
 def staged_best_plain(rays, packed: clusters.CulledTris, tile_r: int, group: int | None = None):
@@ -78,7 +78,7 @@ def staged_best(rays, packed: clusters.CulledTris, tile_r: int):
     _build.require(packed.aabb_super, "aabb_super", torch.float32, (packed.n_super, 8))
     _build.require(packed.aabb_cluster, "aabb_cluster", torch.float32, (n_c, 8))
     _build.require(packed.hbm_tris, "hbm_tris", torch.float32, (n_c, clusters.SOA_ROWS, tt))
-    _build.require_tiles(packed)
+    _build.require_tiles(packed, "mcray_intersect_staged")
     if packed.aabb_super.data_ptr() % 16:
         raise ValueError("aabb_super must be 16-byte aligned (the kernel reads a box as two float4)")
     best_t = torch.empty(n_tot, dtype=torch.float32, device=rays.device)

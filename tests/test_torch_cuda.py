@@ -28,7 +28,7 @@ from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models.simulator import Simulator
 from mcray_tpu_torch.ops import clusters, geometry, imaging
 from mcray_tpu_torch.ops import physics
-from mcray_tpu_torch.ops.cuda import (intersect, intersect_culled, intersect_grouped,
+from mcray_tpu_torch.ops.cuda import (_build, intersect, intersect_culled, intersect_grouped,
                                       intersect_listed, intersect_staged, march, postproc,
                                       scanconv)
 from mcray_tpu_torch.scene.compile import load_and_compile
@@ -125,6 +125,40 @@ def test_cluster_kernels_match_plain(cuda, mode, tile_r):
             assert not bool(got["hit"].any())
         else:
             assert int(got["hit"].sum()) > 20, name
+
+
+@pytest.mark.parametrize("mode", ["listed", "culled", "staged"])
+def test_cluster_kernels_take_the_widest_tile_that_fits(cuda, mode):
+    """The shared-memory check counts the kernel's static shared memory:
+    at the widest tile_t whose ring and static bytes fit in 48 KB the kernel
+    launches and equals its plain version; 4 triangles wider, the wrapper
+    raises ValueError before any launch."""
+    mod = {"listed": intersect_listed, "culled": intersect_culled, "staged": intersect_staged}[mode]
+    entry = f"mcray_intersect_{mode}"
+    static = _build.static_shared(entry)
+    assert 0 < static < 4096
+    widest = (_build.SHARED_BYTES - static) // 72 // 4 * 4
+    pack, cases = _cluster_cases(cuda)
+    rays = cases[0][1]
+    for tile_t in (widest, widest + 4):
+        packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
+                                           sort_origin=pack.transducer_position, tile_t=tile_t,
+                                           device=cuda)
+        o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, 512)
+        args = ((padded, *clusters.packet_cluster_lists(o, s, packed, 512), *_listed_start(s),
+                 packed) if mode == "listed" else (padded, packed, 512))
+        kernel, plain = getattr(mod, f"{mode}_best"), getattr(mod, f"{mode}_best_plain")
+        before = mod.launches
+        if tile_t > widest:
+            with pytest.raises(ValueError, match="static shared memory"):
+                kernel(*args)
+            assert mod.launches == before
+        else:
+            t_k, i_k = kernel(*args)
+            t_p, i_p = plain(*args)
+            assert mod.launches == before + 1
+            assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+            assert bool((t_k < 1.5).any())
 
 
 @pytest.mark.parametrize("tile_r", [512, 128])

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``mcray_tpu_torch`` (nor
-``chip_smoke.py``, ``fit_step_timing.py`` and ``cluster_timing.py``) imports ``jax`` or anything of
-``mcray_tpu``, and the copies it keeps of the reference's JAX-free modules
-agree with them."""
+``chip_smoke.py``, ``fit_step_timing.py``, ``cluster_timing.py`` and
+``device_timing.py``) imports ``jax`` or anything of ``mcray_tpu``, and
+the copies it keeps of the reference's JAX-free modules agree with them."""
 
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ from mcray_tpu_torch.scene import compile as port_compile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # run on the card, not imported
-SCRIPTS = [ROOT / "fit_step_timing.py", ROOT / "cluster_timing.py", ROOT / "chip_smoke.py"]
+SCRIPTS = [ROOT / "device_timing.py", ROOT / "fit_step_timing.py", ROOT / "cluster_timing.py",
+           ROOT / "chip_smoke.py"]
 PORT_FILES = sorted((ROOT / "mcray_tpu_torch").rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "mcray_tpu")
 DERIVED = ("axial_resolution_mm", "axial_resolution_um", "max_travel_time_us", "rf_rows",
