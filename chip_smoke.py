@@ -26,7 +26,11 @@ with the launch counts set to 0 just before it and read just after:
 
 Every kernel is held against its plain PyTorch version at the shapes its
 path gave it (closest hits bitwise in t and slot, at every bounce; the
-cluster paths' hit and t also against K1's bitwise), K5 also at other
+cluster paths' hit and t also against K1's bitwise), K1 also on 256 rays
+of each ircad_hd bounce (its plain version at 123,224 triangles is too slow
+for all 2,560) and at edge shapes (1, 33, 1,000 and 2,560 rays x 1, 255,
+257 and 2,220 triangles, duplicated triangles, dead rays, no triangle),
+K4 bitwise against its plain version from the coordinate maps, K5 also at other
 packet sizes and in two passes on the mega
 frame's first and a late bounce, on both 200,000-triangle sets and at
 every bounce of the sphere and ircad_hd frames, K6 and K7 at packets of
@@ -49,14 +53,16 @@ Frames, fit steps, stages and kernels (beside their plain versions and,
 where one PyTorch call computes the same function, beside that call) are
 timed with CUDA events; each kernel's bound (the least time the card could
 take: bytes over 3.35 TB/s or operations over 67 TFLOP/s of plain f32,
-whichever is larger) is computed from the run's own inputs. K5, K6, K7,
-K3, K2, K8, K4 and K9, which run in microseconds, are also timed replayed
-from a CUDA graph (the kernels back to back, without the host's time to
-launch each), K5 on each of its ray sets, K6 and K7 on the sphere and
-ircad_hd frames, K2 and K8 in their default and Box–Muller modes, K4 and K9
-beside their library calls, and beside the time of one launch of the
-library's cheapest call. The ircad_hd frames (listed, culled, staged) are
-profiled as the sphere's and the mega scene's are.
+whichever is larger) is computed from the run's own inputs. K1, K5, K6,
+K7, K3, K2, K8, K4 and K9 are also timed replayed from a CUDA graph (the
+kernels back to back, without the host's time to launch each), K1 on the
+sphere brute and ircad_hd bounces, K5 on each of its ray sets, K6 and K7 on
+the sphere and ircad_hd frames, K2 and K8 in their default and Box–Muller
+modes, K4 and K9 beside their library calls, and beside the time of one
+launch of the library's cheapest call; the grids of K1, K3, K4, K5, K6 and
+K7 are read back and must fill half the card. The sphere brute frame and
+the ircad_hd frames (listed, culled, staged) are profiled as the sphere's
+and the mega scene's are.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
@@ -75,7 +81,7 @@ import time
 
 import torch
 
-from device_timing import busy_view, cuda_ms, event_ms, graph_ms, nvidia_smi
+from device_timing import busy_view, cuda_ms, event_ms, graph_ms, grid_sample_remap, nvidia_smi
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models import simulator
 from mcray_tpu_torch.models.simulator import Simulator
@@ -101,8 +107,8 @@ MEGA_SCENE = os.path.join(REPO, "assets", "ircad11_mega", "santi-liver-mega.scen
 MEGA_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_mega")
 TIMED_FRAMES = {"sphere": 10, "sphere brute": 5, "ircad_hd": 5, "ircad_hd culled": 5,
                 "ircad_hd staged": 5, "mega listed": 5, "mega grouped": 5}
-PROFILED_FRAMES = ("sphere", "ircad_hd", "ircad_hd culled", "ircad_hd staged", "mega listed",
-                   "mega grouped")
+PROFILED_FRAMES = ("sphere", "sphere brute", "ircad_hd", "ircad_hd culled", "ircad_hd staged",
+                   "mega listed", "mega grouped")
 # packet sizes K6 and K7 are also checked at, beyond the frame's 512 (any
 # divisor of the padded ray count runs; 100 is no multiple of 32, 2,048 more
 # rays than a block has threads), and K5 at the two its other checks leave out
@@ -115,9 +121,16 @@ MEGA_FRAME_RTOL, MEGA_FRAME_ATOL = 1e-3, 1e-4
 # the normal draw goes through each device's erfinv
 NORMAL_RTOL, NORMAL_ATOL = 1e-5, 1e-6
 FIT_STEPS = 5
+# K1 on ircad_hd against its plain version: this many rays of each bounce
+# (its live rays, evenly spaced), from the whole bounce's launch
+IRCAD_K1_SAMPLE = 256
+# K1 at the edges of its 32-ray tile and 256-triangle slice
+K1_EDGE_RAYS, K1_EDGE_TRIS = (1, 33, 1000, 2560), (1, 255, 257, 2220)
 TOLERANCES = {  # (rtol, atol) of kernel vs plain at the frame's shapes
     "march": (1e-4, 1e-5),
     "postproc": (1e-5, 1e-6),
+    # K4 against imaging.scan_convert (the reference's map_coordinates); its
+    # plain version from the maps it equals bitwise
     "scanconv": (1e-6, 1e-6),
     # soft + trilinear: 8 corners and a sigmoid per step, expf differs by an ulp
     "march soft+trilinear": (1e-4, 1e-5),
@@ -325,6 +338,75 @@ def check_cluster_shapes(name: str, sim, rays: torch.Tensor, tri_soa) -> None:
         raise AssertionError(f"{name}: {CLUSTER_KERNEL[mode]} disagrees at another packet size")
 
 
+def k1_edge_case(n: int, t: int) -> tuple:
+    """(rays (6, n), tri_soa (9, t)) on the card: random triangles in a
+    10-unit box whose first t // 2 come again at the top indices (equal t:
+    the lower index must win), half the rays aimed through triangle
+    centroids, and a ragged stretch of 45 parked dead rays from n // 3 (when
+    n > 32)."""
+    g = torch.Generator().manual_seed(n * 10_007 + t)
+    base = (torch.rand((t - t // 2, 1, 3), generator=g) * 10 - 5
+            + torch.randn((t - t // 2, 3, 3), generator=g) * 0.8)
+    tris = torch.cat([base, base[: t // 2]])
+    o = torch.rand((n, 3), generator=g) * 12 - 6
+    s = torch.randn((n, 3), generator=g) * 8
+    if t:
+        aim = torch.randint(0, t, (n // 2,), generator=g)
+        s[: n // 2] = (tris[aim].mean(dim=1) - o[: n // 2]) * 1.25
+    if n > 32:
+        o[n // 3 : n // 3 + 45], s[n // 3 : n // 3 + 45] = 1e9, 0.0
+    return torch.cat([o, s], dim=1).T.contiguous().cuda(), geometry.triangle_soa(tris.cuda())
+
+
+def check_k1_edges() -> dict:
+    """K1 at K1_EDGE_RAYS x K1_EDGE_TRIS, on 600 parked dead rays and on
+    2,560 rays against no triangle: t and index bitwise against its plain
+    version; the dead rays and the empty scene miss, (2.0, 0)."""
+    cases = [(f"{n} x {t}", *k1_edge_case(n, t)) for n in K1_EDGE_RAYS for t in K1_EDGE_TRIS]
+    dead = torch.cat([torch.full((3, 600), 1e9), torch.zeros((3, 600))]).cuda()
+    cases += [("600 dead x 2220", dead, k1_edge_case(1, 2220)[1]),
+              ("2560 x 0", k1_edge_case(2560, 1)[0], torch.zeros((9, 0), device="cuda"))]
+    differing, hits, blocks = 0, {}, {}
+    for label, rays, soa in cases:
+        t_k, i_k = intersect.intersect_best(rays, soa)
+        blocks[label] = intersect.last_blocks
+        t_p, i_p = intersect.intersect_best_plain(rays, soa)
+        differing += int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum() + (i_k != i_p).sum())
+        hits[label] = int((t_k < 1.5).sum())
+    print(f"  intersect at {len(cases)} edge shapes (rays x triangles: "
+          f"{', '.join(map(str, K1_EDGE_RAYS))} x "
+          f"{', '.join(map(str, K1_EDGE_TRIS))}; 600 dead rays; no triangle): {differing} differing "
+          f"(t, index) vs plain; hits {hits}; blocks {blocks}")
+    if differing or hits["600 dead x 2220"] or hits["2560 x 0"] or hits["2560 x 2220"] < 640:
+        raise AssertionError("intersect disagrees with its plain version at an edge shape")
+    return {"cases": len(cases), "differing": differing, "blocks": blocks}
+
+
+def check_k1_sample(bounce_rays, tri_soa) -> dict:
+    """K1 launched on each whole bounce, held at IRCAD_K1_SAMPLE of its rays
+    (the live ones evenly spaced, then dead ones where fewer are live)
+    against its plain version on those rays, t and index bitwise."""
+    differing = checked = n_hit = 0
+    for rays in bounce_rays:
+        t_k, i_k = intersect.intersect_best(rays, tri_soa)
+        live = rays[3:6].abs().sum(dim=0) > 0
+        on, off = torch.nonzero(live).squeeze(1), torch.nonzero(~live).squeeze(1)
+        k = min(IRCAD_K1_SAMPLE, on.numel())
+        pick = torch.cat([on[torch.linspace(0, max(on.numel() - 1, 0), k, device=on.device).long()],
+                          off[: IRCAD_K1_SAMPLE - k]])
+        t_p, i_p = intersect.intersect_best_plain(rays[:, pick].contiguous(), tri_soa)
+        differing += int((t_k[pick].view(torch.int32) != t_p.view(torch.int32)).sum()
+                         + (i_k[pick] != i_p).sum())
+        checked += pick.numel()
+        n_hit += int((t_p < 1.5).sum())
+    print(f"  intersect (ircad_hd, {tri_soa.shape[1]} triangles; each bounce launched whole, "
+          f"{IRCAD_K1_SAMPLE} rays of each held against plain): {differing} differing (t, index) "
+          f"over {checked} rays, {n_hit} hit")
+    if differing or not n_hit:
+        raise AssertionError("intersect (ircad_hd) != plain")
+    return {"rays_checked": checked, "differing": differing, "hits": n_hit}
+
+
 def made_up_images() -> list:
     """(name, image) for K3 beside the frame's RF: all zeros; noise with a
     falling column (no peak), a column of 5-row plateaus, a flat column and a
@@ -465,18 +547,6 @@ def matched_steps(soa: torch.Tensor, cfg, n_cols: int) -> int:
     valid = soa[:, march.F_VALID, :n_cols] > 0.5
     in_window = torch.ceil((float(cfg.max_travel_time_us) - t0) / cfg.march_dt_us).clamp(min=0.0)
     return int((torch.minimum(steps, in_window) * valid).sum())
-
-
-def grid_sample_call(sim):
-    """The one PyTorch call that computes K4's function: ``grid_sample`` over
-    the polar->Cartesian maps (its coordinate normalisation adds a rounding,
-    so it is a yardstick, not a check). Returns a function of the RF image."""
-    cfg = sim.cfg
-    map_row, map_col = (torch.from_numpy(m).to(sim.device) for m in imaging.scan_conversion_maps(cfg))
-    grid = torch.stack([2.0 * map_col / (cfg.rf_cols - 1) - 1.0,
-                        2.0 * map_row / (cfg.rf_rows - 1) - 1.0], dim=-1)[None]
-    return lambda rf: torch.nn.functional.grid_sample(
-        rf[None, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True)[0, 0]
 
 
 def check_march_bwd(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -974,6 +1044,10 @@ def main() -> int:
     if differing or t_err:
         raise AssertionError("intersect kernel != plain")
     errs = {"intersect": t_err}
+    k1_sample = check_k1_sample(
+        [outs["ircad_hd"]["segments"]["rays"][d].contiguous() for d in range(cfg.max_depth)],
+        tri_soa["ircad_hd"])
+    k1_edges = check_k1_edges()
     cluster_calls = {}
     for name in ("sphere", "ircad_hd", "sphere culled", "ircad_hd culled", "sphere staged",
                  "ircad_hd staged", "mega listed", "mega grouped"):
@@ -1003,9 +1077,15 @@ def main() -> int:
         print(f"  postproc on a made-up image, {label} {tuple(image.shape)}:")
         check_close("postproc", postproc.postproc_forward(image, cfg),
                     postproc.postproc_plain(image, cfg))
-    errs["scanconv"] = check_close(
-        "scanconv", scanconv.scan_convert_cuda(rf_env, maps),
-        scanconv.scan_convert_plain(rf_env, maps.table, cfg.bmode_cols))
+    k4 = scanconv.scan_convert_cuda(rf_env, maps)
+    k4_plain = scanconv.scan_convert_coords_plain(rf_env, maps.coords)
+    errs["scanconv"] = float((k4 - k4_plain).abs().max())
+    k4_table = scanconv.scan_convert_plain(rf_env, maps.table, cfg.bmode_cols)
+    print(f"  scanconv: {int((k4 != k4_plain).sum())} differing pixels vs plain (from the maps), "
+          f"{int((k4 != k4_table).sum())} vs the table-driven plain version")
+    if not (torch.equal(k4, k4_plain) and torch.equal(k4, k4_table)):
+        raise AssertionError("scanconv kernel != plain")
+    check_close("scanconv", k4, imaging.scan_convert(rf_env, maps.coords[0], maps.coords[1]))
     # the fit path's kernels on the fit frame's SoA and seeded cotangents
     fit_sim, fit_cfg = fit["sim"], fit["cfg"]
     fit_soa = fit["frame"]["soa"]
@@ -1078,9 +1158,11 @@ def main() -> int:
                                frame_ms[name])
              for name in PROFILED_FRAMES}
     for name, view in views.items():
-        mode = sims[name].culled_tris[1]
-        # grouped mode also runs a residual K5 pass
-        names = {CLUSTER_KERNEL[mode], CLUSTER_KERNEL["listed" if mode == "grouped" else mode]}
+        if sims[name].culled_tris is None:
+            names = {"intersect_closest"}  # K1's kernel
+        else:  # grouped mode also runs a residual K5 pass
+            mode = sims[name].culled_tris[1]
+            names = {CLUSTER_KERNEL[mode], CLUSTER_KERNEL["listed" if mode == "grouped" else mode]}
         ours = {k: sum(v for n, v in view["by_name"].items() if f"{k}_kernel" in n) for k in names}
         print(f"  {name} frame, per frame on the device: "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(ours.items()))
@@ -1088,9 +1170,13 @@ def main() -> int:
               f"{drawn['draws_operations']:.0f} of its {view['operations']:.0f} device operations")
 
     timed = {"sphere": {}, "ircad_hd": {}}
+    k1_device_ms = {}
     for scene in ("sphere", "ircad_hd"):
         src = brute_rays if scene == "sphere" else outs["ircad_hd"]["segments"]["rays"]
         bounce_rays = [src[d].contiguous() for d in range(cfg.max_depth)]
+        k1_device_ms[scene] = graph_ms(
+            lambda q=bounce_rays, s=tri_soa[scene]: [intersect.intersect_best(r, s) for r in q],
+            cfg.max_depth)
         soa_t = tri_soa[scene]
         # K1's plain version at 123k triangles is not timed: its (rays x
         # triangles) chunks are the wrong algorithm at that size
@@ -1110,7 +1196,7 @@ def main() -> int:
         "postproc": (lambda: postproc.postproc_forward(rf_raw, cfg),
                      lambda: postproc.postproc_plain(rf_raw, cfg)),
         "scanconv": (lambda: scanconv.scan_convert_forward(rf_env, maps),
-                     lambda: scanconv.scan_convert_plain(rf_env, maps.table, cfg.bmode_cols)),
+                     lambda: scanconv.scan_convert_coords_plain(rf_env, maps.coords)),
         "march soft+trilinear": (
             lambda: march.march_forward(fit_soa, fit_sim.seeds, fit_cfg, cfg.rf_cols),
             lambda: march.march_plain(fit_soa, fit_sim.seeds, fit_cfg, cfg.rf_cols)),
@@ -1209,22 +1295,28 @@ def main() -> int:
         f"{k} {v:.4f}" for k, v in k2_device_ms.items()) + "; march_bwd " + ", ".join(
         f"{k} {v:.4f}" for k, v in k8_device_ms.items())
           + f"; blocks march {k2_blocks}, march_bwd {k8_blocks}")
+    print(f"  device ms per launch (graph replay): intersect sphere brute "
+          f"{k1_device_ms['sphere']:.5f}, ircad_hd {k1_device_ms['ircad_hd']:.5f}")
     # the grid of one sphere launch of each, as the launch reported it
     intersect_listed.listed_best(*cluster_calls["sphere"][0][2])
     postproc.postproc_forward(rf_raw, cfg)
+    intersect.intersect_best(brute_rays[0].contiguous(), tri_soa["sphere"])
+    scanconv.scan_convert_forward(rf_env, maps)
     k5_blocks, k3_blocks = intersect_listed.last_blocks, postproc.last_blocks
+    k1_blocks, k4_blocks = intersect.last_blocks, scanconv.last_blocks
     print(f"  blocks per launch on the sphere frame: intersect_listed {k5_blocks}, postproc "
-          f"{k3_blocks} (132 SMs)")
-    if min(k5_blocks, *cluster_blocks.values()) < 66 or k3_blocks < 64:
+          f"{k3_blocks}, intersect (brute) {k1_blocks}, scanconv {k4_blocks} (132 SMs)")
+    if min(k5_blocks, k1_blocks, k4_blocks, *cluster_blocks.values()) < 66 or k3_blocks < 64:
         raise AssertionError("a redesigned kernel launches too few blocks to fill half the card")
     # the floor small kernels are read against: the cheapest call of the library, back to back
     one_ray, one_tri = brute_rays[0][:, :1].contiguous(), tri_soa["sphere"][:, :1].contiguous()
     empty_launch_ms = cuda_ms(lambda: intersect.intersect_best(one_ray, one_tri), 100)
-    print(f"  empty_launch_ms {empty_launch_ms:.5f} (K1 on one ray and one triangle, mean of 100 "
-          f"launches back to back, its two output allocations included)")
+    print(f"  empty_launch_ms {empty_launch_ms:.5f} (K1 on one ray and one triangle: one launch of "
+          f"one block, a cluster of one; mean of 100 launches back to back, its two output "
+          f"allocations included)")
 
     # the one PyTorch call that computes the same function, where there is one
-    grid_sample = grid_sample_call(sim)
+    grid_sample = grid_sample_remap(maps.coords[0], maps.coords[1], cfg.rf_rows, cfg.rf_cols)
     transposed = torch.sparse_csr_tensor(
         maps.row_ptr, maps.pixel, maps.weight, size=(cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols))
     library_ms = {
@@ -1277,7 +1369,7 @@ def main() -> int:
     }
     print(f"  march steps inside the window: frame {steps_frame}, fit frame {steps_fit}; "
           f"transposed remap taps {maps.pixel.numel()}; bytes the scan kernels read beyond their "
-          f"bound's: table {nbytes(maps.table) - 2 * 4 * n_bm}, CSR lists "
+          f"bound's: K4's maps {nbytes(maps.coords) - 2 * 4 * n_bm}, K9's CSR lists "
           f"{nbytes(maps.row_ptr, maps.pixel, maps.weight) - 2 * 4 * n_bm}")
 
     path_of = {"intersect": "sphere brute", "intersect_listed": "sphere",
@@ -1308,6 +1400,11 @@ def main() -> int:
         if name in scan_device_ms:
             entry["device_ms"], entry["library_device_ms"] = scan_device_ms[name]
             entry["also_replaces"] = ALSO_REPLACES[name]
+        if name == "scanconv":
+            entry["blocks"] = k4_blocks
+        if name == "intersect":  # by scene; the ircad_hd sample and the edge shapes
+            entry.update({"device_ms": k1_device_ms, "blocks": k1_blocks,
+                          "ircad_hd_sample": k1_sample, "edge_shapes": k1_edges})
         if name == "intersect_listed":  # where K5 is the device's largest item, K10's rays
             entry.update({"blocks": k5_blocks, "mega_ms": k5_mega_ms,
                           "mega_late_bounce_ms": mega_queries[MEGA_LATE_BOUNCE]["k5_ms"],

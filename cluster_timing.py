@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's cluster closest hits on one NVIDIA GPU, in one short process.
+"""Time the port's closest hits and scan conversion on one NVIDIA GPU, in one short process.
 
     python3 cluster_timing.py [--tree DIR]
 
@@ -13,9 +13,13 @@ widths it renders seed 0 of the sphere and the ircad_hd frames in listed
 takes each frame's ten bounces of rays, and times the frame's closest-hit
 kernel on them replayed from a CUDA graph (the launches back to back,
 without the host's time to launch each): device ms per launch, mean over
-the bounces. The ircad_hd culled and staged frames are then timed by CUDA
-events (5 frames) and profiled by ``torch.profiler`` (3 frames): device busy
-ms, the idle share against the unprofiled median, device operations per
+the bounces. The same for the brute closest hit (K1) on the sphere brute
+frame's bounces and on the ircad_hd listed frame's, and for the scan
+conversion (K4) on the sphere brute frame's RF image beside ``grid_sample``.
+The sphere (listed and brute), ircad_hd (listed, culled and staged) and
+mega listed frames are then timed by CUDA events (5 frames) and profiled by
+``torch.profiler`` (3 frames): device busy ms, the idle share against the
+unprofiled median, device operations and the closest-hit kernel's ms per
 frame. Prints one JSON line: the tree, the card's ``nvidia-smi`` name and
 power limit, and the numbers, with a digest of each ray set so that two
 trees' runs can be seen to time the same rays. Needs the card; without one
@@ -30,7 +34,7 @@ import os
 import statistics
 import sys
 
-from device_timing import busy_view, event_ms, graph_ms, nvidia_smi
+from device_timing import busy_view, event_ms, graph_ms, grid_sample_remap, nvidia_smi
 
 SCENES = {  # name: (scene file, directory its meshes are generated into)
     "sphere": (("assets", "sphere", "sphere.scene"), None),
@@ -41,7 +45,11 @@ SCENES = {  # name: (scene file, directory its meshes are generated into)
 }
 RUNS = [("sphere", "listed"), ("sphere", "culled"), ("sphere", "staged"), ("ircad_hd", "listed"),
         ("ircad_hd", "culled"), ("ircad_hd", "staged"), ("mega", "listed")]
-PROFILED = [("ircad_hd", "culled"), ("ircad_hd", "staged")]
+PROFILED = [("sphere", "listed"), ("sphere", "brute"), ("ircad_hd", "listed"), ("ircad_hd", "culled"),
+            ("ircad_hd", "staged"), ("mega", "listed")]
+# the closest-hit kernel of each mode, by its name in the profile
+KERNEL_NAME = {"brute": "intersect_closest_kernel", "listed": "intersect_listed_kernel",
+               "culled": "intersect_culled_kernel", "staged": "intersect_staged_kernel"}
 
 
 def main() -> int:
@@ -60,8 +68,9 @@ def main() -> int:
     import mcray_tpu_torch
     from mcray_tpu_torch.config import SimConfig
     from mcray_tpu_torch.models.simulator import Simulator
-    from mcray_tpu_torch.ops import clusters
-    from mcray_tpu_torch.ops.cuda import intersect_culled, intersect_listed, intersect_staged
+    from mcray_tpu_torch.ops import clusters, imaging
+    from mcray_tpu_torch.ops.cuda import (intersect, intersect_culled, intersect_listed,
+                                          intersect_staged, scanconv)
     from mcray_tpu_torch.ops.geometry import NO_HIT_T
     from mcray_tpu_torch.scene.compile import load_and_compile
 
@@ -91,6 +100,15 @@ def main() -> int:
                 calls.append((best, (padded, packed, tile_r)))
         return calls
 
+    def digest(rays):
+        return [float(rays.double().sum()), int((rays[:, 3:6].abs().sum(dim=1) > 0).sum())]
+
+    def brute_ms(rays, tri_soa):
+        """K1's device ms per launch on a frame's bounces."""
+        bounces = [rays[d].contiguous() for d in range(rays.shape[0])]
+        return graph_ms(lambda: [intersect.intersect_best(r, tri_soa) for r in bounces],
+                        len(bounces))
+
     cfg = SimConfig()
     packs, sims, out = {}, {}, {"tree": tree, "gpu": smi, "device_ms": {}, "rays_digest": {}}
     for scene, mode in RUNS:
@@ -104,8 +122,21 @@ def main() -> int:
         calls = kernel_calls(sim, rays)
         key = f"{scene} {mode}"
         out["device_ms"][key] = graph_ms(lambda c=calls: [k(*a) for k, a in c], len(calls))
-        out["rays_digest"][key] = [float(rays.double().sum()),
-                                   int((rays[:, 3:6].abs().sum(dim=1) > 0).sum())]
+        out["rays_digest"][key] = digest(rays)
+        if key == "ircad_hd listed":  # K1 on the same rays
+            out["device_ms"]["ircad_hd brute"] = brute_ms(rays, sim.scene["tri_soa"])
+
+    # K1 on the sphere brute frame's bounces; K4 on its RF image beside grid_sample
+    sim = sims["sphere", "brute"] = Simulator(packs["sphere"], cfg, device="cuda", seed=0,
+                                              use_culled_intersect=False)
+    frame = sim.render_frame(seed=0)
+    out["device_ms"]["sphere brute"] = brute_ms(frame["segments"]["rays"], sim.scene["tri_soa"])
+    out["rays_digest"]["sphere brute"] = digest(frame["segments"]["rays"])
+    rf_env, maps = frame["rf_env"], sim.scan_maps
+    map_row, map_col = (torch.from_numpy(m).cuda() for m in imaging.scan_conversion_maps(cfg))
+    grid_sample = grid_sample_remap(map_row, map_col, cfg.rf_rows, cfg.rf_cols)
+    out["device_ms"]["scanconv"] = graph_ms(lambda: scanconv.scan_convert_forward(rf_env, maps), 1)
+    out["device_ms"]["grid_sample"] = graph_ms(lambda: grid_sample(rf_env), 1)
 
     out["frames"] = {}
     for scene, mode in PROFILED:
@@ -118,8 +149,7 @@ def main() -> int:
             "median_ms": med, "min_ms": min(frame_ms), "max_ms": max(frame_ms),
             "busy_ms": view["busy_ms"], "idle_share": 1 - view["busy_ms"] / med,
             "device_operations": view["operations"],
-            "kernel_ms": sum(v for k, v in view["by_name"].items()
-                             if f"intersect_{mode}_kernel" in k)}
+            "kernel_ms": sum(v for k, v in view["by_name"].items() if KERNEL_NAME[mode] in k)}
     print(json.dumps(out))
     return 0
 

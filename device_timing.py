@@ -10,7 +10,9 @@ this module; each time or view below is measured one way for all three:
   include;
 - ``busy_view``: the device's view by ``torch.profiler``: busy time (the
   union of the device events' intervals), device operations and ms by
-  kernel name, per call.
+  kernel name, per call;
+- ``grid_sample_remap``: the one PyTorch call that computes the scan
+  conversion's function, timed beside its kernel as a yardstick.
 
 Every function but ``nvidia_smi`` needs a CUDA device.
 """
@@ -91,3 +93,13 @@ def busy_view(fn, n: int = 3) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     return {"busy_ms": busy / 1e3 / n, "operations": len(device) / n,
             "by_name": {k: v / 1e3 / n for k, v in by_name.items()}}
+
+
+def grid_sample_remap(map_row: torch.Tensor, map_col: torch.Tensor, rf_rows: int, rf_cols: int):
+    """The scan conversion as one ``grid_sample`` call over the polar->Cartesian
+    coordinate maps (its coordinate normalisation adds a rounding, so it is a
+    yardstick, not a check). Returns a function of the RF image."""
+    grid = torch.stack([2.0 * map_col / (rf_cols - 1) - 1.0,
+                        2.0 * map_row / (rf_rows - 1) - 1.0], dim=-1)[None]
+    return lambda rf: torch.nn.functional.grid_sample(
+        rf[None, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True)[0, 0]

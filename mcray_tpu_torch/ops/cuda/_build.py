@@ -41,7 +41,7 @@ P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 # C signatures of the entry points (the launches return cudaError_t as int and
 # take the CUDA stream last; the others return what RESTYPES says)
 SIGNATURES = {
-    "mcray_intersect_closest": [P, I, P, I, P, P, P],
+    "mcray_intersect_closest": [P, I, P, I, P, P, P, P],
     "mcray_intersect_listed": [P, I, I, P, P, P, I, P, P, P, P, I, P, P, P, P],
     "mcray_intersect_grouped": [P, I, P, P, I, I, P, I, P, P, P],
     "mcray_intersect_culled": [P, I, P, P, I, I, P, P, P, P],
@@ -53,7 +53,7 @@ SIGNATURES = {
     "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
     "mcray_postproc": [P, I, I, P, I, P, I, I, P, P, P, P],
     "mcray_postproc_slab_floats": [I, I, I, I],
-    "mcray_scan_convert": [P, I, I, P, I, I, I, P, P],
+    "mcray_scan_convert": [P, I, I, P, I, P, P, P],
     "mcray_scan_convert_bwd": [P, P, P, P, I, P, P],
 }
 

@@ -5,13 +5,20 @@ Replaces both ``mcray_tpu/ops/pallas/scanconv.py:_scanconv_kernel`` and
 ``_scanconv_banded_kernel`` (op ``_scanconv_banded_op``, wrapper
 ``scan_convert_banded``): cv::remap with INTER_LINEAR and BORDER_CONSTANT.
 The TPU computes the remap as one-hot MXU matmuls because its gathers are
-slow; on the card it is what it is, a gather: one thread per B-mode pixel
-reads its six-entry row of the packed table (``pack_scan_maps``) and sums
-the four taps in f32, in ``map_coordinates``' order. The TPU's bf16 MXU
-rounding is not reproduced; the contract is ``imaging.scan_convert``.
+slow; on the card it is what it is, a gather. K4 reads only the RF image
+and the two f32 coordinate maps (``ScanMaps.coords``), 8 bytes per pixel,
+which is what its bound counts: a thread per pixel computes the pixel's
+floor, fraction and edge weights as ``pack_scan_maps`` does on the host, in
+the same f32 operations, and sums the four taps in ``map_coordinates``'
+order. So K4 equals the
+table-driven ``scan_convert_plain`` bit for bit; ``scan_convert_coords_plain``
+is the same computation from the maps in plain torch, and what the card's
+tests hold K4 to. A pixel outside the fan (all four weights 0) writes 0 and
+reads no RF value. The TPU's bf16 MXU rounding is not reproduced; the
+contract is ``imaging.scan_convert``.
 
-Bound: the latency of 4 independent gathers per pixel; the (out_rows, 8,
-W_pad) table and the RF image are small enough to stay in L2.
+Bound: bytes (the image, the maps and the output, ~3.35 MB at SimConfig);
+the RF image stays in L2.
 
 K9 replaces ``_scanconv_bwd_kernel`` and ``_scanconv_banded_bwd_kernel``
 (one kernel for both, as K4: the banded/full split only shortens the TPU's
@@ -26,14 +33,15 @@ lists once, about three times the bytes the function itself needs (the
 cotangent, the two coordinate maps, the gradient). ``scan_convert_bwd_plain``
 is the four transposed taps as ``index_put_(accumulate=True)``.
 
-The table and its transpose are one static object, ``ScanMaps``, built
-together by ``scan_maps``. ``scan_convert_cuda`` is a
+The maps, the table and its transpose are one static object, ``ScanMaps``,
+built together by ``scan_maps``. ``scan_convert_cuda`` is a
 ``torch.autograd.Function`` over both kernels: K4 / K9 for CUDA tensors, the
 plain versions for CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -46,6 +54,8 @@ LANES = 128
 
 #: forward kernel (K4) launches since the last reset (one per call on a CUDA tensor)
 launches = 0
+#: the grid of the latest K4 launch, as the C entry reported it
+last_blocks = 0
 #: backward kernel (K9) launches since the last reset
 launches_bwd = 0
 
@@ -85,6 +95,29 @@ def scan_convert_plain(rf: torch.Tensor, table: torch.Tensor, out_cols: int) -> 
     """Plain version: the same 4-tap gather from the packed table."""
     t = table[:, :, :out_cols]
     return imaging.bilinear_gather(rf, t[:, 0].long(), t[:, 1], t[:, 2], t[:, 3].long(), t[:, 4], t[:, 5])
+
+
+def scan_convert_coords_plain(rf: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4 as the kernel computes it: from the (2, out_rows,
+    out_cols) coordinate maps, each pixel's floor, fraction and edge weights
+    in ``pack_scan_maps``' f32 operations, the four taps, and 0 where all
+    four weights are 0. Equal to ``scan_convert_plain`` on the packed table
+    (a pixel outside the fan is +0.0 here, a sum of zero-weighted taps there)."""
+    rows, cols = rf.shape
+
+    def axis(m, n):
+        i0 = torch.floor(m)
+        frac = m - i0
+        w0 = (1.0 - frac) * ((i0 >= 0) & (i0 <= n - 1)).to(m.dtype)
+        w1 = frac * ((i0 + 1 >= 0) & (i0 + 1 <= n - 1)).to(m.dtype)
+        return torch.clamp(i0, -1, n - 1).long(), w0, w1
+
+    r0, w_r0, w_r1 = axis(coords[0], rows)
+    c0, w_c0, w_c1 = axis(coords[1], cols)
+    out = imaging.bilinear_gather(rf, r0, w_r0, w_r1, c0, w_c0, w_c1)
+    outside = ((w_r0 * w_c0 == 0) & (w_r0 * w_c1 == 0) & (w_r1 * w_c0 == 0)
+               & (w_r1 * w_c1 == 0))
+    return torch.where(outside, 0.0, out)
 
 
 def invert_scan_table(table: np.ndarray, rf_rows: int, rf_cols: int, out_cols: int):
@@ -133,11 +166,13 @@ def scan_convert_bwd_plain(g: torch.Tensor, table: torch.Tensor, rows: int, cols
 
 @dataclasses.dataclass(frozen=True)
 class ScanMaps:
-    """The static remap of one probe geometry on one device: the packed
-    per-pixel ``table`` (``pack_scan_maps``) that K4 reads and its transpose
+    """The static remap of one probe geometry on one device: the coordinate
+    maps ``coords`` that K4 reads, the packed per-pixel ``table``
+    (``pack_scan_maps``) that the plain versions read, and its transpose
     (``invert_scan_table``: ``row_ptr``, ``pixel``, ``weight``) that K9 reads,
     built together by ``scan_maps``."""
 
+    coords: torch.Tensor   # (2, out_rows, out_cols) f32: map_row, map_col
     table: torch.Tensor    # (out_rows, 8, W_pad) f32
     row_ptr: torch.Tensor  # (rf_rows * rf_cols + 1,) i32
     pixel: torch.Tensor    # (nnz,) i32
@@ -152,9 +187,10 @@ def scan_maps(map_row: np.ndarray, map_col: np.ndarray, rf_rows: int, rf_cols: i
     """``ScanMaps`` on ``device`` from the (out_rows, out_cols) coordinate
     maps of ``imaging.scan_conversion_maps`` (host side, once per geometry)."""
     out_cols = np.shape(map_row)[1]
+    coords = np.stack([np.asarray(map_row, np.float32), np.asarray(map_col, np.float32)])
     table = pack_scan_maps(map_row, map_col, rf_rows, rf_cols)
     inverse = invert_scan_table(table, rf_rows, rf_cols, out_cols)
-    return ScanMaps(*(torch.from_numpy(a).to(device) for a in (table, *inverse)),
+    return ScanMaps(*(torch.from_numpy(a).to(device) for a in (coords, table, *inverse)),
                     rf_rows, rf_cols, out_cols)
 
 
@@ -200,19 +236,20 @@ def scan_convert_cuda(rf: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
 
 def scan_convert_forward(rf: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
     """K4 for CUDA tensors, ``scan_convert_plain`` for CPU tensors (no autograd)."""
-    global launches
-    table, out_cols = maps.table, maps.out_cols
-    if rf.device.type == "cpu" and table.device.type == "cpu":
-        return scan_convert_plain(rf, table, out_cols)
+    global launches, last_blocks
+    if rf.device.type == "cpu" and maps.table.device.type == "cpu":
+        return scan_convert_plain(rf, maps.table, maps.out_cols)
     rows, cols = maps.rf_rows, maps.rf_cols
-    out_rows, _, w_pad = table.shape
+    out_rows = maps.table.shape[0]
     _build.require(rf, "rf", torch.float32, (rows, cols))
-    _build.require(table, "table", torch.float32, (out_rows, 8, w_pad))
-    out = torch.empty((out_rows, out_cols), dtype=torch.float32, device=rf.device)
+    _build.require(maps.coords, "coords", torch.float32, (2, out_rows, maps.out_cols))
+    out = torch.empty((out_rows, maps.out_cols), dtype=torch.float32, device=rf.device)
+    blocks = ctypes.c_int(0)
     code = _build.library().mcray_scan_convert(
-        rf.data_ptr(), rows, cols, table.data_ptr(), out_rows, out_cols, w_pad,
-        out.data_ptr(), _build.stream_of(rf),
+        rf.data_ptr(), rows, cols, maps.coords.data_ptr(), out.numel(), out.data_ptr(),
+        ctypes.byref(blocks), _build.stream_of(rf),
     )
     _build.check(code, "mcray_scan_convert")
     launches += 1
+    last_blocks = blocks.value
     return out

@@ -6,18 +6,21 @@ also run where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerances are those of chip_smoke.py: the closest hits (K1, and the
+Tolerances are those of chip_smoke.py: the closest hits (K1 also at edge
+shapes of rays and triangles, and the
 cluster kernels K5 listed, K6 culled, K7 staged, K10 grouped) bitwise in t and winning
 index (FMA contraction is off in the kernels, and plain PyTorch on CUDA
 rounds every op), the march at rtol 1e-4 / atol 1e-5 in each of its four
 texture modes and bitwise in every bitsum field mode (Box–Muller: 1e-4 /
 1e-5 with gate flips counted), the postproc at 1e-5 / 1e-6 (bitwise on
 images of 993 to 2,000 rows), the modes run in plain torch on the card at
-1e-4 / 1e-5 against the CPU, and the scan conversion at
-1e-6 / 1e-6; the march backward (K8) per SoA field within 1e-4 of the field's
+1e-4 / 1e-5 against the CPU, and the scan conversion bitwise against its
+plain versions (1e-6 / 1e-6 through the frame's autograd Function); the march backward (K8) per SoA field within 1e-4 of the field's
 largest plain entry, the scan-conversion backward (K9) at 1e-5 / 1e-6, and a
 whole fit step's loss and material gradient against the CPU plain path.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -56,6 +59,51 @@ def test_intersect_kernel_matches_plain(cuda):
     assert intersect.launches == before + 1
     assert bool((t_p < 1.5).any())
     assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+
+
+def _k1_blocks(n: int, t: int) -> int:
+    """K1's grid: 32-ray tiles x slices of at least 256 triangles (at most 8)."""
+    return -(-n // 32) * (1 if t <= 256 else min(8, -(-t // 256)))
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 2560])
+@pytest.mark.parametrize("t", [1, 255, 257, 2220])
+def test_intersect_kernel_at_edge_shapes(cuda, n, t):
+    """K1 (its triangles split over up to 8 cluster blocks of 8 warps) at
+    ray counts around its 32-ray tile and triangle counts around its
+    256-triangle slice: t and index bitwise the plain version's, one launch,
+    the grid it reports."""
+    from chip_smoke import k1_edge_case  # duplicated triangles, aimed rays, a dead stretch
+
+    rays, tri_soa = k1_edge_case(n, t)
+    before = intersect.launches
+    t_k, i_k = intersect.intersect_best(rays, tri_soa)
+    assert intersect.launches == before + 1
+    assert intersect.last_blocks == _k1_blocks(n, t)
+    t_p, i_p = intersect.intersect_best_plain(rays, tri_soa)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(i_k, i_p)
+    assert int((t_p < 1.5).sum()) >= n // 4
+    if t >= 4 and n > 32:  # some winners have a twin at a higher index
+        assert bool(((t_p < 1.5) & (i_p < t // 2)).any())
+
+
+@pytest.mark.parametrize("t", [0, 1, 2220])
+def test_intersect_kernel_on_dead_rays_and_no_triangles(cuda, t):
+    """600 parked dead rays (every cluster skips its walk), and live rays
+    against no triangle: every ray misses, (2.0, 0)."""
+    rng = np.random.default_rng(t)
+    tris, _ = random_triangles(rng, t)
+    tri_soa = geometry.triangle_soa(to_torch(tris).reshape(-1, 3, 3)).to(cuda)
+    dead = torch.cat([torch.full((3, 600), 1e9), torch.zeros((3, 600))]).to(cuda)
+    o, s = random_segments(rng, 100)
+    live = to_torch(np.concatenate([o, s], axis=1)).T.contiguous().to(cuda)
+    for rays in (dead, live) if t == 0 else (dead,):
+        t_k, i_k = intersect.intersect_best(rays, tri_soa)
+        assert intersect.last_blocks == _k1_blocks(rays.shape[1], t)
+        assert bool((t_k == 2.0).all()) and not bool(i_k.any())
+        t_p, i_p = intersect.intersect_best_plain(rays, tri_soa)
+        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
 
 
 def _cluster_cases(cuda):
@@ -257,6 +305,32 @@ def test_frame_kernels_match_plain(cuda):
         rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("case", ["sphere frame", "full size", "linear", "phased", "ragged"])
+def test_scan_convert_kernel_matches_plain_bitwise(cuda, case):
+    """K4 (weights computed from the two coordinate maps, a thread per
+    pixel) bitwise against its map-driven plain version and the table-driven
+    one: the sphere frame's enveloped RF, a full-size image, the linear and
+    phased maps, and 101 x 123 pixels (a ragged last block)."""
+    overrides = {"linear": {"probe_type": "linear"}, "phased": {"probe_type": "phased"},
+                 "ragged": {"bmode_rows": 101, "bmode_cols": 123}}.get(case, {})
+    cfg = SimConfig() if case == "full size" else small_test_config(**overrides)
+    if case == "sphere frame":
+        sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda)
+        rf, maps = sim.render_frame(1)["rf_env"], sim.scan_maps
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(8)
+        rf = torch.randn((cfg.rf_rows, cfg.rf_cols), device=cuda, generator=gen)
+        maps = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols,
+                                  device=cuda)
+    before = scanconv.launches
+    got = scanconv.scan_convert_forward(rf, maps)
+    assert scanconv.launches == before + 1
+    assert scanconv.last_blocks == -(-cfg.bmode_rows * cfg.bmode_cols // 128)
+    assert torch.equal(got, scanconv.scan_convert_coords_plain(rf, maps.coords))
+    assert torch.equal(got, scanconv.scan_convert_plain(rf, maps.table, cfg.bmode_cols))
+    assert float(got.abs().max()) > 0
+
+
 def _made_up_images():
     """(name, image) for K3: all zeros; columns with plateaus and a column
     without a peak among noise; an image narrower than the lateral window
@@ -450,6 +524,28 @@ def test_wrappers_reject_bad_inputs(cuda):
     on_cpu = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols)
     with pytest.raises(ValueError):
         scanconv.scan_convert_cuda(rf, on_cpu)  # maps left on the CPU
+    on_card = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols,
+                                 device=cuda)
+    coords = on_card.coords
+    before = scanconv.launches
+    with pytest.raises(TypeError):
+        scanconv.scan_convert_forward(rf, dataclasses.replace(on_card, coords=coords.double()))
+    with pytest.raises(ValueError):  # one map only
+        scanconv.scan_convert_forward(rf, dataclasses.replace(on_card, coords=coords[:1]))
+    with pytest.raises(ValueError):  # not contiguous
+        scanconv.scan_convert_forward(
+            rf, dataclasses.replace(on_card, coords=coords.transpose(1, 2).contiguous().transpose(1, 2)))
+    with pytest.raises(ValueError):
+        scanconv.scan_convert_forward(rf, dataclasses.replace(on_card, coords=coords.cpu()))
+    assert scanconv.launches == before
+    rays = torch.zeros((6, 8), device=cuda)
+    tri_soa = torch.zeros((9, 4), device=cuda)
+    with pytest.raises(ValueError):
+        intersect.intersect_best(rays[:, :0], tri_soa)  # no ray
+    with pytest.raises(ValueError):
+        intersect.intersect_best(rays[:5], tri_soa)
+    with pytest.raises(TypeError):
+        intersect.intersect_best(rays, tri_soa.double())
     soa = torch.zeros((4, march.N_FIELDS, 128), device=cuda)
     with pytest.raises(TypeError):
         march.march_cuda(soa.double(), torch.zeros(2, dtype=torch.int64), cfg, 128)

@@ -4,12 +4,16 @@ Both reference forms: the split/banded Pallas kernels
 (``scan_convert_banded(..., interpret=True, precision="highest")``, f32-exact
 one-hot matmuls) and the jnp gather ``imaging.scan_convert``
 (map_coordinates order 1). The port sums the same four taps in
-map_coordinates' order: rtol 1e-5, atol 1e-6.
+map_coordinates' order: rtol 1e-5, atol 1e-6. K4 on the card reads the two
+coordinate maps, not the packed table, and computes each pixel's weights
+itself: its plain version from the maps must equal the table-driven one
+bitwise.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_port import both_configs, to_np, to_torch
 from mcray_tpu.ops import imaging as ref_imaging
@@ -55,3 +59,26 @@ def test_scan_convert_border_is_zero():
     outside = (map_row < -1) | (map_row > cfg.rf_rows) | (map_col < -1) | (map_col > cfg.rf_cols)
     assert outside.any()
     np.testing.assert_array_equal(out[outside], 0.0)
+
+
+@pytest.mark.parametrize("probe", ["convex", "linear", "phased"])
+def test_scan_convert_from_coords_matches_the_table(rng, probe):
+    """``scan_convert_coords_plain`` (floor, fraction and edge weights from
+    ``ScanMaps.coords`` in f32, K4's computation) equals the table-driven
+    ``scan_convert_plain`` bitwise, and the maps are the geometry's."""
+    _, cfg = both_configs(small=probe != "convex", probe_type=probe)
+    maps = imaging.scan_conversion_maps(cfg)
+    built = scanconv.scan_maps(*maps, cfg.rf_rows, cfg.rf_cols)
+    assert built.coords.dtype == torch.float32
+    assert tuple(built.coords.shape) == (2, cfg.bmode_rows, cfg.bmode_cols)
+    np.testing.assert_array_equal(to_np(built.coords), np.stack(maps))
+    rf = to_torch(rng.standard_normal((cfg.rf_rows, cfg.rf_cols)).astype(np.float32))
+    got = scanconv.scan_convert_coords_plain(rf, built.coords)
+    want = scanconv.scan_convert_plain(rf, built.table, cfg.bmode_cols)
+    assert torch.equal(got, want)
+    # outside the fan (every weight 0) both read 0; inside, texture
+    t = built.table[:, :, : cfg.bmode_cols]
+    outside = ((t[:, 1] == 0) & (t[:, 2] == 0)) | ((t[:, 4] == 0) & (t[:, 5] == 0))
+    assert not bool(got[outside].any()) and float(got[~outside].std()) > 0
+    if probe != "linear":
+        assert bool(outside.any())
