@@ -30,7 +30,9 @@ cluster paths' hit and t also against K1's bitwise), K1 also on 256 rays
 of each ircad_hd bounce (its plain version at 123,224 triangles is too slow
 for all 2,560) and at edge shapes (1, 33, 1,000 and 2,560 rays x 1, 255,
 257 and 2,220 triangles, duplicated triangles, dead rays, no triangle),
-K4 bitwise against its plain version from the coordinate maps, K5 also at other
+K4 bitwise against its plain version from the coordinate maps, K9 bitwise
+against its CSR lists summed in order on the host, K10 per ray (t and slot bitwise) at every mega grouped
+bounce and on both 200,000-triangle sets, K5 also at other
 packet sizes and in two passes on the mega
 frame's first and a late bounce, on both 200,000-triangle sets and at
 every bounce of the sphere and ircad_hd frames, K6 and K7 at packets of
@@ -53,16 +55,17 @@ Frames, fit steps, stages and kernels (beside their plain versions and,
 where one PyTorch call computes the same function, beside that call) are
 timed with CUDA events; each kernel's bound (the least time the card could
 take: bytes over 3.35 TB/s or operations over 67 TFLOP/s of plain f32,
-whichever is larger) is computed from the run's own inputs. K1, K5, K6,
-K7, K3, K2, K8, K4 and K9 are also timed replayed from a CUDA graph (the
+whichever is larger) is computed from the run's own inputs. All ten
+kernels are also timed replayed from a CUDA graph (the
 kernels back to back, without the host's time to launch each), K1 on the
 sphere brute and ircad_hd bounces, K5 on each of its ray sets, K6 and K7 on
-the sphere and ircad_hd frames, K2 and K8 in their default and Box–Muller
-modes, K4 and K9 beside their library calls, and beside the time of one
-launch of the library's cheapest call; the grids of K1, K3, K4, K5, K6 and
-K7 are read back and must fill half the card. The sphere brute frame and
-the ircad_hd frames (listed, culled, staged) are profiled as the sphere's
-and the mega scene's are.
+the sphere and ircad_hd frames, K10 on the mega grouped frame, its bounces
+0 and 5 and the two 200,000-triangle sets, K2 and K8 in their default and
+Box–Muller modes, K4 and K9 beside their library calls, and beside the time
+of one launch of the library's cheapest call; the grids of K1, K3, K4, K5,
+K6, K7, K9 and K10 are read back and must fill half the card. The sphere
+brute frame and the ircad_hd frames (listed, culled, staged) are profiled
+as the sphere's and the mega scene's are.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
@@ -79,6 +82,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 from device_timing import busy_view, cuda_ms, event_ms, graph_ms, grid_sample_remap, nvidia_smi
@@ -267,7 +271,7 @@ def grouped_args(o, s, packed, tile_r: int) -> tuple[tuple, dict]:
 def cluster_call(mode: str, o, s, packed, tile_r: int):
     """(kernel, plain, arguments) of ``mode``'s cluster kernel for one ray set."""
     if mode == "grouped":
-        return (intersect_grouped.grouped_best, intersect_grouped.grouped_best_plain,
+        return (intersect_grouped.grouped_winners, intersect_grouped.grouped_winners_plain,
                 grouped_args(o, s, packed, tile_r)[0])
     if mode == "listed":
         return (intersect_listed.listed_best, intersect_listed.listed_best_plain,
@@ -426,9 +430,9 @@ def made_up_images() -> list:
 
 def check_cluster_bounces(name: str, sim, rays: torch.Tensor, tri_soa) -> list:
     """The path's cluster kernel against its plain version (t and slot
-    bitwise; for K10 on every slot of the cluster tables) and the whole
-    cluster closest hit's hit and t against K1's (bitwise), at every
-    bounce's rays of the frame; returns the per-bounce (kernel, plain,
+    bitwise; for K10 each padded ray's winner over its cluster tables) and
+    the whole cluster closest hit's hit and t against K1's (bitwise), at
+    every bounce's rays of the frame; returns the per-bounce (kernel, plain,
     arguments)."""
     packed, mode = sim.culled_tris
     tile_r = sim.intersect_tile_r
@@ -440,7 +444,8 @@ def check_cluster_bounces(name: str, sim, rays: torch.Tensor, tri_soa) -> list:
         kernel, plain, args = cluster_call(mode, o, s, packed, tile_r)
         t_k, i_k = kernel(*args)
         t_p, i_p = plain(*args)
-        differing += int((t_k != t_p).sum() + (i_k != i_p).sum())
+        differing += int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum()
+                         + (i_k != i_p).sum())
         got = closest(o, s, packed)
         bt, _ = intersect.intersect_best(rays[d].contiguous(), tri_soa)
         vs_brute += int((got["hit"] != (bt < 1.5)).sum() + (got["t"] != bt).sum())
@@ -531,11 +536,13 @@ def grouped_bound(calls) -> tuple[float, str]:
     """K10 per launch, mean over the given calls, for this run's tables:
     every (ray, cluster) incidence in a table tested against the cluster's
     triangles; rows v0/e1/e2 of each cluster that holds a ray read once, the
-    rays, tables and counts read once, the two result tables written once."""
+    rays, the counts and the used table slots read once, and each ray's
+    winner, (t, slot), written once."""
     n_b = n_o = 0
     for _, _, (padded, ray_ids, counts, packed) in calls:
-        n_o += int(counts.sum()) * packed.tile_t * OPS_MOLLER_TRUMBORE
-        n_b += (nbytes(padded, ray_ids, counts) + 2 * nbytes(ray_ids)
+        in_table = int(counts.sum())
+        n_o += in_table * packed.tile_t * OPS_MOLLER_TRUMBORE
+        n_b += (nbytes(padded, counts) + 4 * in_table + 8 * padded.shape[1]
                 + int((counts > 0).sum()) * 9 * packed.tile_t * 4)
     return bound(n_b / len(calls), n_o / len(calls))
 
@@ -564,6 +571,26 @@ def check_march_bwd(got: torch.Tensor, want: torch.Tensor) -> float:
     print(f"  march_bwd: 16 fields, worst max abs err / max |plain| {worst:.3e} "
           f"(limit {MARCH_BWD_TOL}) ok")
     return float((got - want).abs().max())
+
+
+def check_scanconv_bwd(g_bm, maps, cfg) -> float:
+    """K9 bitwise against its CSR lists summed in list order on the host
+    (from +0.0, each product rounded: the kernel's order), and within
+    TOLERANCES of the scatter-add plain version; returns the max abs error
+    against the latter."""
+    got = scanconv.scan_convert_backward(g_bm, maps)
+    row_ptr, pixel, weight = (a.cpu().numpy() for a in (maps.row_ptr, maps.pixel, maps.weight))
+    in_order = np.zeros(cfg.rf_rows * cfg.rf_cols, np.float32)
+    np.add.at(in_order, np.repeat(np.arange(in_order.size), np.diff(row_ptr)),
+              weight * g_bm.cpu().numpy().reshape(-1)[pixel])
+    differing = int((got.cpu().view(torch.int32).reshape(-1)
+                     != torch.from_numpy(in_order).view(torch.int32)).sum())
+    print(f"  scanconv_bwd: {differing} differing cells vs the CSR lists summed in order "
+          f"({pixel.size} taps)")
+    if differing:
+        raise AssertionError("scanconv_bwd kernel != its CSR lists summed in order")
+    return check_close("scanconv_bwd", got,
+                       scanconv.scan_convert_bwd_plain(g_bm, maps.table, cfg.rf_rows, cfg.rf_cols))
 
 
 def device_view(label: str, fn, unit_ms: float, n: int = 3, top: int = 8) -> dict:
@@ -711,9 +738,11 @@ def time_grouped_query(label: str, o, s, packed, tile_r: int) -> dict:
     (prepass, K10, winner, residual K5, tail) beside the whole listed query."""
     g_args, stats = grouped_args(o, s, packed, tile_r)
     l_args = listed_args(o, s, packed, tile_r)
-    k10, k10_plain = paired_ms(lambda: intersect_grouped.grouped_best(*g_args),
-                               lambda: intersect_grouped.grouped_best_plain(*g_args), 1,
+    k10, k10_plain = paired_ms(lambda: intersect_grouped.grouped_winners(*g_args),
+                               lambda: intersect_grouped.grouped_winners_plain(*g_args), 1,
                                k_reps=20, p_reps=2)
+    k10_device = graph_ms(lambda: intersect_grouped.grouped_winners(*g_args), 1)
+    stats.update(blocks=intersect_grouped.last_blocks)
     k5 = cuda_ms(lambda: intersect_listed.listed_best(*l_args), 10)
     whole_g = cuda_ms(lambda: intersect_grouped.intersect_closest_grouped(
         o, s, packed, residual_tile_r=tile_r), 5)
@@ -725,11 +754,13 @@ def time_grouped_query(label: str, o, s, packed, tile_r: int) -> dict:
           f"({stats['incidences']} incidences, {stats['in_table']} in the tables of "
           f"{stats['clusters_with_rays']} clusters), {stats['overflow_share']:.1%} of clusters "
           f"overflowed; listed packets list {lists} clusters in all")
-    print(f"    K10 {k10:.4f} ms (plain {k10_plain:.4f}, bound {b_ms:.5f} by {b_by}), K5 on the "
+    print(f"    K10 {k10:.4f} ms, device {k10_device:.5f} (plain {k10_plain:.4f}, bound {b_ms:.5f} "
+          f"by {b_by}; {stats['blocks']} blocks), K5 on the "
           f"same rays {k5:.4f} ms; whole grouped query {whole_g:.3f} ms, whole listed query "
-          f"{whole_l:.3f} ms")
-    return {"k10_ms": k10, "k10_plain_ms": k10_plain, "bound_ms": b_ms, "bound_by": b_by,
-            "k5_ms": k5, "grouped_query_ms": whole_g, "listed_query_ms": whole_l, **stats}
+          f"{whole_l:.3f} ms ({'grouped' if whole_g < whole_l else 'listed'} faster)")
+    return {"k10_ms": k10, "k10_device_ms": k10_device, "k10_plain_ms": k10_plain,
+            "bound_ms": b_ms, "bound_by": b_by, "k5_ms": k5, "grouped_query_ms": whole_g,
+            "listed_query_ms": whole_l, **stats}
 
 
 def isotropic_phase(smi: str) -> tuple[dict, dict]:
@@ -765,6 +796,15 @@ def isotropic_phase(smi: str) -> tuple[dict, dict]:
         if differing or counts["intersect_grouped"] != 1 or counts["intersect_listed"] != 1 \
                 or not int(got["hit"].sum()) > 100:
             raise AssertionError(f"isotropic phase, {name} rays: grouped, listed and K1 disagree")
+        g_args = grouped_args(o, s, packed, tile_r)[0]
+        t_k, i_k = intersect_grouped.grouped_winners(*g_args)
+        t_p, i_p = intersect_grouped.grouped_winners_plain(*g_args)
+        k10_differing = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum()
+                            + (i_k != i_p).sum())
+        print(f"  {name}: K10 per ray against its plain version: {k10_differing} differing "
+              f"(t, slot) over {t_k.numel()} padded rays")
+        if k10_differing:
+            raise AssertionError(f"isotropic phase, {name} rays: intersect_grouped != plain")
         check_listed_shapes(f"stress 200k {name}", [(o, s)], packed, tri_soa)
         result[name] = time_grouped_query(f"{name} rays", o, s, packed, tile_r)
         ray_sets[name] = listed_args(o, s, packed, tile_r)
@@ -1098,10 +1138,7 @@ def main() -> int:
     errs["march_bwd"] = check_march_bwd(
         march.march_backward(fit_soa, fit_sim.seeds, g_rf, fit_cfg),
         march.march_bwd_plain(fit_soa, fit_sim.seeds, g_rf, fit_cfg))
-    errs["scanconv_bwd"] = check_close(
-        "scanconv_bwd",
-        scanconv.scan_convert_backward(g_bm, maps),
-        scanconv.scan_convert_bwd_plain(g_bm, maps.table, cfg.rf_rows, cfg.rf_cols))
+    errs["scanconv_bwd"] = check_scanconv_bwd(g_bm, maps, cfg)
     # K2 and K8 at full size: the sphere frame and the fit's set-up, with
     # bitsum normals (K2 bitwise) and with Box–Muller normals
     print("[march at full size] K2 bitwise with bitsum normals")
@@ -1237,6 +1274,16 @@ def main() -> int:
                               mega_rays[d][3:6].T.contiguous(), mega_sim.culled_tris[0],
                               mega_sim.intersect_tile_r)
         for d in (0, MEGA_LATE_BOUNCE)}
+    # K10's device time per launch replayed from a graph: the frame's ten
+    # bounces, the two bounces and the two 200k sets; the grid of bounce 0's launch
+    k10_device_ms = {"mega": graph_ms(lambda: [k(*a) for k, _, a in mega_calls], cfg.max_depth),
+                     **{f"mega_bounce_{d}": q["k10_device_ms"] for d, q in mega_queries.items()},
+                     **{f"stress_200k_{n}": q["k10_device_ms"] for n, q in queries.items()}}
+    intersect_grouped.grouped_winners(*mega_calls[0][2])
+    k10_blocks = intersect_grouped.last_blocks
+    print("  device ms per launch (graph replay): intersect_grouped "
+          + ", ".join(f"{name} {v:.5f}" for name, v in k10_device_ms.items())
+          + f"; {k10_blocks} blocks (mega)")
 
     # K5 where it is the device's largest item: the mega listed frame's ten
     # launches, then both redesigned kernels' device time replayed from a graph
@@ -1302,11 +1349,15 @@ def main() -> int:
     postproc.postproc_forward(rf_raw, cfg)
     intersect.intersect_best(brute_rays[0].contiguous(), tri_soa["sphere"])
     scanconv.scan_convert_forward(rf_env, maps)
+    scanconv.scan_convert_backward(g_bm, maps)
     k5_blocks, k3_blocks = intersect_listed.last_blocks, postproc.last_blocks
     k1_blocks, k4_blocks = intersect.last_blocks, scanconv.last_blocks
+    k9_blocks = scanconv.last_blocks_bwd
     print(f"  blocks per launch on the sphere frame: intersect_listed {k5_blocks}, postproc "
-          f"{k3_blocks}, intersect (brute) {k1_blocks}, scanconv {k4_blocks} (132 SMs)")
-    if min(k5_blocks, k1_blocks, k4_blocks, *cluster_blocks.values()) < 66 or k3_blocks < 64:
+          f"{k3_blocks}, intersect (brute) {k1_blocks}, scanconv {k4_blocks}, scanconv_bwd "
+          f"{k9_blocks}; intersect_grouped (mega bounce 0) {k10_blocks} (132 SMs)")
+    if min(k5_blocks, k1_blocks, k4_blocks, k9_blocks, k10_blocks,
+           *cluster_blocks.values()) < 66 or k3_blocks < 64:
         raise AssertionError("a redesigned kernel launches too few blocks to fill half the card")
     # the floor small kernels are read against: the cheapest call of the library, back to back
     one_ray, one_tri = brute_rays[0][:, :1].contiguous(), tri_soa["sphere"][:, :1].contiguous()
@@ -1318,7 +1369,8 @@ def main() -> int:
     # the one PyTorch call that computes the same function, where there is one
     grid_sample = grid_sample_remap(maps.coords[0], maps.coords[1], cfg.rf_rows, cfg.rf_cols)
     transposed = torch.sparse_csr_tensor(
-        maps.row_ptr, maps.pixel, maps.weight, size=(cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols))
+        maps.row_ptr, maps.pixel, maps.weight,
+        size=(cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols))
     library_ms = {
         "scanconv": cuda_ms(lambda: grid_sample(rf_env), 20),
         "scanconv_bwd": cuda_ms(lambda: torch.mv(transposed, g_bm.reshape(-1)), 20),
@@ -1426,8 +1478,11 @@ def main() -> int:
                           "boxmuller_device_ms": k8_device_ms["boxmuller_fit_mode"],
                           "worst_field_err": max(v["bwd_worst"] for v in full_march.values())})
         if name == "intersect_grouped":  # bounce by bounce, and the queries it was built for
-            entry["mega"] = {f"bounce_{d}": q for d, q in mega_queries.items()}
-            entry["stress_200k"] = queries
+            entry.update({"device_ms": k10_device_ms, "blocks": k10_blocks,
+                          "mega": {f"bounce_{d}": q for d, q in mega_queries.items()},
+                          "stress_200k": queries})
+        if name == "scanconv_bwd":
+            entry["blocks"] = k9_blocks
         if name == "march":  # the fit runs K2 in soft + trilinear mode: its own numbers
             mode = "march soft+trilinear"
             entry.update({"fit_mode_ms": ms["sphere"][mode][0],

@@ -9,21 +9,29 @@ alternately with ``--tree`` of each, one process per run. The times
 and the profile are taken as ``chip_smoke.py`` takes them, by
 ``device_timing.py`` beside this script. At ``SimConfig()``
 widths it renders seed 0 of the sphere and the ircad_hd frames in listed
-(K5), culled (K6) and staged (K7) mode and of the mega frame in listed mode,
-takes each frame's ten bounces of rays, and times the frame's closest-hit
-kernel on them replayed from a CUDA graph (the launches back to back,
-without the host's time to launch each): device ms per launch, mean over
-the bounces. The same for the brute closest hit (K1) on the sphere brute
-frame's bounces and on the ircad_hd listed frame's, and for the scan
-conversion (K4) on the sphere brute frame's RF image beside ``grid_sample``.
-The sphere (listed and brute), ircad_hd (listed, culled and staged) and
-mega listed frames are then timed by CUDA events (5 frames) and profiled by
-``torch.profiler`` (3 frames): device busy ms, the idle share against the
-unprofiled median, device operations and the closest-hit kernel's ms per
-frame. Prints one JSON line: the tree, the card's ``nvidia-smi`` name and
-power limit, and the numbers, with a digest of each ray set so that two
-trees' runs can be seen to time the same rays. Needs the card; without one
-it exits non-zero.
+(K5), culled (K6) and staged (K7) mode and of the mega frame in listed and
+grouped (K10) mode, takes each frame's ten bounces of rays, and times the
+frame's closest-hit kernel on them replayed from a CUDA graph (the launches
+back to back, without the host's time to launch each): device ms per
+launch, mean over the bounces. K10 is timed as the function it computes,
+each ray's winner over its cluster tables (the tree's kernel and whatever
+per-ray reduction follows it there), on every mega grouped bounce, on
+bounces 0 and 5 apart, and on the 200,000-triangle fan and isotropic sets
+(``scene/stress.py``); the kernel alone by ``torch.profiler``. The same for
+the brute closest hit (K1) on the sphere brute frame's bounces and on the
+ircad_hd listed frame's, for the scan conversion (K4) on the sphere brute
+frame's RF image beside ``grid_sample``, and for its backward (K9) on a
+seeded B-mode cotangent, also with the L2 cache flushed before each call
+and on a 400 x 500 image over 64 RF columns (up to 30 taps an RF cell). The
+sphere (listed and brute), ircad_hd (listed, culled and staged) and mega
+(listed, grouped) frames are then timed by CUDA events (5 frames) and
+profiled by ``torch.profiler`` (3 frames): device busy ms, the idle share
+against the unprofiled median, device operations and the closest-hit
+kernel's ms per frame (each profile holds every launch of the kernel it
+reads, or is taken again). Prints one JSON line: the tree, the
+card's ``nvidia-smi`` name and power limit, and the numbers, with a digest
+of each ray set so that two trees' runs can be seen to time the same rays.
+Needs the card; without one it exits non-zero.
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ import os
 import statistics
 import sys
 
-from device_timing import busy_view, event_ms, graph_ms, grid_sample_remap, nvidia_smi
+from device_timing import (busy_view, cold_graph_ms, event_ms, graph_ms, grid_sample_remap,
+                           nvidia_smi)
 
 SCENES = {  # name: (scene file, directory its meshes are generated into)
     "sphere": (("assets", "sphere", "sphere.scene"), None),
@@ -44,12 +53,15 @@ SCENES = {  # name: (scene file, directory its meshes are generated into)
              ("build", "mcray_tpu_torch", "ircad11_mega")),
 }
 RUNS = [("sphere", "listed"), ("sphere", "culled"), ("sphere", "staged"), ("ircad_hd", "listed"),
-        ("ircad_hd", "culled"), ("ircad_hd", "staged"), ("mega", "listed")]
+        ("ircad_hd", "culled"), ("ircad_hd", "staged"), ("mega", "listed"), ("mega", "grouped")]
 PROFILED = [("sphere", "listed"), ("sphere", "brute"), ("ircad_hd", "listed"), ("ircad_hd", "culled"),
-            ("ircad_hd", "staged"), ("mega", "listed")]
+            ("ircad_hd", "staged"), ("mega", "listed"), ("mega", "grouped")]
 # the closest-hit kernel of each mode, by its name in the profile
 KERNEL_NAME = {"brute": "intersect_closest_kernel", "listed": "intersect_listed_kernel",
-               "culled": "intersect_culled_kernel", "staged": "intersect_staged_kernel"}
+               "culled": "intersect_culled_kernel", "staged": "intersect_staged_kernel",
+               "grouped": "intersect_grouped_kernel"}
+MEGA_BOUNCES = (0, 5)     # K10 also on these bounces alone
+STRESS_TRIS, STRESS_RAYS = 200_000, 2560
 
 
 def main() -> int:
@@ -66,12 +78,14 @@ def main() -> int:
         raise SystemExit("cluster_timing: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
 
     import mcray_tpu_torch
-    from mcray_tpu_torch.config import SimConfig
+    from mcray_tpu_torch.config import SimConfig, small_test_config
     from mcray_tpu_torch.models.simulator import Simulator
     from mcray_tpu_torch.ops import clusters, imaging
-    from mcray_tpu_torch.ops.cuda import (intersect, intersect_culled, intersect_listed,
-                                          intersect_staged, scanconv)
+    from mcray_tpu_torch.ops.bvh import build_bvh
+    from mcray_tpu_torch.ops.cuda import (intersect, intersect_culled, intersect_grouped,
+                                          intersect_listed, intersect_staged, scanconv)
     from mcray_tpu_torch.ops.geometry import NO_HIT_T
+    from mcray_tpu_torch.scene import stress
     from mcray_tpu_torch.scene.compile import load_and_compile
 
     if not os.path.abspath(mcray_tpu_torch.__file__).startswith(tree + os.sep):
@@ -80,6 +94,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    def grouped_winners(padded, ray_ids, counts, packed):
+        """K10's function: each ray's winner over its cluster tables (the
+        tree's kernel and, where it writes per-(cluster, slot) tables, the
+        per-ray reduction that follows it there)."""
+        if hasattr(intersect_grouped, "grouped_winners"):
+            return intersect_grouped.grouped_winners(padded, ray_ids, counts, packed)
+        return clusters.ray_winners(ray_ids, *intersect_grouped.grouped_best(
+            padded, ray_ids, counts, packed), padded.shape[1])
+
+    def grouped_args(o, s, packed, tile_r):
+        op, sp, padded = clusters.pad_rays(o, s, tile_r, 1e9)
+        hit_m, _ = clusters.ray_cluster_hits(op, sp, packed)
+        ray_ids, counts, _ = clusters.cluster_ray_tables(
+            hit_m, intersect_grouped.GROUP_G, intersect_grouped.CHUNK_G)
+        return padded, ray_ids, counts, packed
+
     def kernel_calls(sim, rays):
         """(kernel, arguments) of the frame's closest hit at each bounce."""
         packed, mode = sim.culled_tris
@@ -87,6 +117,9 @@ def main() -> int:
         calls = []
         for d in range(rays.shape[0]):
             o, s = rays[d][0:3].T.contiguous(), rays[d][3:6].T.contiguous()
+            if mode == "grouped":
+                calls.append((grouped_winners, grouped_args(o, s, packed, tile_r)))
+                continue
             op, sp, padded = clusters.pad_rays(o, s, tile_r)
             if mode == "listed":
                 live = torch.abs(sp).sum(dim=1) > 0.0
@@ -111,6 +144,7 @@ def main() -> int:
 
     cfg = SimConfig()
     packs, sims, out = {}, {}, {"tree": tree, "gpu": smi, "device_ms": {}, "rays_digest": {}}
+    k10_sets = {}  # K10's argument sets by name
     for scene, mode in RUNS:
         if scene not in packs:
             path, assets = SCENES[scene]
@@ -125,6 +159,31 @@ def main() -> int:
         out["rays_digest"][key] = digest(rays)
         if key == "ircad_hd listed":  # K1 on the same rays
             out["device_ms"]["ircad_hd brute"] = brute_ms(rays, sim.scene["tri_soa"])
+        if mode == "grouped":
+            k10_sets = {f"mega bounce {d}": [calls[d][1]] for d in MEGA_BOUNCES}
+            k10_sets["mega grouped"] = [a for _, a in calls]
+
+    # K10 on the 200k stress scene's coherent fan and isotropic rays, as chip_smoke.py builds them
+    tris, mids = stress.build_scene_arrays(STRESS_TRIS)
+    fan_o, fan_s, iso_o, iso_s = (torch.from_numpy(a).cuda() for a in stress.make_rays(STRESS_RAYS))
+    stress_pack = clusters.pack_tris_culled(tris, mids, build_bvh(tris).tri_order,
+                                            sort_origin=fan_o[0].cpu().numpy(), tile_t=128,
+                                            device="cuda")
+    for name, (o, s) in {"stress 200k fan": (fan_o, fan_s),
+                         "stress 200k isotropic": (iso_o, iso_s)}.items():
+        k10_sets[name] = [grouped_args(o, s, stress_pack, 512)]
+        out["rays_digest"][name] = digest(torch.cat([o, s], dim=1).T[None])
+    out["k10"] = {}
+    for name, sets in k10_sets.items():
+        view = busy_view(lambda c=sets: [grouped_winners(*a) for a in c], 10,
+                         expect={KERNEL_NAME["grouped"]: len(sets)})
+        out["k10"][name] = {
+            "device_ms": graph_ms(lambda c=sets: [grouped_winners(*a) for a in c], len(sets)),
+            "kernel_profiler_ms": sum(v for k, v in view["by_name"].items()
+                                      if KERNEL_NAME["grouped"] in k) / len(sets),
+            "operations": view["operations"] / len(sets),
+            "incidences_in_tables": sum(int(a[2].sum()) for a in sets) / len(sets),
+            "clusters_with_rays": sum(int((a[2] > 0).sum()) for a in sets) / len(sets)}
 
     # K1 on the sphere brute frame's bounces; K4 on its RF image beside grid_sample
     sim = sims["sphere", "brute"] = Simulator(packs["sphere"], cfg, device="cuda", seed=0,
@@ -137,13 +196,32 @@ def main() -> int:
     grid_sample = grid_sample_remap(map_row, map_col, cfg.rf_rows, cfg.rf_cols)
     out["device_ms"]["scanconv"] = graph_ms(lambda: scanconv.scan_convert_forward(rf_env, maps), 1)
     out["device_ms"]["grid_sample"] = graph_ms(lambda: grid_sample(rf_env), 1)
+    # K9 on a seeded cotangent of the B-mode image (the fit step's backward)
+    g_bm = torch.randn((cfg.bmode_rows, cfg.bmode_cols), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(7))
+    out["device_ms"]["scanconv_bwd"] = graph_ms(lambda: scanconv.scan_convert_backward(g_bm, maps), 1)
+    out["device_ms"]["scanconv_bwd_cold"] = cold_graph_ms(
+        lambda: scanconv.scan_convert_backward(g_bm, maps))
+    # and where an RF cell takes up to 30 taps: a 400 x 500 image over 64 RF columns
+    fine = small_test_config(bmode_rows=400, bmode_cols=500)
+    fine_maps = scanconv.scan_maps(*imaging.scan_conversion_maps(fine), fine.rf_rows, fine.rf_cols,
+                                   device="cuda")
+    g_fine = torch.randn((fine.bmode_rows, fine.bmode_cols), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(8))
+    out["device_ms"]["scanconv_bwd_fine"] = graph_ms(
+        lambda: scanconv.scan_convert_backward(g_fine, fine_maps), 1)
 
     out["frames"] = {}
+    module = {"brute": intersect, "listed": intersect_listed, "culled": intersect_culled,
+              "staged": intersect_staged, "grouped": intersect_grouped}
     for scene, mode in PROFILED:
         sim = sims[scene, mode]
         seeds = iter(range(100, 105))
         frame_ms = event_ms(lambda: sim.render_frame(seed=next(seeds)), 5)
-        view = busy_view(lambda: sim.render_frame(seed=7), 3)
+        before = module[mode].launches
+        sim.render_frame(seed=7)
+        view = busy_view(lambda: sim.render_frame(seed=7), 3,
+                         expect={KERNEL_NAME[mode]: module[mode].launches - before})
         med = statistics.median(frame_ms)
         out["frames"][f"{scene} {mode}"] = {
             "median_ms": med, "min_ms": min(frame_ms), "max_ms": max(frame_ms),

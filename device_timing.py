@@ -7,7 +7,8 @@ this module; each time or view below is measured one way for all three:
 - ``event_ms``: each call on its own, by CUDA events (a frame, a fit step);
 - ``graph_ms``: device ms per kernel launch, replayed from a CUDA graph, so
   without the host's time to launch each that events around a Python call
-  include;
+  include; ``cold_graph_ms`` the same with the 50 MB L2 cache flushed before
+  each call, as a caller that runs much else between two calls finds it;
 - ``busy_view``: the device's view by ``torch.profiler``: busy time (the
   union of the device events' intervals), device operations and ms by
   kernel name, per call;
@@ -70,20 +71,38 @@ def graph_ms(fn, launches: int, copies: int = 10, reps: int = 10) -> float:
     return cuda_ms(graph.replay, reps) / (copies * launches)
 
 
-def busy_view(fn, n: int = 3) -> dict:
+def cold_graph_ms(fn, flush_mb: int = 96) -> float:
+    """Device ms of one call of ``fn`` with the L2 cache cold: a graph of
+    (overwrite a ``flush_mb`` MB buffer, ``fn``) replayed, less the graph of
+    the overwrite alone."""
+    buf = torch.empty(flush_mb * 2**20 // 4, device="cuda")
+    return graph_ms(lambda: (buf.zero_(), fn()), 1) - graph_ms(buf.zero_, 1)
+
+
+def busy_view(fn, n: int = 3, attempts: int = 5, expect: dict[str, int] | None = None) -> dict:
     """``n`` calls of ``fn`` under ``torch.profiler``, per call: ``busy_ms``
     (the union of the device events' intervals), ``operations`` (device
-    events) and ``by_name`` (ms by kernel name). Raises if the profiler saw
-    no device event."""
+    events) and ``by_name`` (ms by kernel name). On an H100 the profiler
+    now and then loses device events of a window of small kernels, all of
+    them or some: a window is profiled again, ``attempts`` times in all,
+    until it holds a device event and, for each name in ``expect``, exactly
+    ``n`` times that many events whose name contains it (the launches a
+    call makes); else it raises."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
-        raise AssertionError("the profiler recorded no device event")
+    expect = expect or {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {k: sum(k in e.name for e in device) for k in expect}
+        if device and all(seen[k] == n * v for k, v in expect.items()):
+            break
+    else:
+        raise AssertionError(f"the profiler lost device events: {len(device)} recorded, "
+                             f"by name {seen} of {n} x {expect}")
     busy, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
         busy += max(0.0, stop - max(start, end))

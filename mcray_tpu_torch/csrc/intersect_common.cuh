@@ -54,17 +54,6 @@ __device__ __forceinline__ bool slab_active(const float* __restrict__ b, int ste
   return enter <= leave && leave > 0.f && enter < fminf(t, 1.f);
 }
 
-// Block-cooperative copy of rows 0-8 (v0, e1, e2) of a triangle tile of
-// `count` columns (row stride `stride` in the source) into shared memory
-// s[9][count].
-__device__ __forceinline__ void load_tile(float* __restrict__ s, const float* __restrict__ src,
-                                          int stride, int count) {
-  for (int k = threadIdx.x; k < 9 * count; k += blockDim.x) {
-    const int f = k / count, j = k - f * count;
-    s[k] = src[(size_t)f * stride + j];
-  }
-}
-
 // Möller–Trumbore of one ray against triangle j of a tile in shared memory
 // s[9][stride]; strict `<`, so on equal t the running winner stays.
 __device__ __forceinline__ void test_triangle(const float* __restrict__ s, int stride, int j,
@@ -92,14 +81,6 @@ __device__ __forceinline__ void test_triangle(const float* __restrict__ s, int s
     bt = t;
     bi = base + j;
   }
-}
-
-// The same against triangles [j0, j1) in ascending order: within the range
-// the lowest slot wins (jnp.argmin's rule).
-__device__ __forceinline__ void closest_in_range(const float* __restrict__ s, int stride, int j0,
-                                                 int j1, int base, const Ray& r, float& bt,
-                                                 int& bi) {
-  for (int j = j0; j < j1; ++j) test_triangle(s, stride, j, base, r, bt, bi);
 }
 
 // The same against triangles j0, j0 + step, ... below `count`, ascending:

@@ -11,6 +11,13 @@
 // Bound: bytes — each (pixel, weight) pair is read once (8 bytes per tap,
 // ~4 taps per output pixel) against one multiply-add; neighbouring cells
 // read neighbouring stretches of the lists, the cotangent stays in L2.
+//
+// Tried on an H100 and left out: a block per 16 x 16 RF tile walking the box
+// of B-mode pixels whose taps land in it, the taps computed from the two
+// coordinate maps and binned by cell in shared memory (the same order, bit
+// for bit, at about the bytes of the bound). It ran 40-59% slower at
+// SimConfig() and 27x slower on a 400 x 500 image over 64 RF columns
+// (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -32,12 +39,13 @@ __global__ void scanconv_bwd_kernel(const int* __restrict__ row_ptr,
 }  // namespace
 
 extern "C" int mcray_scan_convert_bwd(const int* row_ptr, const int* pixel, const float* weight,
-                                      const float* g, int n_cells, float* out,
+                                      const float* g, int n_cells, float* out, int* blocks,
                                       cudaStream_t stream) {
+  *blocks = 0;
   if (n_cells > 0) {
     const int block = 256;
-    scanconv_bwd_kernel<<<(n_cells + block - 1) / block, block, 0, stream>>>(
-        row_ptr, pixel, weight, g, n_cells, out);
+    *blocks = (n_cells + block - 1) / block;
+    scanconv_bwd_kernel<<<*blocks, block, 0, stream>>>(row_ptr, pixel, weight, g, n_cells, out);
   }
   return (int)cudaGetLastError();
 }

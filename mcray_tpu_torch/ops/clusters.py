@@ -18,7 +18,9 @@ cluster kernels (``mcray_tpu/ops/pallas/intersect.py``):
   the ``exact``, ``frustum`` and ``hier`` methods.
 - ``cluster_ray_tables`` / ``ray_winners`` (``:1278-1370``, ``:1414-1437``):
   the grouped kernel's cluster-major compaction (each cluster's first rays
-  whose slab test reaches it) and the per-ray reduction of its results.
+  whose slab test reaches it) and the per-ray reduction of its per-(cluster,
+  slot) results (the plain version's; K10 reduces in the kernel by the same
+  integer key).
 - ``box_active`` / ``tile_update``: the two steps every cluster kernel
   takes per cluster, in plain torch, shared by the kernels' plain versions.
 
@@ -375,7 +377,7 @@ def cluster_ray_tables(hit, group_g: int, chunk_g: int):
     return table[:-1].reshape(n_c, g), torch.clamp(total, max=g).int(), overflow
 
 
-_NO_HIT_KEY = 0x40000000 << 32  # (bits of NO_HIT_T = 2.0f) << 32 | slot 0
+NO_HIT_KEY = 0x40000000 << 32  # (bits of NO_HIT_T = 2.0f) << 32 | slot 0
 
 
 def ray_winners(ray_ids, inc_t, inc_slot, n_tot: int):
@@ -390,7 +392,7 @@ def ray_winners(ray_ids, inc_t, inc_slot, n_tot: int):
     change nothing and need no mask. (The reference sorts (ray, t, slot)
     triples twice for want of a scatter.)"""
     key = (inc_t.reshape(-1).view(torch.int32).long() << 32) | inc_slot.reshape(-1).long()
-    best = torch.full((n_tot,), _NO_HIT_KEY, dtype=torch.int64, device=key.device)
+    best = torch.full((n_tot,), NO_HIT_KEY, dtype=torch.int64, device=key.device)
     best.scatter_reduce_(0, ray_ids.reshape(-1).long(), key, "amin", include_self=True)
     return (best >> 32).int().view(torch.float32), (best & 0xFFFFFFFF).int()
 

@@ -54,7 +54,7 @@ SIGNATURES = {
     "mcray_postproc": [P, I, I, P, I, P, I, I, P, P, P, P],
     "mcray_postproc_slab_floats": [I, I, I, I],
     "mcray_scan_convert": [P, I, I, P, I, P, P, P],
-    "mcray_scan_convert_bwd": [P, P, P, P, I, P, P],
+    "mcray_scan_convert_bwd": [P, P, P, P, I, P, P, P],
 }
 
 RESTYPES = {"mcray_postproc_slab_floats": ctypes.c_longlong}
@@ -136,6 +136,8 @@ def stream_of(t) -> int:
 
 
 def check(code: int, name: str) -> None:
+    if code == 1:  # cudaErrorInvalidValue: the C entry refused its arguments, launched nothing
+        raise ValueError(f"{name}: arguments the kernel does not take (CUDA error 1)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 

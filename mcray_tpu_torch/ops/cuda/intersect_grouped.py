@@ -10,24 +10,31 @@ cluster is visited once, by exactly the rays whose slab test reaches it:
 1. ``clusters.ray_cluster_hits`` / ``cluster_ray_tables`` (plain torch on
    every device): the dense (rays x clusters) slab mask and its compaction
    into each cluster's table of at most G ray ids;
-2. the kernel: per (cluster, ray slot) the closest hit among the cluster's
-   triangles;
-3. ``clusters.ray_winners``: per ray the smallest (t, slot) over its slots;
-4. a residual listed pass (K5, ``listed_best``) over the clusters that
+2. the kernel (``grouped_winners``): per ray the least (t, slot) over the
+   (cluster, slot) entries that hold it, each the closest hit among the
+   cluster's triangles. The kernel reduces per ray itself, by a 64-bit
+   integer minimum of (bits(t) << 32) | slot, so it equals
+   ``clusters.ray_winners`` over the per-(cluster, slot) tables of
+   ``grouped_best_plain`` bit for bit (``grouped_winners_plain``) and never
+   writes those tables;
+3. a residual listed pass (K5, ``listed_best``) over the clusters that
    dropped a ray (a coherent fan overflows the budgets), seeded with the
    grouped winners, so the result is exact whatever overflowed. It runs
    every time: reading whether anything overflowed would stall the host.
 
 The reference batches ``batch_b`` clusters per program to amortise a TPU
-grid-step cost; a CUDA block per cluster has no such cost, and the argument
-is dropped.
+grid-step cost; the card's kernel has warps claim the clusters that hold a
+ray, and the argument is dropped.
 
-The plain version runs Möller–Trumbore densely over (clusters, slots,
-triangles) in cluster chunks; t and slot equal the kernel's bitwise on every
-table slot (unused slots are (NO_HIT_T, 0) in both).
+On CPU tensors the per-(cluster, slot) tables (``grouped_best``, the plain
+version run densely over clusters, slots and triangles in cluster chunks)
+and their per-ray reduction stay: the CPU path and the tests that hold the
+tables to the reference use them.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -38,6 +45,8 @@ from .intersect_listed import TILE_R, listed_best
 
 #: kernel launches since the last reset (one per call on CUDA tensors)
 launches = 0
+#: the grid of the latest launch, as the C entry reported it
+last_blocks = 0
 
 GROUP_G = 32  # ray slots per cluster (the reference's default budget)
 CHUNK_G = 4   # of which at most this many from one 128-ray chunk
@@ -68,30 +77,54 @@ def grouped_best_plain(rays, ray_ids, counts, packed: clusters.CulledTris):
 
 
 def grouped_best(rays, ray_ids, counts, packed: clusters.CulledTris):
-    """(t, slot) of every (cluster, ray slot): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    global launches
+    """(t, slot) of every (cluster, ray slot), on CPU tensors: the plain
+    version. The card computes no such table (K10 reduces per ray in the
+    kernel: ``grouped_winners``), so CUDA tensors raise."""
     if rays.device.type == "cpu" and packed.device.type == "cpu":
         return grouped_best_plain(rays, ray_ids, counts, packed)
+    raise ValueError("grouped_best: the card reduces per ray in the kernel; use grouped_winners")
+
+
+def grouped_winners_plain(rays, ray_ids, counts, packed: clusters.CulledTris):
+    """Plain version of K10: (t (n_tot,) f32, slot (n_tot,) i32), per ray the
+    least (t, slot) over its table entries, (NO_HIT_T, 0) for a ray with
+    none: ``clusters.ray_winners`` over ``grouped_best_plain``."""
+    return clusters.ray_winners(ray_ids, *grouped_best_plain(rays, ray_ids, counts, packed),
+                                rays.shape[1])
+
+
+def grouped_winners(rays, ray_ids, counts, packed: clusters.CulledTris):
+    """Per ray (t, slot) of its table entries' closest hits: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. The kernel takes G a
+    multiple of 8 up to 256 and ``tile_t`` a multiple of 4 up to 3,200 (its
+    shared memory); the C entry refuses anything else, and this raises
+    ``ValueError`` with no launch."""
+    global launches, last_blocks
+    if rays.device.type == "cpu" and packed.device.type == "cpu":
+        return grouped_winners_plain(rays, ray_ids, counts, packed)
     n_tot, (n_c, g) = rays.shape[1], ray_ids.shape
-    if not 8 <= g <= 256 or g % 8:
-        raise ValueError(f"{g} ray slots per cluster: must be a multiple of 8 in [8, 256]")
-    if packed.tile_t % 4:
-        raise ValueError(f"tile_t {packed.tile_t} must be a multiple of 4")
+    tiles, tile_t = packed.hbm_tris, packed.tile_t
+    if tiles.data_ptr() % 16:
+        raise ValueError("hbm_tris: expected 16-byte alignment (rows 0-8 of a tile come by "
+                         "bulk copy)")
     _build.require(rays, "rays", torch.float32, (6, n_tot))
     _build.require(ray_ids, "ray_ids", torch.int32, (n_c, g))
     _build.require(counts, "counts", torch.int32, (n_c,))
-    tiles = packed.hbm_tris
-    _build.require(tiles, "hbm_tris", torch.float32, (n_c, clusters.SOA_ROWS, packed.tile_t))
-    out_t = torch.empty((n_c, g), dtype=torch.float32, device=rays.device)
-    out_slot = torch.empty((n_c, g), dtype=torch.int32, device=rays.device)
+    _build.require(tiles, "hbm_tris", torch.float32, (n_c, clusters.SOA_ROWS, tile_t))
+    keys = torch.full((n_tot,), clusters.NO_HIT_KEY, dtype=torch.int64, device=rays.device)
+    blocks = ctypes.c_int(0)
     code = _build.library().mcray_intersect_grouped(
         rays.data_ptr(), n_tot, ray_ids.data_ptr(), counts.data_ptr(), n_c, g, tiles.data_ptr(),
-        packed.tile_t, out_t.data_ptr(), out_slot.data_ptr(), _build.stream_of(rays),
+        tile_t, keys.data_ptr(), ctypes.byref(blocks),
+        _build.stream_of(rays),
     )
     _build.check(code, "mcray_intersect_grouped")
     launches += 1
-    return out_t, out_slot
+    last_blocks = blocks.value
+    # a key's halves (little-endian): the slot, then the bits of t; one copy
+    # makes both rows contiguous
+    halves = keys.view(torch.int32).view(n_tot, 2).T.contiguous()
+    return halves[1].view(torch.float32), halves[0]
 
 
 def intersect_closest_grouped(origins, seg_vecs, packed: clusters.CulledTris, *,
@@ -109,11 +142,9 @@ def intersect_closest_grouped(origins, seg_vecs, packed: clusters.CulledTris, *,
     # detached rays, and gradients flow through the winner tail alone.
     # Padding rays are parked like dead ones (far origin, zero segment).
     o, s, rays = clusters.pad_rays(origins.detach(), seg_vecs.detach(), residual_tile_r, 1e9)
-    n_tot = o.shape[0]
     hit_m, live = clusters.ray_cluster_hits(o, s, packed)
     ray_ids, counts, overflow = clusters.cluster_ray_tables(hit_m, group_g, chunk_g)
-    inc_t, inc_slot = grouped_best(rays, ray_ids, counts, packed)
-    grouped_t, grouped_slot = clusters.ray_winners(ray_ids, inc_t, inc_slot, n_tot)
+    grouped_t, grouped_slot = grouped_winners(rays, ray_ids, counts, packed)
 
     # residual listed pass over the clusters that dropped a ray; each ray's
     # pruning bound is its grouped t, and inert lanes start at t = 0 so they

@@ -58,6 +58,8 @@ launches = 0
 last_blocks = 0
 #: backward kernel (K9) launches since the last reset
 launches_bwd = 0
+#: the grid of the latest K9 launch, as the C entry reported it
+last_blocks_bwd = 0
 
 
 def pack_scan_maps(map_row: np.ndarray, map_col: np.ndarray, rf_rows: int, rf_cols: int):
@@ -197,7 +199,7 @@ def scan_maps(map_row: np.ndarray, map_col: np.ndarray, rf_rows: int, rf_cols: i
 def scan_convert_backward(g: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
     """RF gradient (rf_rows, rf_cols) from the B-mode cotangent ``g``: K9 for
     CUDA tensors, ``scan_convert_bwd_plain`` for CPU tensors."""
-    global launches_bwd
+    global launches_bwd, last_blocks_bwd
     rows, cols = maps.rf_rows, maps.rf_cols
     if g.device.type == "cpu" and maps.table.device.type == "cpu":
         return scan_convert_bwd_plain(g, maps.table, rows, cols)
@@ -207,12 +209,14 @@ def scan_convert_backward(g: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
     _build.require(maps.pixel, "pixel", torch.int32)
     _build.require(maps.weight, "weight", torch.float32, tuple(maps.pixel.shape))
     out = torch.empty((rows, cols), dtype=torch.float32, device=g.device)
+    blocks = ctypes.c_int(0)
     code = _build.library().mcray_scan_convert_bwd(
         maps.row_ptr.data_ptr(), maps.pixel.data_ptr(), maps.weight.data_ptr(), g.data_ptr(),
-        n_cells, out.data_ptr(), _build.stream_of(g),
+        n_cells, out.data_ptr(), ctypes.byref(blocks), _build.stream_of(g),
     )
     _build.check(code, "mcray_scan_convert_bwd")
     launches_bwd += 1
+    last_blocks_bwd = blocks.value
     return out
 
 

@@ -16,8 +16,11 @@ texture modes and bitwise in every bitsum field mode (Box–Muller: 1e-4 /
 images of 993 to 2,000 rows), the modes run in plain torch on the card at
 1e-4 / 1e-5 against the CPU, and the scan conversion bitwise against its
 plain versions (1e-6 / 1e-6 through the frame's autograd Function); the march backward (K8) per SoA field within 1e-4 of the field's
-largest plain entry, the scan-conversion backward (K9) at 1e-5 / 1e-6, and a
-whole fit step's loss and material gradient against the CPU plain path.
+largest plain entry, the scan-conversion backward (K9) bitwise against its
+CSR lists summed in order on the host and at 1e-5 / 1e-6 against the
+scatter-add plain version, and a whole fit step's loss and material
+gradient against the CPU plain path. K10 is held per ray (t and slot
+bitwise) against ``grouped_winners_plain``.
 """
 
 import dataclasses
@@ -239,24 +242,36 @@ def test_listed_kernel_two_passes_match_brute(cuda, tile_r):
 
 @pytest.mark.parametrize("budget", [(32, 4), (8, 1), (16, 2)])
 def test_grouped_kernel_matches_plain(cuda, budget):
-    """K10 against its plain version on every table slot, and the whole
-    grouped closest hit (prepass, K10, winner, residual K5) against K1."""
+    """K10 per ray (t and slot, bitwise) against ``grouped_winners_plain``:
+    the sphere's coherent bounce-0 fan (full clusters), its ragged bounce-1
+    rays, one ray in 97 (clusters of one ray) and no live ray; and the whole
+    grouped closest hit (prepass, K10, residual K5) against K1. Each case
+    with live rays must do real work: more than 20 hits and 50 table slots
+    (the sparse case, 11 live rays, more than 5 of each)."""
     pack, cases = _cluster_cases(cuda)
     packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
                                        sort_origin=pack.transducer_position, tile_t=128,
                                        device=cuda)
     tri_soa = geometry.triangle_soa(to_torch(pack.tris)).to(cuda)
-    for name, rays in cases:
+    sparse = cases[0][1].clone()
+    keep = torch.arange(sparse.shape[1], device=cuda) % 97 == 0
+    sparse[0:3, ~keep], sparse[3:6, ~keep] = 1e9, 0.0
+    g = budget[0]
+    shapes = {}
+    for name, rays in cases + [("one ray in 97", sparse)]:
         o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, 512, 1e9)
         hit, _ = clusters.ray_cluster_hits(o, s, packed)
         ray_ids, counts, _ = clusters.cluster_ray_tables(hit, *budget)
+        shapes[name] = (int((counts == 1).sum()), int((counts == ray_ids.shape[1]).sum()))
+        want = intersect_grouped.grouped_winners_plain(padded, ray_ids, counts, packed)
         before = (intersect_grouped.launches, intersect_listed.launches)
-        t_k, i_k = intersect_grouped.grouped_best(padded, ray_ids, counts, packed)
-        t_p, i_p = intersect_grouped.grouped_best_plain(padded, ray_ids, counts, packed)
+        t_k, i_k = intersect_grouped.grouped_winners(padded, ray_ids, counts, packed)
         assert intersect_grouped.launches == before[0] + 1, name
-        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
+        assert intersect_grouped.last_blocks >= 1
+        assert torch.equal(t_k.view(torch.int32), want[0].view(torch.int32)), name
+        assert torch.equal(i_k, want[1]), name
         got = intersect_grouped.intersect_closest_grouped(
-            rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, group_g=budget[0],
+            rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, group_g=g,
             chunk_g=budget[1], residual_tile_r=512)
         assert (intersect_grouped.launches, intersect_listed.launches) == (
             before[0] + 2, before[1] + 1), name
@@ -264,8 +279,11 @@ def test_grouped_kernel_matches_plain(cuda, budget):
         assert torch.equal(got["hit"], bt < 1.5) and torch.equal(got["t"], bt), name
         if name == "all dead":
             assert not bool(got["hit"].any()) and int(counts.sum()) == 0
+            assert bool((want[0] == geometry.NO_HIT_T).all()) and not bool(want[1].any())
         else:
-            assert int(got["hit"].sum()) > 20 and int(counts.sum()) > 50, name
+            hits, slots = (5, 5) if name == "one ray in 97" else (20, 50)
+            assert int(got["hit"].sum()) > hits and int(counts.sum()) > slots, name
+    assert shapes["one ray in 97"][0] > 0 and shapes["sphere bounce 0"][1] > 0, shapes
 
 
 def test_keyed_draws_on_the_card_match_the_cpu(cuda):
@@ -474,18 +492,40 @@ def test_modes_on_the_card_match_the_cpu(cuda, overrides):
     assert torch.equal(again["rf_raw"], on_gpu["rf_raw"])  # deterministic on the card
 
 
-def test_scan_convert_backward_kernel_matches_plain(cuda):
-    cfg = small_test_config()
-    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda)
+@pytest.mark.parametrize("case", ["sphere frame", "full size", "linear", "phased", "ragged",
+                                  "fine"])
+def test_scan_convert_backward_kernel_matches_plain(cuda, case):
+    """K9 (a thread per RF cell over its CSR list) bitwise against the
+    lists summed in list order on the host, and at 1e-5 / 1e-6 against the
+    scatter-add plain version (another summation order): through the frame's
+    autograd Function on the sphere, at full size, on the linear and phased
+    maps, on 101 x 123 pixels, and on a 400 x 500 image over 64 RF columns
+    (up to 30 taps a cell)."""
+    overrides = {"linear": {"probe_type": "linear"}, "phased": {"probe_type": "phased"},
+                 "ragged": {"bmode_rows": 101, "bmode_cols": 123},
+                 "fine": {"bmode_rows": 400, "bmode_cols": 500}}.get(case, {})
+    cfg = SimConfig() if case == "full size" else small_test_config(**overrides)
     gen = torch.Generator(device=cuda).manual_seed(4)
     rf = torch.randn((cfg.rf_rows, cfg.rf_cols), device=cuda, generator=gen).requires_grad_(True)
     g = torch.randn((cfg.bmode_rows, cfg.bmode_cols), device=cuda, generator=gen)
+    if case == "sphere frame":
+        maps = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda).scan_maps
+    else:
+        maps = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols,
+                                  device=cuda)
     before = scanconv.launches_bwd
-    out = scanconv.scan_convert_cuda(rf, sim.scan_maps)
+    out = scanconv.scan_convert_cuda(rf, maps)
     (got,) = torch.autograd.grad(out, rf, g)
     assert scanconv.launches_bwd == before + 1
-    want = scanconv.scan_convert_bwd_plain(g, sim.scan_maps.table, cfg.rf_rows, cfg.rf_cols)
+    assert scanconv.last_blocks_bwd == -(-cfg.rf_rows * cfg.rf_cols // 256)
+    row_ptr, pixel, weight = (a.cpu().numpy() for a in (maps.row_ptr, maps.pixel, maps.weight))
+    in_order = np.zeros(cfg.rf_rows * cfg.rf_cols, np.float32)
+    np.add.at(in_order, np.repeat(np.arange(in_order.size), np.diff(row_ptr)),
+              weight * g.cpu().numpy().reshape(-1)[pixel])
+    np.testing.assert_array_equal(got.cpu().numpy().reshape(-1), in_order)
+    want = scanconv.scan_convert_bwd_plain(g, maps.table, cfg.rf_rows, cfg.rf_cols)
     np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-5, atol=1e-6)
+    assert float(got.abs().max()) > 0.5
 
 
 def test_fit_step_matches_the_cpu_plain_path(cuda):
@@ -538,6 +578,37 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         scanconv.scan_convert_forward(rf, dataclasses.replace(on_card, coords=coords.cpu()))
     assert scanconv.launches == before
+    g = torch.zeros((cfg.bmode_rows, cfg.bmode_cols), device=cuda)
+    before = scanconv.launches_bwd
+    for field, bad in (("row_ptr", on_card.row_ptr.long()), ("row_ptr", on_card.row_ptr[:-1]),
+                       ("pixel", on_card.pixel.cpu()), ("weight", on_card.weight[:-1])):
+        with pytest.raises((TypeError, ValueError)):
+            scanconv.scan_convert_backward(g, dataclasses.replace(on_card, **{field: bad}))
+    with pytest.raises(ValueError):  # the cotangent's shape
+        scanconv.scan_convert_backward(g[:, :-1], on_card)
+    assert scanconv.launches_bwd == before
+    pack = load_and_compile(SPHERE_SCENE)
+    packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
+                                       tile_t=128, device=cuda)
+    padded = torch.zeros((6, 128), device=cuda)
+    counts = torch.zeros(packed.n_clusters, dtype=torch.int32, device=cuda)
+    before = intersect_grouped.launches
+    for width in (4, 12, 264):  # slots per cluster: multiples of 8 in [8, 256]
+        ids = torch.zeros((packed.n_clusters, width), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError):
+            intersect_grouped.grouped_winners(padded, ids, counts, packed)
+    ids = torch.zeros((packed.n_clusters, 8), dtype=torch.int32, device=cuda)
+    # tile_t no multiple of 4; ranges of 804 triangles, whose rings pass 226 KB
+    for tile_t in (126, 3204):
+        tiles = torch.zeros((packed.n_clusters, clusters.SOA_ROWS, tile_t), device=cuda)
+        with pytest.raises(ValueError):
+            intersect_grouped.grouped_winners(
+                padded, ids, counts, dataclasses.replace(packed, tile_t=tile_t, hbm_tris=tiles))
+    with pytest.raises(TypeError):
+        intersect_grouped.grouped_winners(padded, ids.long(), counts, packed)
+    with pytest.raises(ValueError):  # the card computes no per-slot table
+        intersect_grouped.grouped_best(padded, ids, counts, packed)
+    assert intersect_grouped.launches == before
     rays = torch.zeros((6, 8), device=cuda)
     tri_soa = torch.zeros((9, 4), device=cuda)
     with pytest.raises(ValueError):

@@ -20,9 +20,18 @@ winner must be the same triangle (equal mesh id).
 Inside the port, grouped = listed = brute bitwise in hit and t: all three
 evaluate one formula op by op, and the pruning drops only clusters that
 could at best tie.
+
+K10 on the card reduces per ray in the kernel: each slot's triangles cut
+into parts (and a cluster's triangles into ranges over warps), each part
+walked in ascending order with a strict ``<``, the parts merged on (t, slot)
+by the warp's xor butterfly, the ranges and the slots by a 64-bit integer
+minimum per ray. That rule is held here, in plain torch, to the per-(cluster,
+slot) tables of ``grouped_best_plain`` and to ``grouped_winners_plain``
+bitwise.
 """
 
 import functools
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -199,3 +208,96 @@ def test_residual_tile_must_be_a_multiple_of_the_chunk():
         intersect_grouped.intersect_closest_grouped(o, s, pack, residual_tile_r=100)
     with pytest.raises(ValueError, match="multiples of 128"):
         clusters.cluster_ray_tables(torch.zeros((100, 8), dtype=torch.bool), 32, 4)
+
+
+def _k10_rule(rays, ray_ids, counts, pack, splits, parts):
+    """K10's decomposition in plain torch: per (cluster, slot, range, part)
+    the first triangle at the least t of its share (triangles j0 + p, j0 + p
+    + parts, ... of range q, ascending, strict ``<``); the parts merged by the
+    warp's xor butterfly on (t, slot); returns per (cluster, slot, range) the
+    merged (t, slot), (NO_HIT_T, INT_MAX) where the share has no hit (the
+    kernel issues no atomic for it)."""
+    n_c, g = ray_ids.shape
+    tile_t = pack.tile_t
+    ids = ray_ids.long()
+    o = rays[0:3].T[ids][:, :, None]
+    s = rays[3:6].T[ids][:, :, None]
+    v0, e1, e2 = (pack.hbm_tris[:, r : r + 3].transpose(1, 2)[:, None] for r in (0, 3, 6))
+    tt, valid = geometry._moller_trumbore(o, s, v0, e1, e2)     # (C, G, T)
+    valid &= (torch.arange(g)[None, :] < counts[:, None])[:, :, None]
+    base = (torch.arange(n_c) * tile_t)[:, None]
+    bt = torch.full((n_c, g, splits, parts), geometry.NO_HIT_T)
+    bi = torch.full((n_c, g, splits, parts), 2**31 - 1, dtype=torch.int64)
+    for q, p in itertools.product(range(splits), range(parts)):
+        for j in range(q * tile_t // splits + p, (q + 1) * tile_t // splits, parts):
+            better = valid[:, :, j] & (tt[:, :, j] < bt[:, :, q, p])
+            bt[:, :, q, p] = torch.where(better, tt[:, :, j], bt[:, :, q, p])
+            bi[:, :, q, p] = torch.where(better, base + j, bi[:, :, q, p])
+    off = 1
+    while off < parts:  # lane l meets lane l ^ off; the lesser (t, slot) stays
+        partner = torch.arange(parts) ^ off
+        ot, oi = bt[..., partner], bi[..., partner]
+        take = (ot < bt) | ((ot == bt) & (oi < bi))
+        bt, bi = torch.where(take, ot, bt), torch.where(take, oi, bi)
+        off *= 2
+    return bt[..., 0], bi[..., 0]
+
+
+@pytest.mark.parametrize("case", ["bounce", "fan"])
+@pytest.mark.parametrize("budget", list(BUDGETS))
+def test_lane_split_merge_matches_plain(budget, case):
+    """K10's rule, each slot's 128 triangles cut into 1 to 32 parts (and the
+    cluster into 1, 2, 4 or 8 ranges): merged over the ranges on (t, slot), it
+    equals ``grouped_best_plain``'s table bitwise; reduced per ray by the
+    integer key over the shares with a hit only, ``grouped_winners_plain``."""
+    pack, (_, _, rays), _, (ray_ids, counts, _) = _tables(case, **BUDGETS[budget][0])
+    want_t, want_slot = intersect_grouped.grouped_best_plain(rays, ray_ids, counts, pack)
+    win_t, win_slot = intersect_grouped.grouped_winners_plain(rays, ray_ids, counts, pack)
+    used = torch.arange(ray_ids.shape[1])[None, :] < counts[:, None]
+    n_tot = rays.shape[1]
+    for splits, parts in itertools.product((1, 2, 4, 8), (1, 2, 4, 8, 16, 32)):
+        t, slot = _k10_rule(rays, ray_ids, counts, pack, splits, parts)
+        key = (t.view(torch.int32).long() << 32) | slot
+        merged = key.min(dim=2).values
+        hit = (merged >> 32) != clusters.NO_HIT_KEY >> 32
+        assert int(hit.sum()) > 0 and not bool((hit & ~used).any())
+        m_t, m_slot = (merged >> 32).int().view(torch.float32), (merged & 0xFFFFFFFF).int()
+        assert torch.equal(m_t[hit], want_t[hit]) and torch.equal(m_slot[hit], want_slot[hit])
+        assert bool((want_t[used & ~hit] == geometry.NO_HIT_T).all())
+        # the per-ray reduction: atomics only where a share has a hit
+        keys = torch.full((n_tot,), clusters.NO_HIT_KEY, dtype=torch.int64)
+        keys.scatter_reduce_(0, ray_ids.long()[hit], merged[hit], "amin", include_self=True)
+        assert torch.equal((keys >> 32).int().view(torch.float32), win_t), (splits, parts)
+        assert torch.equal((keys & 0xFFFFFFFF).int(), win_slot), (splits, parts)
+
+
+@pytest.mark.parametrize("case", ["bounce", "fan"])
+@pytest.mark.parametrize("budget", list(BUDGETS))
+def test_grouped_winners_reduce_the_tables_per_ray(budget, case):
+    """On CPU tensors ``grouped_winners`` runs ``grouped_winners_plain``,
+    uncounted: ``ray_winners`` over ``grouped_best_plain``'s tables, per
+    padded ray. Inert rays keep (NO_HIT_T, 0); every winner's t is its ray's
+    t against the winning triangle, never below the brute closest hit, and
+    equal to it where the ray's every incidence is in the tables."""
+    pack, (o, s, rays), (hit_m, live), (ray_ids, counts, overflow) = _tables(
+        case, **BUDGETS[budget][0])
+    before = intersect_grouped.launches
+    t, slot = intersect_grouped.grouped_winners(rays, ray_ids, counts, pack)
+    assert intersect_grouped.launches == before
+    n_tot = rays.shape[1]
+    assert t.shape == slot.shape == (n_tot,) and t.dtype == torch.float32
+    assert slot.dtype == torch.int32
+    want = clusters.ray_winners(ray_ids, *intersect_grouped.grouped_best_plain(
+        rays, ray_ids, counts, pack), n_tot)
+    assert torch.equal(t, want[0]) and torch.equal(slot, want[1])
+    assert bool((t[~live] == geometry.NO_HIT_T).all()) and bool((slot[~live] == 0).all())
+    won = t < 1.5
+    assert int(won.sum()) > 0
+    rows = pack.slot_all[slot[won].long()]
+    tt, ok = geometry._moller_trumbore(o[won], s[won], rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
+    assert bool(ok.all()) and torch.equal(tt, t[won])
+    tris = _scene()[0]
+    best_t, _ = geometry.closest_hit(o, s, geometry.triangle_soa(to_torch(tris)))
+    assert bool((t >= best_t).all())
+    whole = ~(hit_m & overflow[None, :]).any(dim=1)   # no incidence left to the residual pass
+    assert int(whole.sum()) > 0 and torch.equal(t[whole], best_t[whole])
