@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the ten CUDA kernels from mcray_tpu_torch/csrc (one nvcc per
+Builds the eleven CUDA kernels from mcray_tpu_torch/csrc (one nvcc per
 source, all at once) and drives the port's paths at SimConfig() (512
 elements x 5 paths x 10 bounces, 465 x 512 RF, 400 x 500 B-mode), each
 with the launch counts set to 0 just before it and read just after:
@@ -11,7 +11,8 @@ with the launch counts set to 0 just before it and read just after:
 - the sphere (2,220 triangles) on its default kernel set: listed
   intersect (K5), march (K2), postproc (K3), scan conversion (K4), plus a
   few requests (poses, seeds, a compound);
-- the sphere on the brute closest hit (K1);
+- the sphere on the brute closest hit (K1), and by BVH traversal (K11,
+  ``use_bvh``: no TPU kernel, the reference's jnp while_loop);
 - the 123,224-triangle ircad_hd scene on its default (listed) set;
 - the culled (K6) and staged (K7) closest hits on both scenes;
 - the ~615k-triangle ircad11_mega scene in grouped mode (K10 and its
@@ -22,7 +23,14 @@ with the launch counts set to 0 just before it and read just after:
 - the differentiable material fit on the sphere in soft + trilinear mode:
   the target frame, then 5 Adam steps of ``MaterialFitter`` on the doubled
   LIVER attenuation, through K5, K2, K3, K4 forward and the march (K8) and
-  scan-conversion (K9) backward kernels.
+  scan-conversion (K9) backward kernels;
+- the probe-pose paths: ``PoseFitter(method="fd")`` from the scene's pose +
+  (0, 0.3, 0), 5 steps of 28 frames (4 keys, scales 2, 4, 8), and
+  ``method="ad"`` in soft + trilinear mode, 2 steps on position and angles
+  (K8, K9 once a step); ``serve`` on 4 requests at three poses, one
+  malformed; ``sweep``, 3 frames; ``render`` with every flag (--bvh,
+  --bug-compat, --probe, --envelope, --texture, --scatter-rng, --save-rf,
+  --dump-column).
 
 Every kernel is held against its plain PyTorch version at the shapes its
 path gave it (closest hits bitwise in t and slot, at every bounce; the
@@ -40,8 +48,12 @@ every bounce of the sphere and ircad_hd frames, K6 and K7 at packets of
 plain version at the kernel's group and at the whole packet), K3 also
 on made-up images (zeros, plateaus, no peak, no convolution) and bitwise
 on a 1,200- and a 2,000-row image, the CUDA path against the plain CPU path
-on a small config (the frame, and the loss and material gradient of one
-fit step), the keyed randomness on the card against the CPU (bits equal,
+on a small config (the frame, the loss and material gradient of one
+fit step, one pose fd step's 7 point losses, the pose gradient), K11
+bitwise against its plain version (t, winner, node and test counts) and
+against K1 (t, winner) at every bounce of the sphere bvh frame and on each
+ircad_hd bounce, the bvh frame bitwise the brute frame, a served PNG byte
+for byte ``save_png`` of ``render_frame`` at its request, the keyed randomness on the card against the CPU (bits equal,
 normals allclose), and every frame's image is checked. The march kernels
 (K2, K8) are also held against their plain versions at full size (the
 sphere frame and the fit's set-up, with bitsum and with Box–Muller
@@ -75,27 +87,32 @@ device it fails at once.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from device_timing import busy_view, cuda_ms, event_ms, graph_ms, grid_sample_remap, nvidia_smi
+from mcray_tpu_torch import cli
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models import simulator
 from mcray_tpu_torch.models.simulator import Simulator
-from mcray_tpu_torch.models.trainer import MaterialFitter
-from mcray_tpu_torch.ops import clusters, geometry, imaging, physics
+from mcray_tpu_torch.models.trainer import MaterialFitter, PoseFitter
+from mcray_tpu_torch.ops import bvh, clusters, geometry, imaging, physics
 from mcray_tpu_torch.ops import cuda as kernels
 from mcray_tpu_torch.ops.bvh import build_bvh
-from mcray_tpu_torch.ops.cuda import (_build, intersect, intersect_culled, intersect_grouped,
-                                      intersect_listed, intersect_staged, march, postproc,
-                                      scanconv)
+from mcray_tpu_torch.ops.cuda import (_build, bvh_intersect, intersect, intersect_culled,
+                                      intersect_grouped, intersect_listed, intersect_staged, march,
+                                      postproc, scanconv)
+from mcray_tpu_torch.utils.image_io import save_png
 from mcray_tpu_torch.ops.geometry import NO_HIT_T
 from mcray_tpu_torch.scene import stress
 from mcray_tpu_torch.scene.compile import load_and_compile
@@ -109,10 +126,10 @@ IRCAD_HD_SCENE = os.path.join(REPO, "assets", "ircad11_hd", "santi-liver-hd.scen
 IRCAD_HD_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_hd")
 MEGA_SCENE = os.path.join(REPO, "assets", "ircad11_mega", "santi-liver-mega.scene")
 MEGA_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_mega")
-TIMED_FRAMES = {"sphere": 10, "sphere brute": 5, "ircad_hd": 5, "ircad_hd culled": 5,
-                "ircad_hd staged": 5, "mega listed": 5, "mega grouped": 5}
-PROFILED_FRAMES = ("sphere", "sphere brute", "ircad_hd", "ircad_hd culled", "ircad_hd staged",
-                   "mega listed", "mega grouped")
+TIMED_FRAMES = {"sphere": 10, "sphere brute": 5, "sphere bvh": 5, "ircad_hd": 5,
+                "ircad_hd culled": 5, "ircad_hd staged": 5, "mega listed": 5, "mega grouped": 5}
+PROFILED_FRAMES = ("sphere", "sphere brute", "sphere bvh", "ircad_hd", "ircad_hd culled",
+                   "ircad_hd staged", "mega listed", "mega grouped")
 # packet sizes K6 and K7 are also checked at, beyond the frame's 512 (any
 # divisor of the padded ray count runs; 100 is no multiple of 32, 2,048 more
 # rays than a block has threads), and K5 at the two its other checks leave out
@@ -150,6 +167,14 @@ MARCH_BWD_TOL = 1e-4
 # between the two devices; the reference's own kernel-vs-plain gradient
 # test allows 2e-3 in trilinear mode)
 FIT_LOSS_RTOL, FIT_GRAD_TOL = 1e-4, 5e-3
+# pose registration from the scene's pose + POSE_OFFSET: fd steps at full
+# width, ad steps in soft + trilinear mode; the fd step's 7 point losses and
+# the ad pose gradient at a small config, card against CPU (the CPU tests'
+# tolerances: tests/test_torch_pose.py, tests/test_torch_pose_ad.py)
+POSE_OFFSET = (0.0, 0.3, 0.0)
+POSE_FD_STEPS, POSE_AD_STEPS = 5, 2
+POSE_LOSS_RTOL, POSE_GRAD_TOL = 1e-4, 5e-3
+SWEEP_FRAMES = 3
 
 # the card's published peaks (H100 SXM data sheet): device memory and plain
 # f32 outside the tensor cores, which is what every kernel here computes in
@@ -163,6 +188,7 @@ OPS_MARCH_STEP = {False: OPS_HASH_PAIR + 30,            # nearest: index, gate, 
 OPS_MARCH_BWD_STEP = {False: OPS_HASH_PAIR + 60, True: 8 * (OPS_HASH_PAIR + 36) + 120}
 OPS_POSTPROC_CELL = 2 * (7 + 13) + 10   # the two tap sums + the envelope lerp
 OPS_SCANCONV_PIXEL = 11                 # 4 weight products, 4 multiplies, 3 adds
+OPS_SLAB_NODE = 26                      # per node popped: 6 sub, 6 mul, 10 min/max, 4 compares
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "intersect": ("mcray_tpu_torch/csrc/intersect.cu", "mcray_tpu/ops/pallas/intersect.py:41"),
     "intersect_listed": ("mcray_tpu_torch/csrc/intersect_listed.cu",
@@ -179,6 +205,8 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "march_bwd": ("mcray_tpu_torch/csrc/march_bwd.cu", "mcray_tpu/ops/pallas/march.py:334"),
     "scanconv_bwd": ("mcray_tpu_torch/csrc/scanconv_bwd.cu",
                      "mcray_tpu/ops/pallas/scanconv.py:482"),
+    # no TPU kernel: the reference's BVH traversal is a jnp while_loop
+    "bvh_intersect": ("mcray_tpu_torch/csrc/bvh_intersect.cu", "mcray_tpu/ops/bvh.py:121"),
 }
 # the TPU kernels K4 and K9 replace beside the one in SOURCES (one gather
 # each for the banded and the full remap, and for their backward passes)
@@ -229,8 +257,8 @@ def drive(name: str, sim, expected: dict[str, int], seed: int = 0):
     """One frame through ``sim`` with the launch counts set to 0 just
     before and read just after; every count must be as ``expected`` (0 for
     the kernels not named)."""
-    print(f"[path] {name}: {sim.pack.n_triangles} triangles, intersect "
-          f"{sim.culled_tris[1] if sim.culled_tris else 'brute'}, tile_r {sim.intersect_tile_r}")
+    print(f"[path] {name}: {sim.pack.n_triangles} triangles, intersect {sim.intersect}, tile_r "
+          f"{sim.intersect_tile_r}")
     kernels.reset_launch_counts()
     out = sim.render_frame(seed=seed)
     torch.cuda.synchronize()
@@ -593,13 +621,16 @@ def check_scanconv_bwd(g_bm, maps, cfg) -> float:
                        scanconv.scan_convert_bwd_plain(g_bm, maps.table, cfg.rf_rows, cfg.rf_cols))
 
 
-def device_view(label: str, fn, unit_ms: float, n: int = 3, top: int = 8) -> dict:
+def device_view(label: str, fn, unit_ms: float, n: int = 3, top: int = 8,
+                expect: dict[str, int] | None = None) -> dict:
     """The device's view of ``n`` calls of ``fn`` by ``torch.profiler``: busy
     time (the union of the device events' intervals) per call, its share of
     the unprofiled median ``unit_ms``, device operations per call and the
-    largest kernels. Returns ``device_timing.busy_view``'s busy ms,
-    operations and ms by kernel name, per call."""
-    view = busy_view(fn, n)
+    largest kernels; ``expect`` as ``busy_view`` takes it (the launches a call
+    makes by kernel name, for a window that lost none). Returns
+    ``device_timing.busy_view``'s busy ms, operations and ms by kernel name,
+    per call."""
+    view = busy_view(fn, n, expect=expect)
     busy_ms = view["busy_ms"]
     print(f"  {label} profile over {n} calls: device busy {busy_ms:.3f} ms per call "
           f"({busy_ms / unit_ms:.1%} of the unprofiled median {unit_ms:.3f} ms, idle "
@@ -973,6 +1004,332 @@ def check_tall_images(cfg) -> dict:
 
 
 
+def timed(fn):
+    """(fn's result, its ms by CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_launches(label: str, counts: dict, per_run: dict, runs: int = 1) -> None:
+    want = {k: per_run.get(k, 0) * runs for k in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+
+
+def frame_launches(cfg, frames: int, closest: str = "intersect_listed") -> dict:
+    return {closest: cfg.max_depth * frames, "march": frames, "postproc": frames,
+            "scanconv": frames}
+
+
+def pose_fd_phase(pack, smi: str) -> dict:
+    """``PoseFitter(method="fd")`` at full width on the card: the 4-key
+    compound target at the scene's pose, then POSE_FD_STEPS steps from the
+    pose + POSE_OFFSET with keys split(prng_key(42), 4) and scales (2, 4, 8),
+    each with the launch counts set to 0 just before it and read just after;
+    then one more step under the profiler."""
+    cfg = SimConfig()
+    sim = Simulator(pack, cfg, device="cuda", seed=0)
+    keys = rng.split(rng.prng_key(42), 4)
+
+    def render(key, position, angles):
+        return sim.render_frame(key, position=position, angles=angles)["bmode"]
+
+    with torch.no_grad():
+        target = PoseFitter.compound(render, keys, sim.position, sim.angles)
+    check_bmode("pose target", sim, target)
+    true = sim.position.cpu()
+    start = true + torch.tensor(POSE_OFFSET)
+    fit = PoseFitter.from_simulator(sim, start, sim.angles, target, method="fd", keys=keys)
+    frames = (2 * 3 + 1) * len(keys)
+    err0 = float(torch.linalg.norm(start - true))
+    print(f"[pose fd] sphere, {len(keys)} keys, scales {fit.scales}, {POSE_FD_STEPS} steps from "
+          f"the pose + {POSE_OFFSET} (error {err0:.4f}); {frames} frames a step")
+    losses, step_ms = [], []
+    for i in range(POSE_FD_STEPS):
+        kernels.reset_launch_counts()
+        (vals, g, delta), ms = timed(lambda i=i: fit.fd_step(i))
+        counts = kernels.launch_counts()
+        check_launches(f"pose fd step {i}", counts, frame_launches(cfg, frames))
+        err = float(torch.linalg.norm(fit.position.cpu() - true))
+        losses.append(float(vals[0]))
+        step_ms.append(ms)
+        print(f"  step {i}: loss {losses[-1]:.6g} |g| {float(torch.linalg.norm(g)):.4g} delta "
+              f"{delta:.4f} position error {err:.4f}; {ms:.1f} ms")
+    print(f"  launches per step: {counts}")
+    if not all(map(math.isfinite, losses)) or not err < err0:
+        raise AssertionError(f"pose fd: losses {losses} not finite, or the error {err} is not "
+                             f"below the start's {err0}")
+    med = statistics.median(step_ms)
+    print(f"  [{smi}] fd step: median {med:.1f} ms (min {min(step_ms):.1f}, max "
+          f"{max(step_ms):.1f}) over {POSE_FD_STEPS} steps, {med / frames:.2f} ms a frame")
+    view = device_view("pose fd step", lambda: fit.fd_step(POSE_FD_STEPS), med, n=1,
+                       expect={"intersect_listed_kernel": cfg.max_depth * frames})
+    return {"step_ms": step_ms, "busy_ms": view["busy_ms"], "operations": view["operations"],
+            "counts": counts, "error": (err0, err), "losses": losses}
+
+
+def pose_fd_cuda_vs_cpu(pack) -> None:
+    """One fd step at a small config (32 x 1, 2 keys, scales 4 and 8) with the
+    same keys: the 7 point losses and the gradient on the card against the CPU."""
+    small = small_test_config(transducer_elements=32, samples_per_element=1)
+    keys = rng.split(rng.prng_key(42), 2)
+    result = {}
+    for device in ("cpu", "cuda"):
+        sim = Simulator(pack, small, device=device, seed=0)
+
+        def render(key, position, angles, sim=sim):
+            return sim.render_frame(key, position=position, angles=angles)["bmode"]
+
+        with torch.no_grad():
+            target = PoseFitter.compound(render, keys, sim.position, sim.angles)
+        fit = PoseFitter.from_simulator(sim, sim.position.cpu() + torch.tensor(POSE_OFFSET),
+                                        sim.angles, target, method="fd", keys=keys,
+                                        scales=(4.0, 8.0), learning_rate=2.5e-2)
+        vals, g, _ = fit.fd_step(0)
+        result[device] = (vals.cpu(), g.cpu())
+    (v_c, g_c), (v_g, g_g) = result["cpu"], result["cuda"]
+    rel = float(((v_g - v_c).abs() / v_c.abs()).max())
+    g_err = float((g_g - g_c).abs().max() / g_c.abs().max())
+    print(f"[cuda vs cpu] pose fd step, small config: 7 point losses max rel err {rel:.3e} (limit "
+          f"{POSE_LOSS_RTOL}); gradient max abs err / max |cpu| {g_err:.3e}")
+    if not (rel <= POSE_LOSS_RTOL and bool(torch.isfinite(g_g).all())):
+        raise AssertionError("the pose fd step on the card disagrees with the CPU")
+
+
+def pose_ad_phase(pack, smi: str) -> dict:
+    """``PoseFitter(method="ad", fit_angles=True)`` at full width in soft +
+    trilinear mode: POSE_AD_STEPS steps from the pose + POSE_OFFSET against a
+    frame at the scene's pose, one fixed key, counts set to 0 before each."""
+    cfg = SimConfig(soft_scattering=True, trilinear_texture=True)
+    sim = Simulator(pack, cfg, device="cuda", seed=0)
+    key = rng.prng_key(3)
+    with torch.no_grad():
+        target = sim.render_frame(key)["bmode"]
+    check_bmode("pose ad target", sim, target)
+    start = sim.position.cpu() + torch.tensor(POSE_OFFSET)
+    fit = PoseFitter.from_simulator(sim, start, sim.angles, target, method="ad", fixed_key=key,
+                                    fit_angles=True, learning_rate=3e-2)
+    per_step = frame_launches(cfg, 1) | {"march_bwd": 1, "scanconv_bwd": 1}
+    print(f"[pose ad] sphere, soft + trilinear, position and angles, {POSE_AD_STEPS} steps")
+    step_ms = []
+    for i in range(POSE_AD_STEPS):
+        kernels.reset_launch_counts()
+        loss, ms = timed(lambda: fit.step(key))
+        counts = kernels.launch_counts()
+        check_launches(f"pose ad step {i}", counts, per_step)
+        g = fit.last_grad
+        step_ms.append(ms)
+        print(f"  step {i}: loss {loss:.6g}; d/d(position) {g[:3].tolist()}, d/d(angles) "
+              f"{g[3:].tolist()}; {ms:.1f} ms")
+        if not (bool(torch.isfinite(g).all()) and float(g[:3].abs().max()) > 0
+                and float(g[3:].abs().max()) > 0):
+            raise AssertionError("pose ad: a gradient is not finite, or zero")
+    print(f"  launches per step: {counts}")
+    med = statistics.median(step_ms)
+    print(f"  [{smi}] ad step: median {med:.1f} ms over {POSE_AD_STEPS} steps")
+    view = device_view("pose ad step", lambda: fit.step(key), med, n=1,
+                       expect={"intersect_listed_kernel": cfg.max_depth})
+    return {"step_ms": step_ms, "busy_ms": view["busy_ms"], "operations": view["operations"],
+            "counts": counts}
+
+
+def pose_ad_cuda_vs_cpu(pack) -> None:
+    """The pose gradient of one frame at a small soft + trilinear config with
+    the same draws, from the pose + POSE_OFFSET: the loss and d/d(position,
+    angles) on the card against the CPU."""
+    small = small_test_config(transducer_elements=32, samples_per_element=1,
+                              soft_scattering=True, trilinear_texture=True)
+    draws = Simulator(pack, small, device="cpu", seed=0).draws(0)
+    result = {}
+    for device in ("cpu", "cuda"):
+        sim = Simulator(pack, small, device=device, seed=0)
+        d = {k: v.to(sim.device) for k, v in draws.items()}
+        with torch.no_grad():
+            target = sim.render_frame(draws=d)["bmode"]
+        pos = (sim.position + torch.tensor(POSE_OFFSET, device=sim.device)).requires_grad_(True)
+        ang = sim.angles.clone().requires_grad_(True)
+        loss = torch.mean((sim.render_frame(position=pos, angles=ang, draws=d)["bmode"]
+                           - target) ** 2)
+        grads = torch.autograd.grad(loss, (pos, ang))
+        result[device] = (float(loss.detach()), [g.cpu() for g in grads])
+    (l_c, g_c), (l_g, g_g) = result["cpu"], result["cuda"]
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_g, g_c)]
+    print(f"[cuda vs cpu] pose gradient, small soft + trilinear config: loss {l_g:.8g} vs "
+          f"{l_c:.8g}; max abs err / max |cpu|: position {errs[0]:.3e}, angles {errs[1]:.3e} "
+          f"(limits {POSE_LOSS_RTOL}, {POSE_GRAD_TOL})")
+    if not (abs(l_g - l_c) <= POSE_LOSS_RTOL * abs(l_c) and max(errs) <= POSE_GRAD_TOL
+            and all(float(g.abs().max()) > 0 for g in g_c)):
+        raise AssertionError("the pose gradient on the card disagrees with the CPU")
+
+
+def run_command(argv: list[str], stdin: str = "") -> list[str]:
+    """``cli.main(argv)`` with ``stdin`` as its standard input; its output lines."""
+    out, old = io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out):
+            code = cli.main(argv)
+    finally:
+        sys.stdin = old
+    if code != 0:
+        raise AssertionError(f"{' '.join(argv[:1])}: exit code {code}")
+    return out.getvalue().splitlines()
+
+
+def read_bytes(path: str) -> bytes:
+    """What ``save_png`` wrote (a PNG with pillow, else its PGM fallback)."""
+    return open(path if os.path.exists(path) else f"{path}.pgm", "rb").read()
+
+
+def serve_phase(sim, tmp: str) -> dict:
+    """``serve`` at full width on 4 requests, one of them malformed, three
+    poses: 3 frame lines and 1 error line, and the second request's PNG
+    equal to ``save_png`` of ``render_frame`` at that request (``sim`` is the
+    sphere's default ``Simulator``, as ``serve`` builds it)."""
+    pos0, ang0 = sim.position.tolist(), sim.angles.tolist()
+    moved = [pos0[0], pos0[1] + 0.3, pos0[2]]
+    turned = [ang0[0], ang0[1], ang0[2] + 4.0]
+    requests = [json.dumps({"seed": 11}), json.dumps({"seed": 12, "position": moved}),
+                "{\"position\": [1.0, 2.0, ", json.dumps({"seed": 13, "angles": turned})]
+    kernels.reset_launch_counts()
+    lines = run_command(["serve", SPHERE_SCENE, "--out-prefix", os.path.join(tmp, "serve")],
+                        "\n".join(requests) + "\n")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    replies = [json.loads(x) for x in lines]
+    frames = [r for r in replies if "frame" in r]
+    errors = [r for r in replies if "error" in r]
+    print(f"[serve] sphere, {len(requests)} requests (one malformed): {replies[0]}; frame ms "
+          f"{[f['ms'] for f in frames]}; {errors}")
+    check_launches("serve", counts, frame_launches(sim.cfg, 4))  # a warm frame + 3
+    if replies[0] != {"ready": True, "triangles": sim.pack.n_triangles} or len(frames) != 3 \
+            or len(errors) != 1 or len(replies) != 5:
+        raise AssertionError(f"serve replied {replies}")
+    want = os.path.join(tmp, "want.png")
+    save_png(want, sim.render_frame(12, position=moved)["bmode"].cpu().numpy())
+    if read_bytes(frames[1]["out"]) != read_bytes(want):
+        raise AssertionError("serve: the served PNG != save_png of render_frame at its request")
+    print(f"  launches: {counts}; request 2's PNG equals save_png(render_frame(12, moved))")
+    return {"frame_ms": [f["ms"] for f in frames], "counts": counts}
+
+
+def sweep_phase(cfg, tmp: str) -> dict:
+    kernels.reset_launch_counts()
+    prefix = os.path.join(tmp, "sweep")
+    lines = run_command(["sweep", SPHERE_SCENE, "--frames", str(SWEEP_FRAMES),
+                         "--out-prefix", prefix])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"[sweep] sphere, {SWEEP_FRAMES} frames: " + "; ".join(lines))
+    check_launches("sweep", counts, frame_launches(cfg, SWEEP_FRAMES))
+    if len(lines) != SWEEP_FRAMES or not all(os.path.exists(f"{prefix}_{i:03d}.png")
+                                             or os.path.exists(f"{prefix}_{i:03d}.png.pgm")
+                                             for i in range(SWEEP_FRAMES)):
+        raise AssertionError(f"sweep wrote {lines}")
+    print(f"  launches: {counts}")
+    return {"counts": counts}
+
+
+def render_flags_phase(tmp: str) -> dict:
+    """``render`` at full width with every flag the reference has: ``--bvh``
+    (K11), ``--bug-compat``, ``--probe linear``, ``--envelope hilbert`` (plain
+    torch on the card: no K3), ``--texture table``, ``--scatter-rng
+    boxmuller``, ``--save-rf`` and ``--dump-column``."""
+    cfg = SimConfig()
+    rf = os.path.join(tmp, "rf.npz")
+    kernels.reset_launch_counts()
+    lines = run_command([SPHERE_SCENE, "--bvh", "--bug-compat", "--probe", "linear", "--envelope",
+                         "hilbert", "--texture", "table", "--scatter-rng", "boxmuller",
+                         "--save-rf", rf, "--dump-column", "256", "--out",
+                         os.path.join(tmp, "flags.png")])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"[render flags] {lines[0]}; {lines[1]}")
+    check_launches("render flags", counts, {"bvh_intersect": cfg.max_depth, "march": 1,
+                                            "scanconv": 1})
+    with np.load(rf) as saved:
+        files = sorted(saved.files)
+        finite = all(bool(np.isfinite(saved[k]).all()) for k in files)
+    dump = lines[lines.index("RF column 256 (row: raw envelope):") + 1:]
+    print(f"  launches: {counts}; npz {files}, finite {finite}; {len(dump)} dump lines")
+    if "intersect bvh" not in lines[0] or files != ["bmode", "rf_env", "rf_raw"] or not finite \
+            or len(dump) != cfg.rf_rows:
+        raise AssertionError("render with every flag: wrong output")
+    return {"counts": counts}
+
+
+def check_bvh(sim, out, brute_out, tri_soa, ircad_bvh, ircad_rays, ircad_soa) -> dict:
+    """K11 against its plain version (t, winner, per-ray node and test counts
+    bitwise) and against K1 (t and winner bitwise) at every bounce of the
+    sphere bvh frame; on ircad_hd against K1 (t and winner bitwise) on each
+    whole bounce and its plain version on IRCAD_K1_SAMPLE rays of each; the
+    bvh frame equal to the brute frame. Returns the per-bounce rays and counts."""
+    cfg = sim.cfg
+    vs_plain = vs_k1 = 0
+    sphere = []
+    for d in range(cfg.max_depth):
+        rays = out["segments"]["rays"][d].contiguous()
+        t_k, j_k, c_k = bvh_intersect.bvh_best(rays, sim.bvh, counts=True)
+        t_p, j_p, c_p = bvh.bvh_best_plain(rays, sim.bvh, counts=True)
+        t_1, i_1 = intersect.intersect_best(rays, tri_soa)
+        vs_plain += int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum()
+                        + (j_k != j_p).sum() + (c_k != c_p).sum())
+        vs_k1 += int((t_k.view(torch.int32) != t_1.view(torch.int32)).sum() + (j_k != i_1).sum())
+        sphere.append((rays, c_k))
+    hd_vs_k1 = hd_vs_plain = 0
+    ircad = []
+    for d in range(cfg.max_depth):
+        rays = ircad_rays[d].contiguous()
+        t_k, j_k, c_k = bvh_intersect.bvh_best(rays, ircad_bvh, counts=True)
+        t_1, i_1 = intersect.intersect_best(rays, ircad_soa)
+        hd_vs_k1 += int((t_k.view(torch.int32) != t_1.view(torch.int32)).sum()
+                        + (j_k != i_1).sum())
+        live = torch.nonzero(rays[3:6].abs().sum(dim=0) > 0).squeeze(1)
+        pick = live[torch.linspace(0, max(live.numel() - 1, 0), min(IRCAD_K1_SAMPLE, live.numel()),
+                                   device=live.device).long()]
+        t_p, j_p = bvh.bvh_best_plain(rays[:, pick].contiguous(), ircad_bvh)
+        hd_vs_plain += int((t_k[pick].view(torch.int32) != t_p.view(torch.int32)).sum()
+                           + (j_k[pick] != j_p).sum())
+        ircad.append((rays, c_k))
+    frame_equal = {key: torch.equal(out["segments"][key], brute_out["segments"][key])
+                   for key in ("rays", "valid", "to", "reflected")}
+    frame_equal["bmode"] = torch.equal(out["bmode"], brute_out["bmode"])
+    print(f"[bvh] bvh_intersect: {vs_plain} differing (t, winner, counts) vs plain and {vs_k1} "
+          f"differing (t, winner) vs K1 over the sphere bvh frame's {cfg.max_depth} bounces; "
+          f"ircad_hd: {hd_vs_k1} differing (t, winner) vs K1 on whole bounces, {hd_vs_plain} vs "
+          f"plain on {IRCAD_K1_SAMPLE} rays a bounce; the sphere bvh frame equal to the brute "
+          f"frame: {frame_equal}")
+    if vs_plain or vs_k1 or hd_vs_k1 or hd_vs_plain or not all(frame_equal.values()):
+        raise AssertionError("bvh_intersect disagrees with its plain version or with K1, or the "
+                             "bvh frame with the brute frame")
+    return {"sphere": sphere, "ircad_hd": ircad}
+
+
+def bvh_bound(calls, device_bvh) -> tuple[float, str]:
+    """K11 per launch, mean over the bounces, for this run's rays: every node
+    each ray pops (its slab test) and every triangle it tests, by the
+    kernel's own counts; the rays, nodes, meta and triangles read once, (t,
+    winner) written once."""
+    n_b = n_o = 0
+    for rays, counts in calls:
+        n_b += (nbytes(rays, device_bvh.nodes, device_bvh.meta, device_bvh.tri_soa)
+                + 8 * rays.shape[1])
+        n_o += int(counts[0].sum()) * OPS_SLAB_NODE + int(counts[1].sum()) * OPS_MOLLER_TRUMBORE
+    return bound(n_b / len(calls), n_o / len(calls))
+
+
+T_START = time.perf_counter()
+
+
+def mark(label: str) -> None:
+    """The run's elapsed seconds at the end of a phase."""
+    print(f"[elapsed] {time.perf_counter() - T_START:.1f} s after {label}")
+
+
 def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     if not torch.cuda.is_available():
@@ -1007,10 +1364,12 @@ def main() -> int:
     if ircad.n_triangles != 123_224 or mega.n_triangles != 615_176:
         raise AssertionError(f"ircad_hd has {ircad.n_triangles}, mega {mega.n_triangles} triangles")
 
+    mark("build and scenes")
     # 2. the paths, each driven with the counts set to 0 just before it
     sims = {
         "sphere": Simulator(sphere, cfg, device="cuda", seed=0),
         "sphere brute": Simulator(sphere, cfg, device="cuda", seed=0, use_culled_intersect=False),
+        "sphere bvh": Simulator(sphere, cfg, device="cuda", seed=0, use_bvh=True),
         "ircad_hd": Simulator(ircad, cfg, device="cuda", seed=0),
         "sphere culled": Simulator(sphere, cfg, device="cuda", seed=0, intersect_mode="culled"),
         "ircad_hd culled": Simulator(ircad, cfg, device="cuda", seed=0, intersect_mode="culled"),
@@ -1025,6 +1384,7 @@ def main() -> int:
     expected = {
         "sphere": {"intersect_listed": cfg.max_depth, **loop},
         "sphere brute": {"intersect": cfg.max_depth, **loop},
+        "sphere bvh": {"bvh_intersect": cfg.max_depth, **loop},
         "ircad_hd": {"intersect_listed": cfg.max_depth, **loop},
         "sphere culled": {"intersect_culled": cfg.max_depth, **loop},
         "ircad_hd culled": {"intersect_culled": cfg.max_depth, **loop},
@@ -1064,7 +1424,19 @@ def main() -> int:
         raise AssertionError(f"request launch counts {served} != {want}")
 
     # the fit path: target, FIT_STEPS steps, counts set to 0 just before them
+    mark("frames and requests")
     fit = fit_phase(sphere, smi)
+    mark("fit")
+    # the probe-pose paths: registration (fd, ad), serve, sweep
+    pose_fd_phase(sphere, smi)
+    mark("pose fd")
+    pose_ad_phase(sphere, smi)
+    mark("pose ad")
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_phase(sims["sphere"], tmp)
+        sweep_phase(cfg, tmp)
+        render_flags_phase(tmp)
+    mark("serve, sweep, render flags")
 
     # 3. every kernel against its plain version at its path's own inputs
     print("[kernels vs plain]")
@@ -1088,6 +1460,11 @@ def main() -> int:
         [outs["ircad_hd"]["segments"]["rays"][d].contiguous() for d in range(cfg.max_depth)],
         tri_soa["ircad_hd"])
     k1_edges = check_k1_edges()
+    ircad_bvh = bvh.DeviceBVH.from_flat(ircad.bvh, tri_soa["ircad_hd"])
+    bvh_calls = check_bvh(sims["sphere bvh"], outs["sphere bvh"], outs["sphere brute"],
+                          tri_soa["sphere"], ircad_bvh, outs["ircad_hd"]["segments"]["rays"],
+                          tri_soa["ircad_hd"])
+    errs["bvh_intersect"] = 0.0
     cluster_calls = {}
     for name in ("sphere", "ircad_hd", "sphere culled", "ircad_hd culled", "sphere staged",
                  "ircad_hd staged", "mega listed", "mega grouped"):
@@ -1157,9 +1534,11 @@ def main() -> int:
         check_bmode(f"Box–Muller {label}", bm_sim, bm_out["bmode"])
         bm[label] = (bm_out["soa"], bm_sim.seeds, bm_cfg)
         full_march[f"boxmuller {label}"] = compare_march(f"Box–Muller {label}", *bm[label], g_rf)
+    mark("kernels vs plain")
     march_modes = march_modes_phase(sphere)
     tall = check_tall_images(cfg)
 
+    mark("march modes, tall images")
     # 4. the whole CUDA path against the whole plain CPU path, same randomness
     small = small_test_config()
     gpu_sim = Simulator(sphere, small, device="cuda", seed=5)
@@ -1182,9 +1561,14 @@ def main() -> int:
             and torch.allclose(on_gpu["bmode"].cpu(), on_cpu["bmode"], rtol=1e-4, atol=1e-5)):
         raise AssertionError("the CUDA path disagrees with the plain CPU path")
     fit_cuda_vs_cpu(sphere)
+    mark("cuda vs cpu: frame, fit")
+    pose_fd_cuda_vs_cpu(sphere)
+    pose_ad_cuda_vs_cpu(sphere)
+    mark("cuda vs cpu: pose")
     plain_modes_phase(sphere)
     drawn = rng_phase(sims["sphere"], smi)
     queries, stress_sets = isotropic_phase(smi)
+    mark("plain modes, rng, isotropic")
 
     # 5. timing (CUDA events, after the warm-up above)
     print(f"[timing] {smi}")
@@ -1195,8 +1579,8 @@ def main() -> int:
                                frame_ms[name])
              for name in PROFILED_FRAMES}
     for name, view in views.items():
-        if sims[name].culled_tris is None:
-            names = {"intersect_closest"}  # K1's kernel
+        if sims[name].culled_tris is None:  # K11's or K1's kernel
+            names = {"bvh_intersect" if sims[name].bvh is not None else "intersect_closest"}
         else:  # grouped mode also runs a residual K5 pass
             mode = sims[name].culled_tris[1]
             names = {CLUSTER_KERNEL[mode], CLUSTER_KERNEL["listed" if mode == "grouped" else mode]}
@@ -1225,6 +1609,7 @@ def main() -> int:
             calls = cluster_calls[name]
             timed[scene][CLUSTER_KERNEL[sims[name].culled_tris[1]]] = (
                 lambda c=calls: [k(*a) for k, _, a in c], lambda c=calls: [p(*a) for _, p, a in c])
+    mark("frame timing and profiles")
     # the kernels' own wrappers (*_forward, *_backward), without the autograd
     # Function around them: its host time would swamp a 10-microsecond kernel
     timed["sphere"].update({
@@ -1243,8 +1628,17 @@ def main() -> int:
             lambda: scanconv.scan_convert_backward(g_bm, maps),
             lambda: scanconv.scan_convert_bwd_plain(g_bm, maps.table, cfg.rf_rows, cfg.rf_cols)),
     })
-    slow_plain = ("march soft+trilinear", "march_bwd")  # seconds per call: timed once
-    per_call = {k: cfg.max_depth for k in CLUSTER_KERNEL.values()} | {"intersect": cfg.max_depth}
+    bvh_sets = {"sphere": (sims["sphere bvh"].bvh, [r for r, _ in bvh_calls["sphere"]]),
+                "ircad_hd": (ircad_bvh, [r for r, _ in bvh_calls["ircad_hd"]])}
+    for scene, (dbvh, rays) in bvh_sets.items():
+        timed[scene]["bvh_intersect"] = (
+            lambda b=dbvh, q=rays: [bvh_intersect.bvh_best(r, b) for r in q],
+            (lambda b=dbvh, q=rays: [bvh.bvh_best_plain(r, b) for r in q])
+            if scene == "sphere" else None)
+    # seconds per call: timed once
+    slow_plain = ("march soft+trilinear", "march_bwd", "bvh_intersect")
+    per_call = {k: cfg.max_depth for k in CLUSTER_KERNEL.values()} | {
+        "intersect": cfg.max_depth, "bvh_intersect": cfg.max_depth}
     ms = {"sphere": {}, "ircad_hd": {}}
     for scene, fns in timed.items():
         for name, (kernel_fn, plain_fn) in fns.items():
@@ -1344,6 +1738,16 @@ def main() -> int:
           + f"; blocks march {k2_blocks}, march_bwd {k8_blocks}")
     print(f"  device ms per launch (graph replay): intersect sphere brute "
           f"{k1_device_ms['sphere']:.5f}, ircad_hd {k1_device_ms['ircad_hd']:.5f}")
+    k11_device_ms = {
+        scene: graph_ms(lambda b=dbvh, q=rays: [bvh_intersect.bvh_best(r, b) for r in q],
+                        cfg.max_depth)
+        for scene, (dbvh, rays) in bvh_sets.items()}
+    bvh_intersect.bvh_best(bvh_sets["sphere"][1][0], bvh_sets["sphere"][0])
+    k11_blocks = bvh_intersect.last_blocks
+    print(f"  device ms per launch (graph replay): bvh_intersect sphere "
+          f"{k11_device_ms['sphere']:.5f}, ircad_hd {k11_device_ms['ircad_hd']:.5f}; "
+          f"{k11_blocks} blocks (a thread per ray); intersect_listed sphere "
+          f"{k5_device_ms['sphere']:.5f}")
     # the grid of one sphere launch of each, as the launch reported it
     intersect_listed.listed_best(*cluster_calls["sphere"][0][2])
     postproc.postproc_forward(rf_raw, cfg)
@@ -1391,6 +1795,7 @@ def main() -> int:
     print("  device ms per launch (graph replay), kernel / library: " + "; ".join(
         f"{name} {k:.4f} / {lib:.4f}" for name, (k, lib) in scan_device_ms.items()))
 
+    mark("kernel timing")
     # the least time the card could take for each kernel's work on this run's inputs
     n_rf, n_bm = cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols
     steps_frame, steps_fit = matched_steps(soa, cfg, cfg.rf_cols), matched_steps(
@@ -1400,7 +1805,8 @@ def main() -> int:
         "intersect": brute_bound([ircad_rays[d].contiguous() for d in range(cfg.max_depth)],
                                  tri_soa["ircad_hd"]),
         **{CLUSTER_KERNEL[sims[name].culled_tris[1]]: cluster_bound(sims[name], cluster_calls[name])
-           for name in ("ircad_hd", "ircad_hd culled", "ircad_hd staged")}}
+           for name in ("ircad_hd", "ircad_hd culled", "ircad_hd staged")},
+        "bvh_intersect": bvh_bound(bvh_calls["ircad_hd"], ircad_bvh)}
     bounds = {
         "intersect": brute_bound([brute_rays[d].contiguous() for d in range(cfg.max_depth)],
                                  tri_soa["sphere"]),
@@ -1418,6 +1824,7 @@ def main() -> int:
         # lists the kernels read are the port's own, larger, representations
         "scanconv": bound(4 * n_rf + 2 * 4 * n_bm + 4 * n_bm, n_bm * OPS_SCANCONV_PIXEL),
         "scanconv_bwd": bound(4 * n_bm + 2 * 4 * n_bm + 4 * n_rf, 2 * maps.pixel.numel()),
+        "bvh_intersect": bvh_bound(bvh_calls["sphere"], sims["sphere bvh"].bvh),
     }
     print(f"  march steps inside the window: frame {steps_frame}, fit frame {steps_fit}; "
           f"transposed remap taps {maps.pixel.numel()}; bytes the scan kernels read beyond their "
@@ -1426,7 +1833,8 @@ def main() -> int:
 
     path_of = {"intersect": "sphere brute", "intersect_listed": "sphere",
                "intersect_culled": "sphere culled", "intersect_staged": "sphere staged",
-               "intersect_grouped": "mega grouped", "march": "sphere", "postproc": "sphere", "scanconv": "sphere"}
+               "intersect_grouped": "mega grouped", "march": "sphere", "postproc": "sphere",
+               "scanconv": "sphere", "bvh_intersect": "sphere bvh"}
     record = []
     for name, (src, replaces) in SOURCES.items():
         k_ms, p_ms = main_ms[name]
@@ -1483,6 +1891,9 @@ def main() -> int:
                           "stress_200k": queries})
         if name == "scanconv_bwd":
             entry["blocks"] = k9_blocks
+        if name == "bvh_intersect":
+            entry.update({"note": "no TPU kernel: the reference's jnp while_loop traversal",
+                          "device_ms": k11_device_ms, "blocks": k11_blocks})
         if name == "march":  # the fit runs K2 in soft + trilinear mode: its own numbers
             mode = "march soft+trilinear"
             entry.update({"fit_mode_ms": ms["sphere"][mode][0],

@@ -87,12 +87,14 @@ def busy_view(fn, n: int = 3, attempts: int = 5, expect: dict[str, int] | None =
     them or some: a window is profiled again, ``attempts`` times in all,
     until it holds a device event and, for each name in ``expect``, exactly
     ``n`` times that many events whose name contains it (the launches a
-    call makes); else it raises."""
+    call makes); else it raises. Only the device is traced: what is read
+    here is device events, and tracing the host's operators too made the
+    profile of a 28-frame pose step take tens of seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     expect = expect or {}
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()

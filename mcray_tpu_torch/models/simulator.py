@@ -10,7 +10,8 @@ table (``models/trainer.py`` fits it):
   one closest-hit kernel: on scenes of 2,048 triangles and up the
   reference's default, the list-driven cluster kernel (K5; on request K6
   culled, K7 staged, or K10 grouped with its residual K5 pass), else the
-  brute kernel (K1);
+  brute kernel (K1); ``use_bvh`` (``render --bvh``) walks the flat BVH
+  instead (K11, which no TPU kernel carries in the reference);
 - the march (K2), PSF convolution + envelope (K3) and scan conversion (K4)
   run as one kernel each; under autograd the march and the scan conversion
   run their backward kernels (K8, K9), the closest hit has no gradient (it
@@ -39,6 +40,8 @@ import torch
 
 from ..config import SimConfig, validate
 from ..ops import clusters, imaging, physics, texture
+from ..ops.bvh import DeviceBVH
+from ..ops.cuda.bvh_intersect import bvh_intersect_closest_cuda
 from ..ops.cuda.intersect import intersect_closest_cuda
 from ..ops.cuda.intersect_culled import intersect_closest_culled
 from ..ops.cuda.intersect_grouped import intersect_closest_grouped
@@ -87,7 +90,8 @@ def distance_in_mm(a, b, spacing):
 
 def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spacing,
                 starting_material: int, cfg: SimConfig, *, culled_tris=None,
-                intersect_tile_r: int = 128, sort_packets: bool = False) -> dict[str, torch.Tensor]:
+                intersect_tile_r: int = 128, sort_packets: bool = False,
+                bvh: DeviceBVH | None = None) -> dict[str, torch.Tensor]:
     """Monte-Carlo path tracing of all elements x samples paths. Returns the
     segment dict, each field stacked over bounce depth (D, N, ...), plus
     ``rays``: the (D, 6, N) [origin; segment] closest-hit queries of every
@@ -95,8 +99,9 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
 
     ``culled_tris=(packed, mode)`` runs the closest hit through the cluster
     kernel of ``mode`` (``CLUSTER_INTERSECTS``) on ``intersect_tile_r``-ray
-    packets, coherence-sorted first if ``sort_packets``; ``None`` runs the
-    brute kernel over ``scene["tri_soa"]``."""
+    packets, coherence-sorted first if ``sort_packets``; else ``bvh`` (the
+    scene's ``DeviceBVH``) runs the BVH traversal; with neither, the brute
+    kernel runs over ``scene["tri_soa"]``."""
     n_samples = cfg.samples_per_element
     freq = cfg.transducer_frequency
     eps = cfg.intensity_epsilon
@@ -143,7 +148,9 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
         seg_vec = (dest - origin) * alive_col
         origin = torch.where(alive_col, origin, 1e9)
 
-        if culled_tris is None:
+        if culled_tris is None and bvh is not None:
+            hits = bvh_intersect_closest_cuda(origin, seg_vec, tri_soa, tri_mesh_id, bvh)
+        elif culled_tris is None:
             hits = intersect_closest_cuda(origin, seg_vec, tri_soa, tri_mesh_id)
         elif sort_packets:
             hits = clusters.intersect_sorted(cluster_fn, origin, seg_vec, packed)
@@ -245,6 +252,16 @@ def march_and_accumulate(segments, materials, volume, cfg: SimConfig, n_cols: in
                                      all_valid, cfg, n_cols)
 
 
+def path_draws(trace_key: torch.Tensor, cfg: SimConfig, device) -> dict[str, torch.Tensor]:
+    """The (D, N) draws of ``physics.draw_bounce_randoms`` for every path,
+    each keyed ``fold_in(trace_key, path id)`` (``trace_paths``' keying in
+    the reference, ``mcray_tpu/models/simulator.py:91-100``)."""
+    n = cfg.transducer_elements * cfg.samples_per_element
+    path_ids = torch.arange(n, dtype=torch.int64, device=device)
+    path_keys = rng.fold_in(trace_key.to(device), path_ids)
+    return physics.draw_bounce_randoms(path_keys, cfg.max_depth)
+
+
 def render(draws, seeds, materials, probe_position, probe_angles_deg, scene, spacing,
            starting_material: int, maps, cfg: SimConfig, volume=None,
            **trace_kw) -> dict[str, torch.Tensor]:
@@ -298,6 +315,9 @@ class Simulator:
     exact at every depth. The reference takes these defaults only on a TPU;
     the port takes them on every device, because the CPU runs the plain
     versions of the same kernels. An unknown mode raises ValueError.
+    ``use_bvh=True`` walks the pack's flat BVH (K11) where the pack has one,
+    and is not replaced by the cluster path unless ``use_culled_intersect``
+    asks for it (``mcray_tpu/models/simulator.py:453``, ``:477-482``, ``:510``).
 
     The randomness is the reference's: the texture seeds come from the key
     ``prng_key(seed ^ 0x5CA77E7)`` (derived on the CPU: the kernels read
@@ -309,7 +329,8 @@ class Simulator:
     """
 
     def __init__(self, pack, cfg: SimConfig, *, device="cuda", seed: int = 0,
-                 use_culled_intersect: bool | None = None, intersect_mode: str | None = None,
+                 use_bvh: bool = False, use_culled_intersect: bool | None = None,
+                 intersect_mode: str | None = None,
                  intersect_tile_r: int | None = None, sort_packets: bool = False):
         validate(cfg)
         intersect_mode = intersect_mode or "listed"
@@ -334,11 +355,12 @@ class Simulator:
         self.scan_maps = scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols,
                                    device=self.device)
 
+        bvh = getattr(pack, "bvh", None)
+        use_bvh = use_bvh and bvh is not None
         if use_culled_intersect is None:
-            use_culled_intersect = pack.n_triangles >= 2048
+            use_culled_intersect = not use_bvh and pack.n_triangles >= 2048
         self.culled_tris = None
         if use_culled_intersect and pack.n_triangles > 0:
-            bvh = getattr(pack, "bvh", None)
             packed = clusters.pack_tris_culled(
                 pack.tris, pack.tri_mesh_id, bvh.tri_order if bvh is not None else None,
                 sort_origin=pack.transducer_position,
@@ -346,6 +368,8 @@ class Simulator:
                 device=self.device,
             )
             self.culled_tris = (packed, intersect_mode)
+            use_bvh = False
+        self.bvh = DeviceBVH.from_flat(bvh, self.scene["tri_soa"]) if use_bvh else None
         if intersect_tile_r is None:
             intersect_tile_r = 512 if self.culled_tris is not None else 128
         self.intersect_tile_r = intersect_tile_r
@@ -355,7 +379,14 @@ class Simulator:
     def trace_kw(self) -> dict:
         """The closest-hit choice, as ``render``/``trace_paths`` take it."""
         return {"culled_tris": self.culled_tris, "intersect_tile_r": self.intersect_tile_r,
-                "sort_packets": self.sort_packets}
+                "sort_packets": self.sort_packets, "bvh": self.bvh}
+
+    @property
+    def intersect(self) -> str:
+        """The closest hit the frame runs: a cluster mode, ``"bvh"`` or ``"brute"``."""
+        if self.culled_tris is not None:
+            return self.culled_tris[1]
+        return "bvh" if self.bvh is not None else "brute"
 
     def _tensor(self, x, default):
         return default if x is None else torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -364,12 +395,8 @@ class Simulator:
         """The frame's random draws on the device, keyed as the reference
         keys them: ``seed`` is the frame's integer seed or its (2,) key."""
         key = seed if isinstance(seed, torch.Tensor) else rng.prng_key(seed)
-        n = self.cfg.transducer_elements * self.cfg.samples_per_element
-        path_ids = torch.arange(n, dtype=torch.int64, device=self.device)
         # the frame's trace key is one key: derived on the host, not by ~150 launches
-        k_trace = rng.fold_in(key.cpu(), 0).to(self.device)
-        path_keys = rng.fold_in(k_trace, path_ids)
-        return physics.draw_bounce_randoms(path_keys, self.cfg.max_depth)
+        return path_draws(rng.fold_in(key.cpu(), 0), self.cfg, self.device)
 
     def render_frame(self, seed=0, materials=None, position=None, angles=None, draws=None):
         """One frame; returns the dict of ``render``. ``seed`` is an integer

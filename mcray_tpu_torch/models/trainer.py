@@ -1,16 +1,17 @@
-"""Differentiable fit: recover acoustic material parameters from a target
-B-mode image by gradient descent through the whole renderer.
+"""Differentiable fit: recover acoustic material parameters, or the probe
+pose, from a target B-mode image through the whole renderer.
 
-Port of ``mcray_tpu/models/trainer.py:33-141`` and ``_run_loop``
-(``:352-370``). The loss is pixel MSE on the scan-converted B-mode and
-gradients flow through scan conversion (K9), envelope and convolution, the
-march (K8), Beer-Lambert attenuation, Fresnel splits and the
-perturbed-normal sampling into the (M, 8) material table. For useful
+Port of ``mcray_tpu/models/trainer.py``: ``MaterialFitter`` (``:33-141``),
+``PoseFitter`` (``:144-349``) and ``_run_loop`` (``:352-370``). The
+material loss is pixel MSE on the scan-converted B-mode and gradients flow
+through scan conversion (K9), envelope and convolution, the march (K8),
+Beer-Lambert attenuation, Fresnel splits and the perturbed-normal sampling
+into the (M, 8) material table. For useful
 gradients on the scattering threshold (mu1) enable ``cfg.soft_scattering``
 and ``cfg.trilinear_texture``.
 
 The update is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the
-update of ``optax.adam`` at its defaults. ``PoseFitter`` is not ported yet.
+update of ``optax.adam`` at its defaults.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..ops import physics
+from ..ops.imaging import gaussian_blur
 from ..utils import rng
 
 # Default trainable columns: impedance, attenuation, mu0, mu1, sigma.
@@ -51,6 +54,19 @@ class FitState:
     materials: torch.Tensor
     opt_state: dict          # Adam's {"exp_avg", "exp_avg_sq", "step"}
     step: int = 0
+
+
+def _adam(params, learning_rate: float) -> torch.optim.Adam:
+    """``optax.adam``'s update at its defaults."""
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _adam_state(optimizer: torch.optim.Adam, param: torch.Tensor) -> dict:
+    adam = optimizer.state.get(param, {})
+    zeros = torch.zeros_like(param)
+    return {"exp_avg": adam.get("exp_avg", zeros).detach().clone(),
+            "exp_avg_sq": adam.get("exp_avg_sq", zeros).detach().clone(),
+            "step": int(adam["step"]) if "step" in adam else 0}
 
 
 class MaterialFitter:
@@ -88,8 +104,7 @@ class MaterialFitter:
         self.n_frames = n_frames_per_step
         self.fixed_frame = fixed_frame
         self._params = init_materials.detach().clone().to(torch.float32).requires_grad_(True)
-        self.optimizer = torch.optim.Adam([self._params], lr=learning_rate, betas=(0.9, 0.999),
-                                          eps=1e-8)
+        self.optimizer = _adam([self._params], learning_rate)
         self.step_count = 0
         self.last_grad = None
 
@@ -108,14 +123,8 @@ class MaterialFitter:
     # --- state, as the checkpoint stores it -------------------------------
     @property
     def state(self) -> FitState:
-        adam = self.optimizer.state.get(self._params, {})
-        zeros = torch.zeros_like(self._params)
-        opt_state = {
-            "exp_avg": adam.get("exp_avg", zeros).detach().clone(),
-            "exp_avg_sq": adam.get("exp_avg_sq", zeros).detach().clone(),
-            "step": int(adam["step"]) if "step" in adam else 0,
-        }
-        return FitState(self._params.detach().clone(), opt_state, self.step_count)
+        return FitState(self._params.detach().clone(), _adam_state(self.optimizer, self._params),
+                        self.step_count)
 
     @state.setter
     def state(self, value: FitState) -> None:
@@ -172,12 +181,188 @@ class MaterialFitter:
         """``n_steps`` steps; each renders with ``fixed_frame``, or else with
         the key ``fold_in(prng_key(seed), step)`` (a fresh realisation per
         step, keyed as the reference's fit loop keys it). Returns the losses."""
+        return _run_loop(self, self.fixed_frame, n_steps, seed, log_every, verbose)
+
+
+class PoseFitter:
+    """Probe-pose registration: recover the probe position (and, with
+    ``fit_angles``, its angles) whose rendered B-mode matches a target.
+
+    ``render_fn(key, position, angles) -> bmode`` renders one frame; the key
+    is a (2,) key of ``utils/rng.py``. The tensors live where
+    ``init_position`` lives; ``from_simulator`` renders through a
+    ``Simulator`` on its device. Two methods, as the reference's:
+
+    - ``method="fd"``, the registration method: central differences on a
+      speckle-robust objective, the pixel MSE between multi-scale Gaussian-
+      blurred, K-key compounded B-modes (``keys``, default
+      ``split(prng_key(42), 4)``; ``scales``). The 2d + 1 points x K keys are
+      rendered frame by frame with no graph. Adam's rate decays as
+      ``lr * lr_decay**k`` at its k-th update (counted from 0 across ``run``
+      calls, ``optax.exponential_decay(lr, 1, lr_decay)``), and the step
+      ``delta = max(fd_delta_min, fd_delta * fd_decay**i)`` anneals over the
+      i-th step of each ``run`` call; angles step by ``fd_delta_angles``
+      degrees. The target must be the K-key compound rendered with the same
+      keys (``compound``).
+    - ``method="ad"``: Adam at a constant rate on the gradient of plain pixel
+      MSE through the renderer into ``position`` (and ``angles``); the
+      reference keeps it as a baseline, not a reliable registration method
+      (its docstring, ``mcray_tpu/models/trainer.py:169-179``). The key is
+      ``fixed_key``, or else ``fold_in(prng_key(seed), step)``, as
+      ``MaterialFitter.run`` keys its frames. The target is one frame.
+    """
+
+    def __init__(self, render_fn, init_position, init_angles, target, learning_rate: float = 5e-2,
+                 fit_angles: bool = False, fixed_key=None, method: str = "ad", keys=None,
+                 scales: tuple = (2.0, 4.0, 8.0), fd_delta: float = 0.06,
+                 fd_delta_min: float = 0.025, fd_decay: float = 0.95,
+                 fd_delta_angles: float = 1.0, lr_decay: float = 0.95):
+        if method not in ("ad", "fd"):
+            raise ValueError(f"unknown method {method!r}; expected 'ad' or 'fd'")
+        position = torch.as_tensor(init_position, dtype=torch.float32)
+        self.device = position.device
+        self.render_fn = render_fn
+        self.target = torch.as_tensor(target, device=self.device).detach()
+        self.fit_angles = fit_angles
+        self.fixed_key = fixed_key
+        self.method = method
+        self.learning_rate = learning_rate
+        self.lr_decay = lr_decay
+        self._angles0 = torch.as_tensor(init_angles, dtype=torch.float32,
+                                        device=self.device).detach().clone()
+        pose = [position.detach()] + ([self._angles0] if fit_angles else [])
+        self._vec = torch.cat(pose).clone().requires_grad_(method == "ad")
+        self.optimizer = _adam([self._vec], learning_rate)
+        self.step_count = 0
+        self.last_grad = None
+        if method == "fd":
+            self.keys = rng.split(rng.prng_key(42), 4) if keys is None else torch.as_tensor(keys)
+            self.scales = tuple(scales)
+            self.fd = (float(fd_delta), float(fd_delta_min), float(fd_decay),
+                       float(fd_delta_angles))
+            tmax = max(float(self.target.max()), 1e-20)
+            self._tmax = tmax
+            self._target_bank = [gaussian_blur(self.target / tmax, s) for s in self.scales]
+
+    @classmethod
+    def from_simulator(cls, sim, init_position, init_angles, target, **kw):
+        """A fitter rendering through ``sim.render_frame`` on ``sim``'s device."""
+        def render_fn(key, position, angles):
+            return sim.render_frame(key, position=position, angles=angles)["bmode"]
+
+        def tensor(x):
+            return torch.as_tensor(np.array(x) if isinstance(x, np.ndarray) else x,
+                                   dtype=torch.float32, device=sim.device)
+
+        return cls(render_fn, tensor(init_position), tensor(init_angles), target, **kw)
+
+    @staticmethod
+    def compound(render_fn, keys, position, angles) -> torch.Tensor:
+        """K-key compounded B-mode: the mean of one frame per key."""
+        return torch.stack([render_fn(k, position, angles) for k in keys]).mean(dim=0)
+
+    # --- state, as the reference holds it ---------------------------------
+    def _unpack(self, vec):
+        return vec[:3], (vec[3:6] if self.fit_angles else self._angles0)
+
+    @property
+    def state(self) -> FitState:
+        """``materials`` holds the fitted pose: ``{"position"}``, plus
+        ``"angles"`` with ``fit_angles``."""
+        vec = self._vec.detach().clone()
+        params = {"position": vec[:3]}
+        if self.fit_angles:
+            params["angles"] = vec[3:]
+        return FitState(params, _adam_state(self.optimizer, self._vec), self.step_count)
+
+    @property
+    def position(self) -> torch.Tensor:
+        return self.state.materials["position"]
+
+    @property
+    def angles(self) -> torch.Tensor:
+        return self.state.materials.get("angles", self._angles0)
+
+    # --- ad ---------------------------------------------------------------
+    def step(self, key) -> float:
+        """One Adam step on the AD gradient of the frame's pixel MSE (``method="ad"``)."""
+        if self.method != "ad":
+            raise ValueError("step(key) is the ad method's; the fd method steps through run()")
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = torch.mean((self.render_fn(key, *self._unpack(self._vec)) - self.target) ** 2)
+        loss.backward()
+        self.last_grad = self._vec.grad.detach().clone()
+        self.optimizer.step()
+        self.step_count += 1
+        return float(loss.detach())
+
+    # --- fd ---------------------------------------------------------------
+    def point_loss(self, vec: torch.Tensor) -> torch.Tensor:
+        """The fd objective at pose ``vec``: the sum over the scales of the MSE
+        between the blurred compound of the keys' frames / tmax and the
+        blurred target / tmax."""
+        with torch.no_grad():
+            c = self.compound(self.render_fn, self.keys, *self._unpack(vec)) / self._tmax
+            return sum(torch.mean((gaussian_blur(c, s) - tb) ** 2)
+                       for s, tb in zip(self.scales, self._target_bank))
+
+    def fd_gradient(self, delta: float):
+        """(the 2d + 1 point losses, the central-difference gradient) at the
+        current pose: points vec, vec + dvec_i e_i, vec - dvec_i e_i, with
+        dvec = delta for positions and ``fd_delta_angles`` for angles."""
+        vec = self._vec.detach()
+        d = vec.shape[0]
+        dvec = torch.full((d,), delta, dtype=torch.float32, device=self.device)
+        dvec[3:] = self.fd[3]
+        eye = torch.eye(d, dtype=torch.float32, device=self.device) * dvec[:, None]
+        pts = torch.cat([vec[None], vec[None] + eye, vec[None] - eye])
+        vals = torch.stack([self.point_loss(p) for p in pts])
+        return vals, (vals[1 : d + 1] - vals[d + 1 :]) / (2.0 * dvec)
+
+    def apply_fd_update(self, g: torch.Tensor) -> None:
+        """One Adam update by ``g`` at the decayed rate of its count."""
+        k = self.step_count
+        lr = np.float32(self.learning_rate) * np.float32(self.lr_decay) ** np.float32(k)
+        self.optimizer.param_groups[0]["lr"] = float(lr)
+        self._vec.grad = g.detach().to(self._vec)
+        self.optimizer.step()
+        self._vec.grad = None
+        self.last_grad = g.detach().clone()
+        self.step_count += 1
+
+    def fd_step(self, i: int):
+        """The i-th fd step of a run: (the 2d + 1 point losses, the gradient,
+        delta), after the update."""
+        d0, dmin, decay, _ = self.fd
+        delta = float(np.float32(max(dmin, d0 * decay**i)))
+        vals, g = self.fd_gradient(delta)
+        self.apply_fd_update(g)
+        return vals, g, delta
+
+    def run(self, n_steps: int, seed: int = 0, log_every: int = 10, verbose: bool = True):
+        """``n_steps`` steps; returns each step's loss (fd: the loss at the
+        pose before the step)."""
+        if self.method == "ad":
+            return _run_loop(self, self.fixed_key, n_steps, seed, log_every, verbose)
         losses = []
         for i in range(n_steps):
-            frame = (self.fixed_frame if self.fixed_frame is not None
-                     else rng.fold_in(rng.prng_key(seed), self.step_count))
-            losses.append(self.step(frame))
+            vals, g, delta = self.fd_step(i)
+            losses.append(float(vals[0]))
             if verbose and (i % log_every == 0 or i == n_steps - 1):
-                gnorm = float(torch.linalg.norm(self.last_grad))
-                print(f"step {self.step_count}: loss {losses[-1]:.6g} |g| {gnorm:.3g}")
+                print(f"step {i}: loss {losses[-1]:.6g} |g| {float(torch.linalg.norm(g)):.3g} "
+                      f"delta {delta:.3f}")
         return losses
+
+
+def _run_loop(fitter, fixed, n_steps: int, seed: int, log_every: int, verbose: bool):
+    """The reference's fit loop (``mcray_tpu/models/trainer.py:352-370``):
+    each step renders with ``fixed``, or else with the key
+    ``fold_in(prng_key(seed), step)``; returns the losses."""
+    losses = []
+    for i in range(n_steps):
+        frame = fixed if fixed is not None else rng.fold_in(rng.prng_key(seed), fitter.step_count)
+        losses.append(fitter.step(frame))
+        if verbose and (i % log_every == 0 or i == n_steps - 1):
+            gnorm = float(torch.linalg.norm(fitter.last_grad))
+            print(f"step {fitter.step_count}: loss {losses[-1]:.6g} |g| {gnorm:.3g}")
+    return losses

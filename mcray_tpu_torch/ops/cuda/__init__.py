@@ -7,11 +7,11 @@ tensors and calls the plain version only for CPU tensors; anything else
 raises.
 """
 
-from . import (intersect, intersect_culled, intersect_grouped, intersect_listed,
+from . import (bvh_intersect, intersect, intersect_culled, intersect_grouped, intersect_listed,
                intersect_staged, march, postproc, scanconv)
 
 KERNELS = (intersect, intersect_listed, intersect_culled, intersect_staged, intersect_grouped,
-           march, postproc, scanconv)
+           bvh_intersect, march, postproc, scanconv)
 
 
 #: the modules that also hold a backward kernel

@@ -42,6 +42,7 @@ P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 # take the CUDA stream last; the others return what RESTYPES says)
 SIGNATURES = {
     "mcray_intersect_closest": [P, I, P, I, P, P, P, P],
+    "mcray_bvh_intersect": [P, I, P, P, I, P, P, P, P, P, P, P],
     "mcray_intersect_listed": [P, I, I, P, P, P, I, P, P, P, P, I, P, P, P, P],
     "mcray_intersect_grouped": [P, I, P, P, I, I, P, I, P, P, P],
     "mcray_intersect_culled": [P, I, P, P, I, I, P, P, P, P],

@@ -12,7 +12,9 @@ Port of ``mcray_tpu/ops/imaging.py`` (reference src/rfimage.h) in plain torch:
   ``envelope_hilbert`` the |analytic signal| by ``torch.fft``;
 - ``scan_convert``: cv::remap(INTER_LINEAR, BORDER_CONSTANT) as an explicit
   4-tap gather — ``grid_sample`` is avoided because its coordinate
-  normalisation adds a rounding that ``map_coordinates`` does not have.
+  normalisation adds a rounding that ``map_coordinates`` does not have;
+- ``gaussian_blur``: the separable edge-padded blur of the pose-registration
+  objective (``models/trainer.py:PoseFitter``).
 
 These are the plain versions that the CUDA postproc and scan-conversion
 kernels (``ops/cuda``) are held against.
@@ -160,6 +162,25 @@ def apply_envelope(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
         raise ValueError(f"SimConfig.envelope_mode={cfg.envelope_mode!r}; expected 'reference' "
                          "or 'hilbert'")
     return envelope(rf)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur with edge padding and ``radius = int(3 * sigma)``
+    (``mcray_tpu/ops/imaging.py:399-413``): blurring the compounded B-mode
+    keeps the macro anatomy and suppresses the speckle micro-structure. The
+    taps are summed as the reference sums them: rows first, then columns,
+    taps ascending."""
+    radius = int(3 * sigma)
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=img.device)
+    k = torch.exp(-0.5 * fdiv(x, sigma) ** 2)
+    k = k / k.sum()
+    rows, cols = img.shape
+    pad_r = torch.arange(-radius, rows + radius, device=img.device).clamp(0, rows - 1)
+    padded = img[pad_r]
+    out = sum(padded[i : i + rows, :] * k[i] for i in range(k.shape[0]))
+    pad_c = torch.arange(-radius, cols + radius, device=img.device).clamp(0, cols - 1)
+    padded = out[:, pad_c]
+    return sum(padded[:, i : i + cols] * k[i] for i in range(k.shape[0]))
 
 
 def log_compress(img: torch.Tensor) -> torch.Tensor:

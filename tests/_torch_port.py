@@ -67,8 +67,9 @@ def both_configs(small: bool = True, **overrides):
 
 
 def reference_render_fn(ref_cfg, pack, seed: int):
-    """``render(key, materials) -> bmode`` through the reference's plain
-    pipeline on the CPU, with the texture volume the port's ``Simulator``
+    """``render(key, materials, position=None, angles=None) -> bmode``
+    through the reference's plain pipeline on the CPU (the scene's pose
+    unless one is given), with the texture volume the port's ``Simulator``
     would derive for ``seed``; also returns that volume's seeds."""
     import jax
     import jax.numpy as jnp
@@ -82,8 +83,10 @@ def reference_render_fn(ref_cfg, pack, seed: int):
     maps = tuple(jnp.asarray(m) for m in ref_imaging.scan_conversion_maps(ref_cfg))
     pose = (jnp.asarray(pack.transducer_position), jnp.asarray(pack.transducer_angles))
 
-    def render(key, materials):
-        out = ref_sim.render(key, materials, *pose, scene, jnp.asarray(pack.spacing),
+    def render(key, materials, position=None, angles=None):
+        pos = pose[0] if position is None else jnp.asarray(position)
+        ang = pose[1] if angles is None else jnp.asarray(angles)
+        out = ref_sim.render(key, materials, pos, ang, scene, jnp.asarray(pack.spacing),
                              jnp.int32(pack.starting_material), volume, maps, ref_cfg)
         # the port clamps the B-mode at 0, as the reference's kernel path does
         return jnp.maximum(out["bmode"], 0.0)
@@ -92,9 +95,10 @@ def reference_render_fn(ref_cfg, pack, seed: int):
 
 
 def port_render_fn(port_cfg, pack, seeds, draws):
-    """``render(frame, materials) -> bmode`` through the port on the CPU from
-    the reference's texture seeds and draws (``frame`` is ignored: fixed
-    randomness)."""
+    """``render(frame, materials, position=None, angles=None) -> bmode``
+    through the port on the CPU from the reference's texture seeds and draws
+    (``frame`` is ignored: fixed randomness), at the scene's pose unless one
+    is given."""
     from mcray_tpu_torch.models import simulator
     from mcray_tpu_torch.ops import imaging
     from mcray_tpu_torch.ops.cuda.scanconv import scan_maps
@@ -103,9 +107,11 @@ def port_render_fn(port_cfg, pack, seeds, draws):
     state = from_reference(pack, pack.materials, seeds, draws, device="cpu")
     maps = scan_maps(*imaging.scan_conversion_maps(port_cfg), port_cfg.rf_rows, port_cfg.rf_cols)
 
-    def render(frame, materials):
+    def render(frame, materials, position=None, angles=None):
         return simulator.render(
-            state["draws"], state["seeds"], materials, state["position"], state["angles"],
+            state["draws"], state["seeds"], materials,
+            state["position"] if position is None else position,
+            state["angles"] if angles is None else angles,
             state["scene"], state["spacing"], state["starting_material"], maps, port_cfg)["bmode"]
 
     return render

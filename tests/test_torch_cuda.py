@@ -20,10 +20,17 @@ largest plain entry, the scan-conversion backward (K9) bitwise against its
 CSR lists summed in order on the host and at 1e-5 / 1e-6 against the
 scatter-add plain version, and a whole fit step's loss and material
 gradient against the CPU plain path. K10 is held per ray (t and slot
-bitwise) against ``grouped_winners_plain``.
+bitwise) against ``grouped_winners_plain``. K11 (the BVH traversal) is held
+bitwise to its plain version (t, winner, node and test counts) and to K1 (t,
+winner) at edge shapes, and its sphere frame to the brute frame; one pose fd step on
+the card against the CPU (point losses rtol 1e-4, gradient 1e-3 of its
+largest entry, pose 1e-5); ``serve``'s drain waits on the drained frame's
+event and nothing else.
 """
 
 import dataclasses
+import io
+import json
 
 import numpy as np
 import pytest
@@ -32,11 +39,12 @@ import torch
 from _torch_port import SPHERE_SCENE, random_segments, random_triangles, to_torch
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models.simulator import Simulator
-from mcray_tpu_torch.ops import clusters, geometry, imaging
+from mcray_tpu_torch.models.trainer import PoseFitter
+from mcray_tpu_torch.ops import bvh, clusters, geometry, imaging
 from mcray_tpu_torch.ops import physics
-from mcray_tpu_torch.ops.cuda import (_build, intersect, intersect_culled, intersect_grouped,
-                                      intersect_listed, intersect_staged, march, postproc,
-                                      scanconv)
+from mcray_tpu_torch.ops.cuda import (_build, bvh_intersect, intersect, intersect_culled,
+                                      intersect_grouped, intersect_listed, intersect_staged, march,
+                                      postproc, scanconv)
 from mcray_tpu_torch.scene.compile import load_and_compile
 from mcray_tpu_torch.utils import rng
 
@@ -622,3 +630,128 @@ def test_wrappers_reject_bad_inputs(cuda):
         march.march_cuda(soa.double(), torch.zeros(2, dtype=torch.int64), cfg, 128)
     with pytest.raises(ValueError):
         march.march_cuda(soa, torch.zeros(2, dtype=torch.int64), cfg, 256)  # wider than the SoA
+
+
+def _bvh_case(n_rays: int, n_tris: int, dead: bool = False):
+    """(rays (6, n) on the card, DeviceBVH on the card) over random triangles
+    in a 10-unit box, half the rays aimed at triangle centroids; ``dead``
+    parks every ray at 1e9 with a zero segment."""
+    g = np.random.default_rng(n_rays * 7 + n_tris)
+    tris, _ = random_triangles(g, n_tris)
+    o, s = random_segments(g, n_rays)
+    if n_tris:
+        aim = g.integers(0, n_tris, n_rays // 2)
+        s[: n_rays // 2] = (tris[aim].mean(axis=1) - o[: n_rays // 2]) * 1.25
+    if dead:
+        o[:], s[:] = 1e9, 0.0
+    rays = to_torch(np.concatenate([o, s], axis=1)).T.contiguous().cuda()
+    flat = bvh.build_bvh(tris) if n_tris else bvh._build_bvh_py(tris, 4)
+    return rays, bvh.DeviceBVH.from_flat(flat, geometry.triangle_soa(to_torch(tris)).cuda())
+
+
+@pytest.mark.parametrize("n_rays,n_tris,dead", [(1, 700, False), (1000, 0, False),
+                                                (300, 3, False), (500, 700, True),
+                                                (2560, 2220, False)],
+                         ids=["1 ray", "no triangle", "leaf only", "all dead", "2560 x 2220"])
+def test_bvh_kernel_matches_plain_bitwise(cuda, n_rays, n_tris, dead):
+    """K11 against its plain version: t, winner and the per-ray node and
+    test counts bitwise; t and winner against K1 bitwise."""
+    rays, device_bvh = _bvh_case(n_rays, n_tris, dead)
+    before = bvh_intersect.launches
+    t_k, j_k, c_k = bvh_intersect.bvh_best(rays, device_bvh, counts=True)
+    assert bvh_intersect.launches == before + 1
+    t_p, j_p, c_p = bvh.bvh_best_plain(rays, device_bvh, counts=True)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(j_k, j_p) and torch.equal(c_k, c_p)
+    # K1 on the scene's triangles in their own order: the same (t, index)
+    scene_soa = torch.empty_like(device_bvh.tri_soa)
+    scene_soa[:, device_bvh.tri_order.long()] = device_bvh.tri_soa
+    t_1, i_1 = intersect.intersect_best(rays, scene_soa)
+    assert torch.equal(t_k, t_1) and torch.equal(j_k, i_1)
+    if dead or not n_tris:
+        assert bool((t_k == geometry.NO_HIT_T).all()) and bool((j_k == 0).all())
+    if n_tris == 3:
+        assert device_bvh.nodes.shape[0] == 1
+    if n_rays == 2560:
+        assert int((t_k < 1.5).sum()) > 600
+
+
+def test_bvh_frame_on_the_card_equals_the_brute_frame(cuda):
+    cfg = small_test_config()
+    pack = load_and_compile(SPHERE_SCENE)
+    frames = {}
+    for name, kw in (("bvh", {"use_bvh": True}), ("brute", {"use_culled_intersect": False})):
+        sim = Simulator(pack, cfg, device=cuda, seed=2, **kw)
+        assert sim.intersect == name
+        frames[name] = sim.render_frame(3)
+    for key in ("rays", "valid", "to"):
+        assert torch.equal(frames["bvh"]["segments"][key], frames["brute"]["segments"][key]), key
+    assert torch.equal(frames["bvh"]["bmode"], frames["brute"]["bmode"])
+
+
+def test_pose_fd_step_on_the_card_matches_the_cpu(cuda):
+    """One fd step at a small config with two keys: the seven point losses
+    (rtol 1e-4), the gradient (atol 1e-3 x its largest entry) and the pose
+    after the step (atol 1e-5 on the strong axes) on the card against the CPU."""
+    cfg = small_test_config(transducer_elements=32, samples_per_element=1)
+    pack = load_and_compile(SPHERE_SCENE)
+    keys = rng.split(rng.prng_key(42), 2)
+    result = {}
+    for device in ("cpu", cuda):
+        sim = Simulator(pack, cfg, device=device, seed=0)
+        render = lambda k, p, a, sim=sim: sim.render_frame(k, position=p, angles=a)["bmode"]
+        with torch.no_grad():
+            target = PoseFitter.compound(render, keys, sim.position, sim.angles)
+        fit = PoseFitter.from_simulator(sim, sim.position.cpu() + torch.tensor([0.0, 0.3, 0.0]),
+                                        sim.angles, target, method="fd", keys=keys,
+                                        scales=(4.0, 8.0), learning_rate=2.5e-2)
+        vals, g = fit.fd_gradient(0.06)
+        fit.apply_fd_update(g)
+        result[str(torch.device(device).type)] = (vals.cpu(), g.cpu(), fit.position.cpu())
+    (v_c, g_c, p_c), (v_g, g_g, p_g) = result["cpu"], result["cuda"]
+    np.testing.assert_allclose(v_g, v_c, rtol=1e-4)
+    np.testing.assert_allclose(g_g, g_c, rtol=0, atol=1e-3 * float(g_c.abs().max()))
+    strong = g_c.abs() > 0.01 * g_c.abs().max()
+    np.testing.assert_allclose(p_g[strong], p_c[strong], atol=1e-5)
+
+
+def test_serve_drain_waits_on_the_previous_frame_only(cuda, tmp_path, monkeypatch, capsys):
+    """While frame i - 1 drains, a device-wide wait raises, the only event
+    waited on is frame i - 1's, and frame i (held on the card by a ~0.2 s
+    spin queued after its launches) is still pending when the drain
+    returns: the drain overlaps frame i and waits on nothing of it."""
+    from mcray_tpu_torch import cli
+
+    staged, drains = [], []
+    stage, drain, event_sync = cli._stage, cli._drain, torch.cuda.Event.synchronize
+
+    def slow_stage(bmode):
+        torch.cuda._sleep(400_000_000)  # ~0.2 s: this frame's copy and event wait behind it
+        out = stage(bmode)
+        staged.append(out[1])
+        return out
+
+    def no_device_wait(*args, **kwargs):
+        raise AssertionError("the drain waited on the whole device")
+
+    def watched_drain(frame):
+        waited = []
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "synchronize", no_device_wait)
+            m.setattr(torch.cuda.Stream, "synchronize", no_device_wait)
+            m.setattr(torch.cuda.Event, "synchronize",
+                      lambda ev: (waited.append(ev), event_sync(ev))[1])
+            drain(frame)
+        newest = staged[-1]
+        drains.append((waited == [frame[1]], newest is frame[1] or not newest.query()))
+
+    monkeypatch.setattr(cli, "_stage", slow_stage)
+    monkeypatch.setattr(cli, "_drain", watched_drain)
+    monkeypatch.setattr("sys.stdin", io.StringIO("{}\n{}\n{}\n"))
+    assert cli.main(["serve", SPHERE_SCENE, "--elements", "32", "--samples", "1",
+                     "--out-prefix", str(tmp_path / "serve")]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert len([x for x in lines if "frame" in x]) == 3 and len(drains) == 3
+    # every drain waited on its own frame's event alone; the two that ran
+    # beside a newer frame returned with that frame still pending
+    assert drains == [(True, True)] * 3
