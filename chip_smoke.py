@@ -24,6 +24,16 @@ with the launch counts set to 0 just before it and read just after:
   the target frame, then 5 Adam steps of ``MaterialFitter`` on the doubled
   LIVER attenuation, through K5, K2, K3, K4 forward and the march (K8) and
   scan-conversion (K9) backward kernels;
+- the parallel layer on a one-rank NCCL group (``make_mesh(device="cuda")``):
+  ``ShardedRenderer``'s sphere frames 0-2 in the halo and the gathered
+  imaging mode and a ``ShardedRenderer2D`` 1 x 1 frame against the
+  ``Simulator``'s (RF bitwise, the gathered B-mode bitwise, the halo B-mode
+  at rtol 1e-5 / atol 1e-6), K5 10, K2 1, K4 1 a frame and K3 only when
+  gathered, and one sharded train step at the fit set-up against
+  ``MaterialFitter`` (K8, K9 once; loss rtol 1e-4, gradient 2e-3 of its
+  largest entry), then the sharded frames timed and profiled beside one
+  device's (one card holds one NCCL rank: more ranks are tested on the
+  CPU by gloo);
 - the probe-pose paths: ``PoseFitter(method="fd")`` from the scene's pose +
   (0, 0.3, 0), 5 steps of 28 frames (4 keys, scales 2, 4, 8), and
   ``method="ad"`` in soft + trilinear mode, 2 steps on position and angles
@@ -79,7 +89,9 @@ K6, K7, K9 and K10 are read back and must fill half the card. The sphere
 brute frame and the ircad_hd frames (listed, culled, staged) are profiled
 as the sphere's and the mega scene's are.
 
-The last lines are the kernel record ({"kernels": [...]}), the card's
+The last lines are the kernel record ({"kernels": [...]}; each entry's
+``sharded_launches`` gives its launches per sharded frame in each imaging
+mode and per sharded train step), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
 failed phase raises (exit code != 0, no result line). Without a CUDA
 device it fails at once.
@@ -99,13 +111,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from device_timing import busy_view, cuda_ms, event_ms, graph_ms, grid_sample_remap, nvidia_smi
 from mcray_tpu_torch import cli
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models import simulator
 from mcray_tpu_torch.models.simulator import Simulator
-from mcray_tpu_torch.models.trainer import MaterialFitter, PoseFitter
+from mcray_tpu_torch.models.trainer import MaterialFitter, PoseFitter, column_mask
 from mcray_tpu_torch.ops import bvh, clusters, geometry, imaging, physics
 from mcray_tpu_torch.ops import cuda as kernels
 from mcray_tpu_torch.ops.bvh import build_bvh
@@ -114,6 +127,8 @@ from mcray_tpu_torch.ops.cuda import (_build, bvh_intersect, intersect, intersec
                                       postproc, scanconv)
 from mcray_tpu_torch.utils.image_io import save_png
 from mcray_tpu_torch.ops.geometry import NO_HIT_T
+from mcray_tpu_torch.parallel.shard import (ShardedRenderer, ShardedRenderer2D, make_mesh,
+                                            make_mesh_2d)
 from mcray_tpu_torch.scene import stress
 from mcray_tpu_torch.scene.compile import load_and_compile
 from mcray_tpu_torch.utils import rng
@@ -142,6 +157,8 @@ MEGA_FRAME_RTOL, MEGA_FRAME_ATOL = 1e-3, 1e-4
 # the normal draw goes through each device's erfinv
 NORMAL_RTOL, NORMAL_ATOL = 1e-5, 1e-6
 FIT_STEPS = 5
+SHARD_FRAMES = 3          # sharded frames 0-2 held to the Simulator's, in each imaging mode
+SHARD_TIMED_FRAMES = 10
 # K1 on ircad_hd against its plain version: this many rays of each bounce
 # (its live rays, evenly spaced), from the whole bounce's launch
 IRCAD_K1_SAMPLE = 256
@@ -1322,6 +1339,99 @@ def bvh_bound(calls, device_bvh) -> tuple[float, str]:
     return bound(n_b / len(calls), n_o / len(calls))
 
 
+def nonzero(counts: dict[str, int]) -> dict[str, int]:
+    return {k: v for k, v in counts.items() if v}
+
+
+def shard_phase(pack, sim, fit, smi: str) -> dict:
+    """The parallel layer on a one-rank NCCL group (``make_mesh(device="cuda")``
+    starts it on a free local port): the scanline-sharded sphere frame at
+    ``SimConfig()`` in both imaging modes and the 1 x 1 2-D mesh against the
+    ``Simulator`` (RF bitwise; the gathered B-mode bitwise, the same K3; the
+    halo B-mode at rtol 1e-5 / atol 1e-6, the plain postproc against K3),
+    one sharded train step at the ``[fit]`` set-up against ``MaterialFitter``
+    (loss rtol 1e-4, gradient 2e-3 of its largest entry), exact launch
+    counts for each, then the sharded frames timed and profiled beside the
+    single device's. One card holds one NCCL rank: more ranks are checked
+    on the CPU by gloo (``tests/test_torch_shard.py``)."""
+    cfg = sim.cfg
+    mesh = make_mesh(device="cuda")
+    try:
+        print(f"[shard] one-rank {dist.get_backend()} group (world {dist.get_world_size()}), NCCL "
+              f"{torch.cuda.nccl.version()}; sphere at SimConfig(), frames 0-{SHARD_FRAMES - 1}")
+        frame_launches = {"intersect_listed": cfg.max_depth, "march": 1, "scanconv": 1}
+        renderers = {"halo": ShardedRenderer(pack, cfg, mesh, distributed_imaging=True),
+                     "gathered": ShardedRenderer(pack, cfg, mesh, distributed_imaging=False),
+                     "2d 1x1": ShardedRenderer2D(pack, cfg, make_mesh_2d(1, 1, device="cuda"))}
+        launches = {}
+        for mode, renderer in renderers.items():
+            per_frame = frame_launches | ({"postproc": 1} if mode == "gathered" else {})
+            for seed in range(SHARD_FRAMES if mode != "2d 1x1" else 1):
+                want = sim.render_frame(seed)
+                kernels.reset_launch_counts()
+                got = renderer.render_frame(seed)
+                torch.cuda.synchronize()
+                launches[mode] = kernels.launch_counts()
+                check_launches(f"sharded {mode} frame {seed}", launches[mode], per_frame)
+                rf_equal = torch.equal(got["rf_raw"], want["rf_raw"])
+                bm_err = float((got["bmode"] - want["bmode"]).abs().max())
+                bm_ok = (torch.equal(got["bmode"], want["bmode"]) if mode == "gathered" else
+                         torch.allclose(got["bmode"], want["bmode"], rtol=1e-5, atol=1e-6))
+                print(f"  {mode} frame {seed}: rf_raw bitwise {rf_equal}, bmode max err {bm_err:.3e}"
+                      f" ({'bitwise' if mode == 'gathered' else 'rtol 1e-5, atol 1e-6'}) "
+                      f"{'ok' if bm_ok else 'FAILED'}")
+                if not (rf_equal and bm_ok):
+                    raise AssertionError(f"the sharded {mode} frame {seed} != the Simulator's")
+                check_bmode(f"sharded {mode} frame {seed}", sim, got["bmode"])
+            print(f"  launches a {mode} frame: {nonzero(launches[mode])}")
+
+        # one train step at the [fit] set-up against MaterialFitter on the card
+        row, col = 3, physics.ATTENUATION
+        fit_sim, target = fit["sim"], fit["frame"]["bmode"]
+        perturbed = pack.materials.copy()
+        perturbed[row, col] *= 2.0
+        draws = fit_sim.draws(0)
+        fitter = MaterialFitter.from_simulator(fit_sim, perturbed, target, trainable=(col,),
+                                               trainable_rows=[row], fixed_frame=draws)
+        want_loss = fitter.step(draws)
+        want_grad = fitter.last_grad
+        step = ShardedRenderer(pack, fit["cfg"], mesh).make_train_step(
+            1e-2, column_mask(perturbed.shape[0], (col,), [row]), perturbed)
+        kernels.reset_launch_counts()
+        loss = step(rng.fold_in(rng.prng_key(0), 0), target)
+        torch.cuda.synchronize()
+        launches["train step"] = kernels.launch_counts()
+        check_launches("sharded train step", launches["train step"],
+                       frame_launches | {"march_bwd": 1, "scanconv_bwd": 1})
+        grad_err = float((step.last_grad - want_grad).abs().max())
+        scale = float(want_grad.abs().max())
+        print(f"  train step: loss {loss:.8g} vs MaterialFitter {want_loss:.8g}; gradient max err "
+              f"{grad_err:.3e} of its largest entry {scale:.3e}; launches "
+              f"{nonzero(launches['train step'])}")
+        if not (math.isclose(loss, want_loss, rel_tol=1e-4) and scale > 0
+                and grad_err <= 2e-3 * scale):
+            raise AssertionError("the sharded train step != MaterialFitter's")
+
+        # timing: the sharded frames beside the single device's, in turns
+        print(f"  [{smi}] timing, {SHARD_TIMED_FRAMES} frames each by events")
+        timed_ms, views = {}, {}
+        for name, render in (("single", sim.render_frame),
+                             ("gathered", renderers["gathered"].render_frame),
+                             ("halo", renderers["halo"].render_frame)):
+            seeds = iter(range(200, 200 + SHARD_TIMED_FRAMES))
+            ms = event_ms(lambda: render(next(seeds)), SHARD_TIMED_FRAMES)
+            timed_ms[name] = {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}
+            print(f"  {name} frame: median {timed_ms[name]['median']:.3f} ms (min "
+                  f"{timed_ms[name]['min']:.3f}, max {timed_ms[name]['max']:.3f})")
+            views[name] = device_view(f"{name} frame", lambda: render(7), timed_ms[name]["median"],
+                                      expect={"intersect_listed_kernel": cfg.max_depth})
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches, "ms": timed_ms,
+            "busy_ms": {k: v["busy_ms"] for k, v in views.items()},
+            "operations": {k: v["operations"] for k, v in views.items()}}
+
+
 T_START = time.perf_counter()
 
 
@@ -1427,6 +1537,8 @@ def main() -> int:
     mark("frames and requests")
     fit = fit_phase(sphere, smi)
     mark("fit")
+    shard = shard_phase(sphere, sims["sphere"], fit, smi)
+    mark("shard")
     # the probe-pose paths: registration (fd, ad), serve, sweep
     pose_fd_phase(sphere, smi)
     mark("pose fd")
@@ -1900,10 +2012,14 @@ def main() -> int:
                           "fit_mode_plain_ms": ms["sphere"][mode][1],
                           "fit_mode_bound_ms": bounds[mode][0], "fit_mode_bound_by": bounds[mode][1],
                           "fit_mode_max_abs_err": errs[mode]})
+        # launches on the sharded path (one-rank NCCL group): per frame in each
+        # imaging mode, and per sharded train step
+        entry["sharded_launches"] = {mode: n[name] for mode, n in shard["launches"].items()}
         record.append(entry)
         print(f"  {name}: {k_ms:.4f} ms, bound {bounds[name][0]:.5f} ms by {bounds[name][1]} "
               f"({bounds[name][0] / k_ms:.1%} of the kernel's time)")
 
+    print("[shard] summary: " + json.dumps({k: v for k, v in shard.items() if k != "launches"}))
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

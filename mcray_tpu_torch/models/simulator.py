@@ -48,7 +48,7 @@ from ..ops.cuda.intersect_grouped import intersect_closest_grouped
 from ..ops.cuda.intersect_listed import intersect_closest_listed
 from ..ops.cuda.intersect_staged import intersect_closest_staged
 from ..ops.cuda.march import march_cuda, pack_segments
-from ..ops.cuda.postproc import postproc_cuda
+from ..ops.cuda.postproc import kernel_modes, postproc_cuda
 from ..ops.cuda.scanconv import scan_convert_cuda, scan_maps
 from ..ops.geometry import safe_norm
 from ..ops.texture import fdiv
@@ -91,7 +91,7 @@ def distance_in_mm(a, b, spacing):
 def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spacing,
                 starting_material: int, cfg: SimConfig, *, culled_tris=None,
                 intersect_tile_r: int = 128, sort_packets: bool = False,
-                bvh: DeviceBVH | None = None) -> dict[str, torch.Tensor]:
+                bvh: DeviceBVH | None = None, elements=None) -> dict[str, torch.Tensor]:
     """Monte-Carlo path tracing of all elements x samples paths. Returns the
     segment dict, each field stacked over bounce depth (D, N, ...), plus
     ``rays``: the (D, 6, N) [origin; segment] closest-hit queries of every
@@ -101,15 +101,27 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
     kernel of ``mode`` (``CLUSTER_INTERSECTS``) on ``intersect_tile_r``-ray
     packets, coherence-sorted first if ``sort_packets``; else ``bvh`` (the
     scene's ``DeviceBVH``) runs the BVH traversal; with neither, the brute
-    kernel runs over ``scene["tri_soa"]``."""
+    kernel runs over ``scene["tri_soa"]``.
+
+    ``elements=(positions (R_local, 3), directions (R_local, 3), elem_idx
+    (N_local,))`` replaces the element batch for sharded execution, as the
+    reference's ``elements`` does (``mcray_tpu/models/simulator.py:79-100``):
+    ``elem_idx`` is each path's local RF column, and the paths of an element
+    are consecutive. The reference's fourth entry, the global path ids, keys
+    the draws here: ``draws`` are ``path_draws(key, cfg, device, path_ids)``."""
     n_samples = cfg.samples_per_element
     freq = cfg.transducer_frequency
     eps = cfg.intensity_epsilon
-    positions, directions = element_layout(probe_position, probe_angles_deg, cfg)
+    if elements is None:
+        positions, directions = element_layout(probe_position, probe_angles_deg, cfg)
+        elem_idx = torch.arange(cfg.transducer_elements, dtype=torch.int32,
+                                device=positions.device).repeat_interleave(n_samples)
+    else:
+        positions, directions, elem_idx = elements
     device = positions.device
-    elem_idx = torch.arange(cfg.transducer_elements, dtype=torch.int32, device=device)
-    elem_idx = elem_idx.repeat_interleave(n_samples)
     n = elem_idx.shape[0]
+    # paths per element in this batch (fewer than n_samples where the samples are sharded)
+    local_samples = n // positions.shape[0]
 
     tri_soa, tri_mesh_id = scene["tri_soa"], scene["tri_mesh_id"]
     mesh_in, mesh_out = scene["mesh_mat_inside"], scene["mesh_mat_outside"]
@@ -117,8 +129,8 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
     # per-mesh inside thickness, so the per-ray lookup is one small gather
     thick_by_mesh = physics.take_rows(materials, mesh_in)[:, physics.THICKNESS]
 
-    src = positions.repeat_interleave(n_samples, dim=0)
-    direction = directions.repeat_interleave(n_samples, dim=0)
+    src = positions.repeat_interleave(local_samples, dim=0)
+    direction = directions.repeat_interleave(local_samples, dim=0)
     media_id = torch.full((n,), starting_material, dtype=torch.int32, device=device)
     media_outside_id = torch.full((n,), -1, dtype=torch.int32, device=device)
     intensity = torch.full((n,), cfg.initial_intensity / n_samples, dtype=torch.float32,
@@ -252,14 +264,40 @@ def march_and_accumulate(segments, materials, volume, cfg: SimConfig, n_cols: in
                                      all_valid, cfg, n_cols)
 
 
-def path_draws(trace_key: torch.Tensor, cfg: SimConfig, device) -> dict[str, torch.Tensor]:
-    """The (D, N) draws of ``physics.draw_bounce_randoms`` for every path,
-    each keyed ``fold_in(trace_key, path id)`` (``trace_paths``' keying in
-    the reference, ``mcray_tpu/models/simulator.py:91-100``)."""
-    n = cfg.transducer_elements * cfg.samples_per_element
-    path_ids = torch.arange(n, dtype=torch.int64, device=device)
-    path_keys = rng.fold_in(trace_key.to(device), path_ids)
+def path_draws(trace_key: torch.Tensor, cfg: SimConfig, device,
+               path_ids: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """The (D, N) draws of ``physics.draw_bounce_randoms`` for the paths
+    ``path_ids`` (default: every path of the frame, 0..N-1), each keyed
+    ``fold_in(trace_key, global path id)`` (``trace_paths``' keying in the
+    reference, ``mcray_tpu/models/simulator.py:91-100``): a shard draws for
+    its own paths only, and exactly what the whole frame draws for them."""
+    if path_ids is None:
+        path_ids = torch.arange(cfg.transducer_elements * cfg.samples_per_element,
+                                dtype=torch.int64, device=device)
+    path_keys = rng.fold_in(trace_key.to(device), path_ids.to(device))
     return physics.draw_bounce_randoms(path_keys, cfg.max_depth)
+
+
+def march_segments(segments, materials, seeds, volume, cfg: SimConfig, n_cols: int):
+    """The (rf_rows, n_cols) RF image of ``segments`` (each path's column is
+    its ``element``) and the packed SoA the march kernel read: K2 on the
+    SoA, or under ``soft_row_binning`` the reference's plain scatter march
+    (its kernel bins hard), with no SoA (None)."""
+    if cfg.soft_row_binning:
+        return None, march_and_accumulate(segments, materials, volume or {"seeds": seeds}, cfg,
+                                          n_cols)
+    soa = pack_segments(segments, materials, cfg, n_cols)
+    return soa, march_cuda(soa, seeds, cfg, n_cols)
+
+
+def scan_convert_frame(rf_env, maps, cfg: SimConfig):
+    """Log compression where ``cfg`` asks for it (over the whole image: its
+    maximum is global), then the scan conversion clamped at 0, as the
+    reference clamps on its kernel path (simulator.py:407-420). Returns
+    (rf_env, bmode)."""
+    if cfg.log_compression:
+        rf_env = imaging.log_compress(rf_env)
+    return rf_env, torch.clamp(scan_convert_cuda(rf_env, maps), min=0.0)
 
 
 def render(draws, seeds, materials, probe_position, probe_angles_deg, scene, spacing,
@@ -271,27 +309,27 @@ def render(draws, seeds, materials, probe_position, probe_angles_deg, scene, spa
     texture volume of ``seeds`` where it holds tables ("table" mode: the
     scatter march gathers from them, the kernels evaluate the hash);
     ``trace_kw`` (the closest-hit choice) go to ``trace_paths``. If
-    ``materials`` requires grad, ``bmode`` is attached to it. Returns
-    ``bmode`` (bmode_rows, bmode_cols) and the intermediates the stages pass
-    on: ``segments`` (with the per-bounce ``rays``), the packed ``soa``
-    (None under ``soft_row_binning``, which marches by scatter), ``rf_raw``
-    and ``rf_env``."""
+    ``materials`` requires grad, ``bmode`` is attached to it.
+
+    Returns the reference's keys (``mcray_tpu/models/simulator.py:422-429``):
+    ``bmode`` (bmode_rows, bmode_cols), ``rf_raw``, ``rf_conv``, ``rf_env``
+    and ``segments_valid`` (D, N); and the intermediates the stages pass on:
+    ``segments`` (with the per-bounce ``rays``) and the packed ``soa`` (None
+    under ``soft_row_binning``). ``rf_conv`` is as on the reference's two
+    paths: where K3 runs (a CUDA image, the uncentered PSF and the reference
+    envelope) it fuses the convolution into the envelope and ``rf_conv`` is
+    ``rf_raw``, as on the reference's fused-kernel path; where the plain
+    postproc runs (the CPU, the centered PSF, the Hilbert envelope) it is
+    ``imaging.convolve_psf(rf_raw)``."""
     segments = trace_paths(draws, materials, probe_position, probe_angles_deg, scene,
                            spacing, starting_material, cfg, **trace_kw)
-    if cfg.soft_row_binning:
-        # the reference's plain march for this mode (its kernel bins hard)
-        soa = None
-        rf_raw = march_and_accumulate(segments, materials, volume or {"seeds": seeds}, cfg,
-                                      cfg.rf_cols)
-    else:
-        soa = pack_segments(segments, materials, cfg, cfg.rf_cols)
-        rf_raw = march_cuda(soa, seeds, cfg, cfg.rf_cols)
+    soa, rf_raw = march_segments(segments, materials, seeds, volume, cfg, cfg.rf_cols)
     rf_env = postproc_cuda(rf_raw, cfg)
-    if cfg.log_compression:
-        rf_env = imaging.log_compress(rf_env)
-    # clamped at 0, as the reference clamps on its kernel path (simulator.py:407-420)
-    bmode = torch.clamp(scan_convert_cuda(rf_env, maps), min=0.0)
-    return {"bmode": bmode, "rf_raw": rf_raw, "rf_env": rf_env, "soa": soa, "segments": segments}
+    fused = rf_raw.device.type == "cuda" and kernel_modes(cfg)
+    rf_conv = rf_raw if fused else imaging.convolve_psf(rf_raw, cfg)
+    rf_env, bmode = scan_convert_frame(rf_env, maps, cfg)
+    return {"bmode": bmode, "rf_raw": rf_raw, "rf_conv": rf_conv, "rf_env": rf_env,
+            "segments_valid": segments["valid"], "soa": soa, "segments": segments}
 
 
 class Simulator:

@@ -75,12 +75,15 @@ def pack_segments(segments, materials, cfg: SimConfig, n_cols: int) -> torch.Ten
     """Regroup the (D, N) segment tensor into the kernel's (SD, 16, C_pad)
     SoA: paths are column-major (path = c * S + s), segment index
     sd = s * D + d, and C is padded to a multiple of 128 with invalid
-    columns — the reference's ``pack_segments`` layout, field by field."""
+    columns — the reference's ``pack_segments`` layout, field by field.
+    S is the paths per column in ``segments`` (``N / n_cols``: fewer than
+    ``cfg.samples_per_element`` where the samples are sharded); a boundary
+    echo is weighted by 1 / ``cfg.samples_per_element`` all the same."""
     from ...models.simulator import segment_march_quantities
 
     d, n = segments["valid"].shape
-    s = cfg.samples_per_element
     c = n_cols
+    s = n // c
 
     def per_col(x):  # (D, C*S) -> (C, S*D)
         return x.reshape(d, c, s).permute(1, 2, 0).reshape(c, s * d)
@@ -89,7 +92,7 @@ def pack_segments(segments, materials, cfg: SimConfig, n_cols: int) -> torch.Ten
     b_row = torch.floor(fdiv(t0 + cfg.march_dt_us * (steps - 1.0), cfg.rf_row_dt_us))
     b_ok = segments["valid"] & (steps >= 1.0) & (b_row >= 0) & (b_row < cfg.rf_rows)
     b_row = torch.where(b_ok, b_row, -1.0)
-    b_val = fdiv(segments["reflected"], float(s))
+    b_val = fdiv(segments["reflected"], float(cfg.samples_per_element))
     frm, dire = segments["from"], segments["direction"]
     fields = [
         frm[..., 0], frm[..., 1], frm[..., 2],

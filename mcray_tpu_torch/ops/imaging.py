@@ -6,7 +6,9 @@ Port of ``mcray_tpu/ops/imaging.py`` (reference src/rfimage.h) in plain torch:
   relaxation (``cfg.soft_row_binning``);
 - ``convolve_psf``: the reference-exact uncentered separable convolution,
   raw values kept outside the write window, or the centered 'same'
-  correlation (``cfg.centered_psf``);
+  correlation (``cfg.centered_psf``); ``convolve_psf_sharded`` and
+  ``convolve_psf_rows_sharded`` the uncentered one on a column- or
+  row-sharded image, with a halo from the neighbouring ranks;
 - ``envelope``: the closed form of the C++ peak-lerp walk, with the
   (index, value) scans done as index scans (cummax/cummin) plus a gather;
   ``envelope_hilbert`` the |analytic signal| by ``torch.fft``;
@@ -24,9 +26,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import SimConfig
 from . import psf as psf_mod
+from .collectives import shift_blocks
 from .texture import fdiv
 
 
@@ -101,6 +105,104 @@ def _convolve_reference(rf: torch.Tensor, ax, lat) -> torch.Tensor:
     out = rf.clone()
     out[a : rows - a, l // 2 : cols - l] = conv_lat[a : rows - a, l // 2 : cols - l]
     return out
+
+
+def require_uncentered_psf(cfg: SimConfig, name: str) -> None:
+    """The halo convolutions compute the reference's forward-shifted kernels
+    only; the reference's own apply them under ``centered_psf`` as well, and
+    so part from ``convolve_psf`` there (``mcray_tpu/ops/imaging.py:91-96``
+    against ``:130-227``): the port raises instead."""
+    if cfg.centered_psf:
+        raise ValueError(f"{name} computes the uncentered PSF only; cfg.centered_psf is set "
+                         "(gather the image and use convolve_psf)")
+
+
+def _window_mask(idx: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    return (idx >= lo) & (idx < hi)
+
+
+def convolve_psf_sharded(rf_local: torch.Tensor, cfg: SimConfig, group=None) -> torch.Tensor:
+    """``convolve_psf`` of a column-sharded RF image: this rank holds the
+    columns [rank * C_local, (rank + 1) * C_local) of ``group`` (``None``:
+    the default group) and gets the same columns of the convolved image.
+
+    The axial pass is column-local. The lateral pass reads up to l - 1
+    columns to the right of each output column (the forward-shifted kernel,
+    src/rfimage.h:116-118), so each rank takes an (R, l - 1) halo from the
+    ranks after it, a block at a time (``collectives.shift_blocks``), over
+    as many ranks as it takes where a shard is narrower than the halo; the
+    last rank's halo wraps to rank 0, and feeds only cells outside the write
+    window. Cells outside the reference's window (global cols [l//2, C-l),
+    rows [a, R-a)) keep their raw values. Port of
+    ``mcray_tpu/ops/imaging.py:130-172``; differentiable (the halo's
+    gradient goes back to its owner). Raises ValueError under
+    ``cfg.centered_psf``."""
+    require_uncentered_psf(cfg, "convolve_psf_sharded")
+    ax = [float(v) for v in psf_mod.axial_kernel_np(cfg)]
+    lat = [float(v) for v in psf_mod.lateral_kernel_np(cfg)]
+    rows, c_local = rf_local.shape
+    a, l = len(ax), len(lat)
+    n_shards, me = dist.get_world_size(group), dist.get_rank(group)
+    c_global = c_local * n_shards
+    if rows <= 2 * a or c_global <= l + l // 2:  # the reference's loops never run
+        return rf_local
+    rv = rows - a + 1
+    conv_ax = sum(rf_local[k : k + rv, :] * ax[k] for k in range(a))
+    buf = torch.zeros_like(rf_local)
+    buf[a : rows - a] = conv_ax[a : rows - a]
+
+    parts, block = [buf], buf[:, : min(c_local, l - 1)]
+    for _ in range(-(-(l - 1) // c_local)):
+        block = shift_blocks(block, group)
+        parts.append(block)
+    buf_ext = torch.cat(parts, dim=1)[:, : c_local + l - 1]
+    conv_lat = sum(buf_ext[:, k : k + c_local] * lat[k] for k in range(l))
+
+    col = me * c_local + torch.arange(c_local, device=rf_local.device)
+    row = torch.arange(rows, device=rf_local.device)
+    write = (_window_mask(row, a, rows - a)[:, None]
+             & _window_mask(col, l // 2, c_global - l)[None, :])
+    return torch.where(write, conv_lat, rf_local)
+
+
+def convolve_psf_rows_sharded(rf_local: torch.Tensor, cfg: SimConfig, group=None) -> torch.Tensor:
+    """``convolve_psf`` of a row-sharded (time-sharded) RF image: this rank
+    holds the rows [rank * R_local, (rank + 1) * R_local) of ``group``.
+
+    Here the axial pass crosses shards: the forward-shifted 7-tap kernel
+    reads rows [r, r + a) (src/rfimage.h:102-104), so each rank takes an
+    (a - 1, C) halo from the ranks after it, over several where a shard is
+    shorter than the halo (the last rank's wraps to rank 0 and feeds only
+    rows the write mask drops). The lateral pass and the write window are
+    then row-local, and the lateral pass reads a buffer that is zero outside
+    the axial row window, as in ``_convolve_reference``. Port of
+    ``mcray_tpu/ops/imaging.py:175-227``; differentiable. Raises ValueError
+    under ``cfg.centered_psf``."""
+    require_uncentered_psf(cfg, "convolve_psf_rows_sharded")
+    ax = [float(v) for v in psf_mod.axial_kernel_np(cfg)]
+    lat = [float(v) for v in psf_mod.lateral_kernel_np(cfg)]
+    r_local, cols = rf_local.shape
+    a, l = len(ax), len(lat)
+    n_shards, me = dist.get_world_size(group), dist.get_rank(group)
+    r_global = r_local * n_shards
+    if r_global <= 2 * a or cols <= l + l // 2:
+        return rf_local
+
+    parts, block = [rf_local], rf_local[: min(r_local, a - 1)]
+    for _ in range(-(-(a - 1) // r_local)):
+        block = shift_blocks(block, group)
+        parts.append(block)
+    ext = torch.cat(parts, dim=0)[: r_local + a - 1]
+    conv_ax = sum(ext[k : k + r_local, :] * ax[k] for k in range(a))
+
+    row_ok = _window_mask(me * r_local + torch.arange(r_local, device=rf_local.device),
+                          a, r_global - a)
+    buf = torch.where(row_ok[:, None], conv_ax, 0.0)
+    cv = cols - l + 1
+    conv_lat = sum(buf[:, k : k + cv] * lat[k] for k in range(l))
+    conv_full = torch.nn.functional.pad(conv_lat, (0, cols - cv))
+    col_ok = _window_mask(torch.arange(cols, device=rf_local.device), l // 2, cols - l)
+    return torch.where(row_ok[:, None] & col_ok[None, :], conv_full, rf_local)
 
 
 def envelope(rf: torch.Tensor) -> torch.Tensor:

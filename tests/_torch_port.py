@@ -8,6 +8,9 @@ crosses between them as numpy arrays made from a seed.
 from __future__ import annotations
 
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -15,6 +18,9 @@ import torch
 torch.set_num_threads(1)
 
 SPHERE_SCENE = os.path.join(os.path.dirname(__file__), "..", "assets", "sphere", "sphere.scene")
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+SHARD_WORKER = os.path.join(os.path.dirname(__file__), "torch_shard_worker.py")
+SHARD_WORKER_TIMEOUT_S = 300
 
 
 def to_torch(x, dtype=None) -> torch.Tensor:
@@ -115,6 +121,35 @@ def port_render_fn(port_cfg, pack, seeds, draws):
             state["scene"], state["spacing"], state["starting_material"], maps, port_cfg)["bmode"]
 
     return render
+
+
+def spawn_ranks(case: str, world: int, out_dir) -> list:
+    """``world`` processes of ``tests/torch_shard_worker.py`` running
+    ``case`` as the ranks of one gloo group on a free local port: started,
+    not waited for (``collect_ranks``)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    return [subprocess.Popen([sys.executable, SHARD_WORKER, case, str(rank), str(world), str(port),
+                              str(out_dir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True, env=env, cwd=ROOT)
+            for rank in range(world)]
+
+
+def collect_ranks(procs, out_dir) -> list[dict]:
+    """Each rank's arrays, once every rank exited 0 within the timeout (the
+    ranks are killed either way)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SHARD_WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} failed (rc={p.returncode}):\n{out}"
+    return [dict(np.load(os.path.join(out_dir, f"rank{rank}.npz"))) for rank in range(len(procs))]
 
 
 def envelope_walk(col: np.ndarray) -> np.ndarray:

@@ -25,7 +25,11 @@ bitwise to its plain version (t, winner, node and test counts) and to K1 (t,
 winner) at edge shapes, and its sphere frame to the brute frame; one pose fd step on
 the card against the CPU (point losses rtol 1e-4, gradient 1e-3 of its
 largest entry, pose 1e-5); ``serve``'s drain waits on the drained frame's
-event and nothing else.
+event and nothing else. The parallel layer on a one-rank NCCL group: the
+sharded frame's RF bitwise the ``Simulator``'s (the gathered B-mode too, the
+halo B-mode at 1e-5 / 1e-6), and a cuda mesh raises where NCCL is missing;
+``render``'s ``rf_conv`` is ``rf_raw`` where K3 runs; ``FrameMetrics`` waits
+on the card for a CUDA tensor.
 """
 
 import dataclasses
@@ -755,3 +759,63 @@ def test_serve_drain_waits_on_the_previous_frame_only(cuda, tmp_path, monkeypatc
     # every drain waited on its own frame's event alone; the two that ran
     # beside a newer frame returned with that frame still pending
     assert drains == [(True, True)] * 3
+
+
+def test_render_rf_conv_on_the_card(cuda):
+    """Where K3 runs it fuses the convolution: ``rf_conv`` is ``rf_raw``, as
+    on the reference's fused path; under the centered PSF the plain postproc
+    runs and ``rf_conv`` is the convolved image."""
+    pack = load_and_compile(SPHERE_SCENE)
+    out = Simulator(pack, small_test_config(), device=cuda).render_frame(0)
+    assert out["rf_conv"] is out["rf_raw"]
+    cfg = small_test_config(centered_psf=True)
+    out = Simulator(pack, cfg, device=cuda).render_frame(0)
+    torch.testing.assert_close(out["rf_conv"], imaging.convolve_psf(out["rf_raw"], cfg),
+                               rtol=0, atol=0)
+    assert out["segments_valid"].dtype == torch.bool
+
+
+def test_frame_metrics_wait_for_the_card(cuda, monkeypatch):
+    from mcray_tpu_torch.utils.profiling import FrameMetrics
+
+    waits = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: waits.append(device))
+    metrics = FrameMetrics()
+    with metrics.stage("frame", sync={"bmode": torch.ones(2, device=cuda), "cpu": torch.ones(2)}):
+        pass
+    assert waits == [torch.ones(1, device=cuda).device]
+
+
+def test_sharded_frame_on_a_one_rank_nccl_group(cuda):
+    """``make_mesh(device="cuda")`` starts a one-rank NCCL group; the sharded
+    frame's RF equals the Simulator's bitwise, the gathered B-mode too (the
+    same K3), the halo B-mode at rtol 1e-5 / atol 1e-6 (plain against K3)."""
+    import torch.distributed as dist
+
+    from mcray_tpu_torch.parallel.shard import ShardedRenderer, make_mesh
+
+    pack = load_and_compile(SPHERE_SCENE)
+    cfg = small_test_config()
+    want = Simulator(pack, cfg, device=cuda).render_frame(2)
+    try:
+        mesh = make_mesh(device="cuda")
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        for halo in (True, False):
+            got = ShardedRenderer(pack, cfg, mesh, distributed_imaging=halo).render_frame(2)
+            assert torch.equal(got["rf_raw"], want["rf_raw"])
+            tol = {"rtol": 1e-5, "atol": 1e-6} if halo else {"rtol": 0, "atol": 0}
+            torch.testing.assert_close(got["bmode"], want["bmode"], **tol)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_cuda_mesh_raises_without_nccl(cuda, monkeypatch):
+    import torch.distributed as dist
+
+    from mcray_tpu_torch.parallel.shard import make_mesh
+
+    monkeypatch.setattr(dist, "is_nccl_available", lambda: False)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        make_mesh(device="cuda")
+    assert not dist.is_initialized()

@@ -1,14 +1,18 @@
 """The port stands alone: no module of ``mcray_tpu_torch`` (nor
-``chip_smoke.py``, ``fit_step_timing.py``, ``cluster_timing.py`` and
-``device_timing.py``) imports ``jax`` or anything of ``mcray_tpu``, and
-the copies it keeps of the reference's JAX-free modules agree with them."""
+``chip_smoke.py``, ``fit_step_timing.py``, ``cluster_timing.py``,
+``device_timing.py``, ``examples/quickstart_torch.py`` and the gloo ranks'
+``tests/torch_shard_worker.py``) imports ``jax`` or anything of
+``mcray_tpu``, and the copies it keeps of the reference's JAX-free modules
+(the config, the loader, the VTP converter) agree with them."""
 
 from __future__ import annotations
 
 import ast
+import base64
 import dataclasses
 import os
 import pathlib
+import struct
 import subprocess
 import sys
 
@@ -18,13 +22,16 @@ import pytest
 from _torch_port import SPHERE_SCENE, both_configs
 from mcray_tpu import config as ref_config
 from mcray_tpu.scene import compile as ref_compile
+from mcray_tpu.utils import vtp_to_obj as ref_vtp_to_obj
 from mcray_tpu_torch import config as port_config
 from mcray_tpu_torch.scene import compile as port_compile
+from mcray_tpu_torch.utils import vtp_to_obj as port_vtp_to_obj
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # run on the card, not imported
 SCRIPTS = [ROOT / "device_timing.py", ROOT / "fit_step_timing.py", ROOT / "cluster_timing.py",
-           ROOT / "chip_smoke.py"]
+           ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+           ROOT / "tests" / "torch_shard_worker.py"]
 PORT_FILES = sorted((ROOT / "mcray_tpu_torch").rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "mcray_tpu")
 DERIVED = ("axial_resolution_mm", "axial_resolution_um", "max_travel_time_us", "rf_rows",
@@ -93,3 +100,37 @@ def test_loader_copy_compiles_the_same_sphere():
         np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
     assert got.starting_material == want.starting_material
     np.testing.assert_array_equal(got.bvh.tri_order, want.bvh.tri_order)
+
+
+def _vtp(points: np.ndarray, conn: np.ndarray, offsets: np.ndarray, fmt: str) -> str:
+    """A PolyData VTP of ``points`` and polygons in ``fmt`` ("ascii" or
+    "binary": base64 behind a 32-bit byte count)."""
+    def array(a, dtype, attrs):
+        a = np.asarray(a, dtype)
+        if fmt == "ascii":
+            text = " ".join(str(v) for v in a.ravel())
+        else:
+            raw = a.tobytes()
+            text = base64.b64encode(struct.pack("<I", len(raw)) + raw).decode()
+        return f'<DataArray type="{dtype.__name__.title()}" {attrs} format="{fmt}">{text}</DataArray>'
+
+    return ('<?xml version="1.0"?><VTKFile type="PolyData"><PolyData>'
+            f'<Piece NumberOfPoints="{len(points)}" NumberOfPolys="{len(offsets)}"><Points>'
+            + array(points, np.float32, 'NumberOfComponents="3"') + "</Points><Polys>"
+            + array(conn, np.int64, 'Name="connectivity"')
+            + array(offsets, np.int64, 'Name="offsets"') + "</Polys></Piece></PolyData></VTKFile>")
+
+
+@pytest.mark.parametrize("fmt", ["ascii", "binary"])
+def test_vtp_converter_copy_matches_reference(tmp_path, fmt):
+    rng = np.random.default_rng(3)
+    points = rng.standard_normal((9, 3)).astype(np.float32)
+    conn, offsets = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 0, 4, 8]), np.array([3, 7, 9, 12])
+    path = tmp_path / f"mesh_{fmt}.vtp"
+    path.write_text(_vtp(points, conn, offsets, fmt))
+    got = port_vtp_to_obj.vtp_to_arrays(str(path))
+    want = ref_vtp_to_obj.vtp_to_arrays(str(path))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[0], points)
+    assert got[1].shape == (4, 3)  # a triangle, a quad (two, fanned), a line (none), a triangle
