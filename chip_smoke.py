@@ -34,8 +34,17 @@ with the launch counts set to 0 just before it and read just after:
   largest entry), then the sharded frames timed and profiled beside one
   device's (one card holds one NCCL rank: more ranks are tested on the
   CPU by gloo);
+- the batched frame (``Simulator.render_frames``: every kernel launched once
+  for all the frames): ``render_batch`` of 8 seeds, the pose fd step's 28
+  frames at 7 poses and a ``MaterialFitter`` step of 4 frames, each against
+  its frames one after another (the frames bitwise; the fit gradient within
+  1e-5 of its largest entry), K5 10, K2 1, K3 1, K4 1 a batch and K8 1, K9 1
+  a fit step, each timed beside its loop, profiled, its peak memory read;
+  K3, K4 and K9 with the frame axis against per-frame launches and their
+  plain versions; the mega listed scene's batch of 8 and its peak memory;
 - the probe-pose paths: ``PoseFitter(method="fd")`` from the scene's pose +
-  (0, 0.3, 0), 5 steps of 28 frames (4 keys, scales 2, 4, 8), and
+  (0, 0.3, 0), 5 steps of 28 frames in one batched pass each (4 keys,
+  scales 2, 4, 8), and
   ``method="ad"`` in soft + trilinear mode, 2 steps on position and angles
   (K8, K9 once a step); ``serve`` on 4 requests at three poses, one
   malformed; ``sweep``, 3 frames; ``render`` with every flag (--bvh,
@@ -91,7 +100,8 @@ as the sphere's and the mega scene's are.
 
 The last lines are the kernel record ({"kernels": [...]}; each entry's
 ``sharded_launches`` gives its launches per sharded frame in each imaging
-mode and per sharded train step), the card's
+mode and per sharded train step, ``batch_launches`` per batched set-up, and
+``batch`` its time and bound per launch at the batch's shapes), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
 failed phase raises (exit code != 0, no result line). Without a CUDA
 device it fails at once.
@@ -191,6 +201,13 @@ FIT_LOSS_RTOL, FIT_GRAD_TOL = 1e-4, 5e-3
 POSE_OFFSET = (0.0, 0.3, 0.0)
 POSE_FD_STEPS, POSE_AD_STEPS = 5, 2
 POSE_LOSS_RTOL, POSE_GRAD_TOL = 1e-4, 5e-3
+# the batched frame: bench.py's batch of 8 seeds, a fit step of 4 frames;
+# the batched fit step's gradient against its loop, relative to its largest
+# entry (the frames' contributions summed in another order; the card's
+# gather backward adds with atomics)
+BATCH_SEEDS = tuple(range(8))
+BATCH_FIT_FRAMES, BATCH_TIMED = 4, 10
+FIT_BATCH_GRAD_TOL = 1e-5
 SWEEP_FRAMES = 3
 
 # the card's published peaks (H100 SXM data sheet): device memory and plain
@@ -1007,7 +1024,7 @@ def check_tall_images(cfg) -> dict:
         rf[900:1100, 9] = 0.5
         rf = rf.cuda()
         got, want = postproc.postproc_forward(rf, cfg), postproc.postproc_plain(rf, cfg)
-        slab = _build.library().mcray_postproc_slab_floats(rows, 512, cfg.psf_lateral_size,
+        slab = _build.library().mcray_postproc_slab_floats(rows, 512, 1, cfg.psf_lateral_size,
                                                            postproc.MAX_SHARED_BYTES)
         err = float((got - want).abs().max())
         out[rows] = {"max_abs_err": err, "device_ms": graph_ms(
@@ -1046,17 +1063,14 @@ def pose_fd_phase(pack, smi: str) -> dict:
     """``PoseFitter(method="fd")`` at full width on the card: the 4-key
     compound target at the scene's pose, then POSE_FD_STEPS steps from the
     pose + POSE_OFFSET with keys split(prng_key(42), 4) and scales (2, 4, 8),
-    each with the launch counts set to 0 just before it and read just after;
+    each with the launch counts set to 0 just before it and read just after
+    (its 28 frames are one batched pass: one launch of each kernel a step);
     then one more step under the profiler."""
     cfg = SimConfig()
     sim = Simulator(pack, cfg, device="cuda", seed=0)
     keys = rng.split(rng.prng_key(42), 4)
-
-    def render(key, position, angles):
-        return sim.render_frame(key, position=position, angles=angles)["bmode"]
-
     with torch.no_grad():
-        target = PoseFitter.compound(render, keys, sim.position, sim.angles)
+        target = sim.render_compound(keys)
     check_bmode("pose target", sim, target)
     true = sim.position.cpu()
     start = true + torch.tensor(POSE_OFFSET)
@@ -1070,7 +1084,7 @@ def pose_fd_phase(pack, smi: str) -> dict:
         kernels.reset_launch_counts()
         (vals, g, delta), ms = timed(lambda i=i: fit.fd_step(i))
         counts = kernels.launch_counts()
-        check_launches(f"pose fd step {i}", counts, frame_launches(cfg, frames))
+        check_launches(f"pose fd step {i}", counts, frame_launches(cfg, 1))
         err = float(torch.linalg.norm(fit.position.cpu() - true))
         losses.append(float(vals[0]))
         step_ms.append(ms)
@@ -1084,7 +1098,7 @@ def pose_fd_phase(pack, smi: str) -> dict:
     print(f"  [{smi}] fd step: median {med:.1f} ms (min {min(step_ms):.1f}, max "
           f"{max(step_ms):.1f}) over {POSE_FD_STEPS} steps, {med / frames:.2f} ms a frame")
     view = device_view("pose fd step", lambda: fit.fd_step(POSE_FD_STEPS), med, n=1,
-                       expect={"intersect_listed_kernel": cfg.max_depth * frames})
+                       expect={"intersect_listed_kernel": cfg.max_depth})
     return {"step_ms": step_ms, "busy_ms": view["busy_ms"], "operations": view["operations"],
             "counts": counts, "error": (err0, err), "losses": losses}
 
@@ -1432,6 +1446,253 @@ def shard_phase(pack, sim, fit, smi: str) -> dict:
             "operations": {k: v["operations"] for k, v in views.items()}}
 
 
+def batch_phase(pack, sim, fit, smi: str) -> dict:
+    """The batched frame at ``SimConfig()`` (``Simulator.render_frames``: every
+    stage, and every kernel launch, once for all B frames), each set-up with
+    the launch counts set to 0 just before it and read just after:
+
+    - ``render_frames`` of BATCH_SEEDS (``bench.py``'s batch of 8 seeds):
+      rf_raw, rf_env and bmode bitwise against 8 ``render_frame`` calls,
+      ``render_batch`` bitwise its bmode; K5 10, K2 1, K3 1, K4 1;
+    - the pose fd step at the ``[pose fd]`` set-up (7 points x 4 keys = 28
+      frames) through ``PoseFitter.from_simulator`` against a fitter given
+      only the per-frame render (the points one after another): point
+      losses, gradient and the updated pose bitwise; K5 10, K2 1, K3 1, K4 1;
+    - a ``MaterialFitter`` step with BATCH_FIT_FRAMES frames at the ``[fit]``
+      set-up against the same fitter rendering its frames one after another:
+      the loss bitwise, the gradient within FIT_BATCH_GRAD_TOL of its largest
+      entry (another summation order of the frames' contributions, and the
+      card's gather backward adds with atomics); K5 10, K2 1, K3 1, K4 1, K8 1,
+      K9 1;
+    - the mega listed scene's batch of 8, bitwise 8 frames, and its peak memory.
+
+    Then each set-up timed by events beside its loop, its device view (busy
+    ms, idle share, operations) and its peak ``torch.cuda.max_memory_allocated``;
+    and the batch's kernels at the batch's shapes: device ms by graph replay,
+    ms by events, and the bound of this run's inputs."""
+    cfg = sim.cfg
+    seeds = list(BATCH_SEEDS)
+    n = len(seeds)
+    per_batch = frame_launches(cfg, 1)
+    result = {"launches": {}, "ms": {}, "loop_ms": {}, "busy_ms": {}, "operations": {},
+              "peak_mib": {}}
+
+    def launched(label: str, fn, per_run: dict):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check_launches(label, counts, per_run)
+        result["launches"][label] = counts
+        result["peak_mib"][label] = torch.cuda.max_memory_allocated() / 2**20
+        print(f"  {label}: launches {nonzero(counts)}; peak memory allocated "
+              f"{result['peak_mib'][label]:.1f} MiB")
+        return out
+
+    # 1. the 8-seed batch against 8 frames
+    print(f"[batch] sphere at SimConfig(): render_frames of seeds {seeds}")
+    out = launched("render_batch_8", lambda: sim.render_frames(seeds), per_batch)
+    singles = [sim.render_frame(s) for s in seeds]
+    for key in ("rf_raw", "rf_env", "bmode"):
+        differing = [b for b in range(n) if not torch.equal(out[key][b], singles[b][key])]
+        print(f"  {key} {tuple(out[key].shape)}: frames differing from render_frame: {differing}")
+        if differing:
+            raise AssertionError(f"batched {key} != render_frame's in frames {differing}")
+    for b in range(n):
+        check_bmode(f"batch frame {b}", sim, out["bmode"][b])
+    if not torch.equal(sim.render_batch(seeds), out["bmode"]):
+        raise AssertionError("render_batch != render_frames' bmode")
+    if not torch.equal(sim.render_compound(seeds), out["bmode"].mean(dim=0)):
+        raise AssertionError("render_compound != the mean of the batch")
+
+    # 2. the pose fd step: 28 frames in one batched call against 28 one after another
+    keys = rng.split(rng.prng_key(42), 4)
+    with torch.no_grad():
+        target = sim.render_compound(keys)
+    start = sim.position.cpu() + torch.tensor(POSE_OFFSET)
+
+    def render(key, position, angles):
+        return sim.render_frame(key, position=position, angles=angles)["bmode"]
+
+    def fitters():
+        return (PoseFitter.from_simulator(sim, start, sim.angles, target, method="fd", keys=keys),
+                PoseFitter(render, start.cuda(), sim.angles, target, method="fd", keys=keys))
+
+    batched, looped = fitters()
+    got = launched("pose_fd_step", lambda: batched.fd_step(0), per_batch)
+    want = looped.fd_step(0)
+    same = [torch.equal(a, b) for a, b in zip(got[:2], want[:2])]
+    same.append(torch.equal(batched.position, looped.position))
+    print(f"  pose fd step, 28 frames: point losses, gradient, pose bitwise the loop's: {same}")
+    if not all(same):
+        raise AssertionError("the batched pose fd step != the per-point loop")
+
+    # 3. the fit step with BATCH_FIT_FRAMES frames against its loop
+    row, col = 3, physics.ATTENUATION
+    fit_sim, fit_target = fit["sim"], fit["frame"]["bmode"]
+    perturbed = pack.materials.copy()
+    perturbed[row, col] *= 2.0
+    fit_kw = dict(trainable=(col,), trainable_rows=[row], n_frames_per_step=BATCH_FIT_FRAMES)
+
+    def fit_fitters():
+        def render_fn(key, materials):
+            return fit_sim.render_frame(key, materials)["bmode"]
+
+        init = torch.as_tensor(perturbed, device="cuda")
+        return (MaterialFitter.from_simulator(fit_sim, perturbed, fit_target, **fit_kw),
+                MaterialFitter(render_fn, init, fit_target, **fit_kw))
+
+    fit_key = rng.prng_key(9)
+    fit_batched, fit_looped = fit_fitters()
+    loss = launched(f"fit_step_{BATCH_FIT_FRAMES}_frames", lambda: fit_batched.step(fit_key),
+                    per_batch | {"march_bwd": 1, "scanconv_bwd": 1})
+    want_loss = fit_looped.step(fit_key)
+    grad, want_grad = fit_batched.last_grad, fit_looped.last_grad
+    grad_err, scale = float((grad - want_grad).abs().max()), float(want_grad.abs().max())
+    print(f"  fit step, {BATCH_FIT_FRAMES} frames: loss {loss!r} vs the loop's {want_loss!r}; "
+          f"gradient max err {grad_err:.3e} of its largest entry {scale:.3e} (limit "
+          f"{FIT_BATCH_GRAD_TOL} of it)")
+    if not (loss == want_loss and scale > 0 and grad_err <= FIT_BATCH_GRAD_TOL * scale):
+        raise AssertionError("the batched fit step != the loop's")
+    result["fit_grad_err"] = grad_err / scale
+
+    # timing by events, each set-up beside its loop, then the device's view
+    print(f"  [{smi}] timing by events")
+    first_seeds = iter(range(300, 300 + 100 * n, n))
+
+    def fresh_seeds():
+        s0 = next(first_seeds)
+        return list(range(s0, s0 + n))
+
+    fd_batched, fd_looped = fitters()
+    timings = {
+        "render_batch_8": (lambda: sim.render_batch(fresh_seeds()),
+                           lambda: [sim.render_frame(s) for s in fresh_seeds()], BATCH_TIMED, 3),
+        "pose_fd_step": (lambda: fd_batched.fd_step(0), lambda: fd_looped.fd_step(0), 5, 2),
+        f"fit_step_{BATCH_FIT_FRAMES}_frames": (lambda: fit_batched.step(fit_key),
+                                                lambda: fit_looped.step(fit_key), 5, 3),
+    }
+    for label, (fn, loop_fn, reps, loop_reps) in timings.items():
+        ms = event_ms(fn, reps)
+        loop_ms = event_ms(loop_fn, loop_reps)
+        result["ms"][label] = {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}
+        result["loop_ms"][label] = {"median": statistics.median(loop_ms), "min": min(loop_ms),
+                                    "max": max(loop_ms)}
+        print(f"  {label}: batched median {statistics.median(ms):.3f} ms (min {min(ms):.3f}, max "
+              f"{max(ms):.3f}) over {reps}; the loop {statistics.median(loop_ms):.3f} ms (min "
+              f"{min(loop_ms):.3f}, max {max(loop_ms):.3f}) over {loop_reps}")
+        view = device_view(f"{label} (batched)", fn, result["ms"][label]["median"], n=1,
+                           expect={"intersect_listed_kernel": cfg.max_depth})
+        result["busy_ms"][label], result["operations"][label] = view["busy_ms"], view["operations"]
+
+    # the batch's kernels at the batch's shapes (8 frames; K8 and K9 at the fit's 4)
+    maps = sim.scan_maps
+    calls = [cluster_call("listed", r[0:3].T.contiguous(), r[3:6].T.contiguous(),
+                          sim.culled_tris[0], sim.intersect_tile_r)
+             for r in out["segments"]["rays"]]
+    n_cols = n * cfg.rf_cols
+    with torch.no_grad():
+        fit_out = fit_sim.render_frames(rng.split(fit_key, BATCH_FIT_FRAMES),
+                                        fit_batched.state.materials)
+    fit_soa, fit_cols = fit_out["soa"], BATCH_FIT_FRAMES * cfg.rf_cols
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    g_rf = torch.randn((cfg.rf_rows, fit_cols), device="cuda", generator=gen)
+    g_bm = torch.randn((BATCH_FIT_FRAMES, cfg.bmode_rows, cfg.bmode_cols), device="cuda",
+                       generator=gen)
+    n_rf, n_bm = cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols
+    steps = matched_steps(out["soa"], cfg, n_cols)
+    fit_steps = matched_steps(fit_soa, fit["cfg"], fit_cols)
+    fns = {
+        "intersect_listed": (lambda: [k(*a) for k, _, a in calls], cfg.max_depth,
+                             cluster_bound(sim, calls)),
+        "march": (lambda: march.march_forward(out["soa"], sim.seeds, cfg, n_cols), 1,
+                  bound(nbytes(out["soa"]) + 4 * n * n_rf, steps * OPS_MARCH_STEP[False])),
+        "postproc": (lambda: postproc.postproc_forward(out["rf_raw"], cfg), 1,
+                     bound(2 * 4 * n * n_rf, n * n_rf * OPS_POSTPROC_CELL)),
+        "scanconv": (lambda: scanconv.scan_convert_forward(out["rf_env"], maps), 1,
+                     bound(4 * n * n_rf + 2 * 4 * n_bm + 4 * n * n_bm,
+                           n * n_bm * OPS_SCANCONV_PIXEL)),
+        "march_bwd": (lambda: march.march_backward(fit_soa, fit_sim.seeds, g_rf, fit["cfg"]), 1,
+                      bound(2 * nbytes(fit_soa) + 4 * BATCH_FIT_FRAMES * n_rf,
+                            fit_steps * OPS_MARCH_BWD_STEP[True])),
+        "scanconv_bwd": (lambda: scanconv.scan_convert_backward(g_bm, maps), 1,
+                         bound(4 * BATCH_FIT_FRAMES * (n_bm + n_rf) + 2 * 4 * n_bm,
+                               2 * BATCH_FIT_FRAMES * maps.pixel.numel())),
+    }
+    kernel_numbers = {}
+    for name, (fn, per_call, (b_ms, b_by)) in fns.items():
+        fn()
+        mod = getattr(kernels, name.removesuffix("_bwd"))
+        blocks = mod.last_blocks_bwd if name.endswith("_bwd") else mod.last_blocks
+        kernel_numbers[name] = {"ms": cuda_ms(fn, 5) / per_call,
+                                "device_ms": graph_ms(fn, per_call), "bound_ms": b_ms,
+                                "bound_by": b_by, "blocks": blocks,
+                                "frames": BATCH_FIT_FRAMES if name.endswith("_bwd") else n}
+        print(f"  {name} at the batch's shapes ({kernel_numbers[name]['frames']} frames): "
+              f"{kernel_numbers[name]['ms']:.4f} ms by events, device "
+              f"{kernel_numbers[name]['device_ms']:.5f} ms per launch, bound {b_ms:.5f} ms by "
+              f"{b_by}, {blocks} blocks")
+    # what laying the wide (rf_rows, B x E) image out as (B, rf_rows, E) costs: one permuted copy
+    wide = march.march_forward(out["soa"], sim.seeds, cfg, n_cols)
+    copy_ms = graph_ms(
+        lambda: wide.reshape(cfg.rf_rows, n, cfg.rf_cols).transpose(0, 1).contiguous(), 1)
+    result["layout_copy"] = {"device_ms": copy_ms, "bound_ms": bound(2 * nbytes(wide), 0)[0]}
+    print(f"  the wide image's permuted copy to (B, rows, E), {nbytes(wide)} bytes: device "
+          f"{copy_ms:.5f} ms, bound {result['layout_copy']['bound_ms']:.5f} ms by bytes")
+    # K3, K4 and K9 with the frame axis against their plain versions on these frames
+    k3 = postproc.postproc_forward(out["rf_raw"], cfg)
+    k3_each = torch.stack([postproc.postproc_forward(out["rf_raw"][b], cfg) for b in range(n)])
+    k4 = scanconv.scan_convert_forward(out["rf_env"], maps)
+    k9 = scanconv.scan_convert_backward(g_bm, maps)
+    k9_each = torch.stack([scanconv.scan_convert_backward(g_bm[b], maps)
+                           for b in range(BATCH_FIT_FRAMES)])
+    checks = {
+        "postproc frames == per-frame launches": torch.equal(k3, k3_each),
+        "scanconv == plain": torch.equal(k4, scanconv.scan_convert_coords_plain(out["rf_env"],
+                                                                               maps.coords)),
+        "scanconv_bwd frames == per-frame launches": torch.equal(k9, k9_each),
+    }
+    k3_err = float((k3 - postproc.postproc_plain(out["rf_raw"], cfg)).abs().max())
+    print(f"  frame axis: {checks}; postproc vs plain max abs err {k3_err:.3e}")
+    if not all(checks.values()) or not torch.allclose(
+            k3, postproc.postproc_plain(out["rf_raw"], cfg), *TOLERANCES["postproc"]):
+        raise AssertionError("a kernel with the frame axis disagrees")
+    check_close("scanconv_bwd", k9, scanconv.scan_convert_bwd_plain(
+        g_bm, maps.table, cfg.rf_rows, cfg.rf_cols))
+    result["kernels"] = kernel_numbers
+    return result
+
+
+def mega_batch_phase(sim) -> dict:
+    """The mega listed scene's batch of BATCH_SEEDS: its launches, bmode
+    bitwise 8 ``render_frame`` calls, the peak memory of the batch (the dense
+    prepass tables grow with the rays), and its time by events beside the loop."""
+    cfg = sim.cfg
+    seeds = list(BATCH_SEEDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = sim.render_batch(seeds)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_launches("mega listed batch of 8", counts, frame_launches(cfg, 1))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    differing = [b for b, s in enumerate(seeds)
+                 if not torch.equal(out[b], sim.render_frame(s)["bmode"])]
+    ms = event_ms(lambda: sim.render_batch(seeds), 3)
+    loop_ms = event_ms(lambda: [sim.render_frame(s) for s in seeds], 2)
+    print(f"[batch] mega listed, seeds {seeds}: launches {nonzero(counts)}; bmode frames differing "
+          f"from render_frame {differing}; peak memory allocated {peak:.1f} MiB; batched "
+          f"{statistics.median(ms):.3f} ms (min {min(ms):.3f}), the loop "
+          f"{statistics.median(loop_ms):.3f} ms")
+    if differing:
+        raise AssertionError(f"the mega batch != render_frame in frames {differing}")
+    return {"peak_mib": peak, "ms": statistics.median(ms), "loop_ms": statistics.median(loop_ms),
+            "launches": counts}
+
+
 T_START = time.perf_counter()
 
 
@@ -1526,10 +1787,11 @@ def main() -> int:
             torch.isfinite(compound).all()):
         raise AssertionError("bad compound frame")
     served = kernels.launch_counts()
-    frames = len(poses) * 2 + 4
+    frames = len(poses) * 2 + 1  # the compound's four frames are one batched pass
     want = {k: 0 for k in served} | {"intersect_listed": cfg.max_depth * frames, "march": frames,
                                      "postproc": frames, "scanconv": frames}
-    print(f"[requests] sphere: {len(poses) * 2} frames + compound of 4: launches {served}")
+    print(f"[requests] sphere: {len(poses) * 2} frames + compound of 4 (one batch): launches "
+          f"{served}")
     if served != want:
         raise AssertionError(f"request launch counts {served} != {want}")
 
@@ -1539,6 +1801,9 @@ def main() -> int:
     mark("fit")
     shard = shard_phase(sphere, sims["sphere"], fit, smi)
     mark("shard")
+    batch = batch_phase(sphere, sims["sphere"], fit, smi)
+    batch["mega"] = mega_batch_phase(sims["mega listed"])
+    mark("batch")
     # the probe-pose paths: registration (fd, ad), serve, sweep
     pose_fd_phase(sphere, smi)
     mark("pose fd")
@@ -2015,11 +2280,18 @@ def main() -> int:
         # launches on the sharded path (one-rank NCCL group): per frame in each
         # imaging mode, and per sharded train step
         entry["sharded_launches"] = {mode: n[name] for mode, n in shard["launches"].items()}
+        # launches per batched set-up (one pass of 8 frames, the 28-frame fd
+        # step, the 4-frame fit step), and per launch at the batch's shapes
+        entry["batch_launches"] = {label: n[name] for label, n in batch["launches"].items()}
+        if name in batch["kernels"]:
+            entry["batch"] = batch["kernels"][name]
         record.append(entry)
         print(f"  {name}: {k_ms:.4f} ms, bound {bounds[name][0]:.5f} ms by {bounds[name][1]} "
               f"({bounds[name][0] / k_ms:.1%} of the kernel's time)")
 
     print("[shard] summary: " + json.dumps({k: v for k, v in shard.items() if k != "launches"}))
+    print("[batch] summary: " + json.dumps(
+        {k: v for k, v in batch.items() if k not in ("launches", "kernels")}, default=str))
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,11 @@
 //   4. one row-wise write of the strip.
 // The convolved image never goes to device memory.
 //
+// Frames. A batch of F images (F, R, C) is one launch: blockIdx.y is the
+// frame, and a block reads, writes and (SLAB) keeps its buffers at its own
+// frame's offset, so a strip's lateral halo never reaches into the next
+// frame's columns and each frame's write window is its own.
+//
 // Any height. A lane's run of rows keeps its peaks in a 32-bit mask up to
 // MAX_RUN rows, 32 x MAX_RUN = 992 rows a column. A taller column is a
 // separate instance (TALL): a lane's run is longer, its first and last peak
@@ -107,10 +112,14 @@ postproc_kernel(const float* __restrict__ rf, int rows, int cols, const float* _
                 int a, const float* __restrict__ lat, int l, int do_conv,
                 float* __restrict__ slab, float* __restrict__ out) {
   extern __shared__ float smem[];
+  const size_t frame_off = (size_t)blockIdx.y * rows * cols;
+  rf += frame_off;
+  out += frame_off;
   __shared__ float taps[MAX_TAPS];  // [a] axial, then [l] lateral
   const int pitch = rows | 1;
   const int halo = do_conv ? STRIP + l - 1 : STRIP;  // columns loaded
-  float* raw = SLAB ? slab + blockIdx.x * strip_floats(rows, l) : smem;  // [halo][pitch]; later the result
+  const size_t block = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  float* raw = SLAB ? slab + block * strip_floats(rows, l) : smem;  // [halo][pitch]; later the result
   float* axs = raw + (size_t)(STRIP + l - 1) * pitch;  // [halo][pitch] axial sums
   float* x = axs + (size_t)(STRIP + l - 1) * pitch;    // [STRIP][pitch] convolved strip
   const int c0 = blockIdx.x * STRIP;
@@ -212,18 +221,17 @@ postproc_kernel(const float* __restrict__ rf, int rows, int cols, const float* _
 
 }  // namespace
 
-// Floats of device memory the launch needs for the strips' buffers: 0 where
-// they fit a block's shared memory (max_shared bytes), else one slab per block.
-extern "C" long long mcray_postproc_slab_floats(int rows, int cols, int l, int max_shared) {
-  if (rows <= 0 || cols <= 0) return 0;
+// Floats of device memory a launch over `frames` images needs for the
+// strips' buffers: 0 where they fit a block's shared memory (max_shared
+// bytes), else one slab per block of every frame.
+extern "C" long long mcray_postproc_slab_floats(int rows, int cols, int frames, int l,
+                                                int max_shared) {
+  if (rows <= 0 || cols <= 0 || frames <= 0) return 0;
   const size_t floats = strip_floats(rows, l);
   if (floats * sizeof(float) + MAX_TAPS * sizeof(float) <= (size_t)max_shared) return 0;
-  return (long long)(floats * ((cols + STRIP - 1) / STRIP));
+  return (long long)(floats * ((cols + STRIP - 1) / STRIP) * frames);
 }
 
-// rf, out (rows, cols); ax (a,), lat (l,) taps, a + l <= MAX_TAPS. `slab`:
-// mcray_postproc_slab_floats floats of device memory, or null where that is
-// 0. `blocks` (host memory) receives the grid that was launched.
 // Raise the instance's dynamic shared-memory allowance where a launch needs
 // more than it has on the current device, not at every launch.
 template <bool TALL>
@@ -243,16 +251,16 @@ cudaError_t allow_shared(size_t smem) {
   return cudaSuccess;
 }
 
-// rf, out (rows, cols); ax (a,), lat (l,) taps, a + l <= MAX_TAPS. `slab`:
-// mcray_postproc_slab_floats floats of device memory, or null where that is
-// 0. `blocks` (host memory) receives the grid that was launched.
-extern "C" int mcray_postproc(const float* rf, int rows, int cols, const float* ax, int a,
-                              const float* lat, int l, int do_conv, float* slab, float* out,
-                              int* blocks, cudaStream_t stream) {
+// rf, out (frames, rows, cols); ax (a,), lat (l,) taps, a + l <= MAX_TAPS.
+// `slab`: mcray_postproc_slab_floats floats of device memory, or null where
+// that is 0. `blocks` (host memory) receives the grid that was launched.
+extern "C" int mcray_postproc(const float* rf, int rows, int cols, int frames, const float* ax,
+                              int a, const float* lat, int l, int do_conv, float* slab,
+                              float* out, int* blocks, cudaStream_t stream) {
   *blocks = 0;
-  if (rows <= 0 || cols <= 0) return (int)cudaGetLastError();
-  if (a + l > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  const int grid = (cols + STRIP - 1) / STRIP;
+  if (rows <= 0 || cols <= 0 || frames <= 0) return (int)cudaGetLastError();
+  if (a + l > MAX_TAPS || frames > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((cols + STRIP - 1) / STRIP, frames);
   const size_t smem = strip_floats(rows, l) * sizeof(float);
   const bool tall = rows > 32 * MAX_RUN;
   cudaError_t err = cudaSuccess;
@@ -268,6 +276,6 @@ extern "C" int mcray_postproc(const float* rf, int rows, int cols, const float* 
     postproc_kernel<false, false><<<grid, THREADS, smem, stream>>>(rf, rows, cols, ax, a, lat,
                                                                    l, do_conv, nullptr, out);
   }
-  *blocks = grid;
+  *blocks = (int)(grid.x * grid.y);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,9 @@
 // value. The RF image (952 KB at SimConfig) stays in L2. Four pixels a
 // thread with float4 loads of the maps ran no faster than the packed-table
 // kernel on the card; one a thread runs ahead of grid_sample (PERF.md).
+//
+// Frames. A batch of F RF images (F, rows, cols) -> (F, n_pix) is one
+// launch: blockIdx.y is the frame, and every frame reads the same maps.
 
 #include <cuda_runtime.h>
 
@@ -54,26 +57,31 @@ __device__ __forceinline__ float pixel(const float* __restrict__ rf, int rows, i
          w10 * tap(rf, rows, cols, r0 + 1, c0) + w11 * tap(rf, rows, cols, r0 + 1, c0 + 1);
 }
 
-// coords: (2, n_pix) [map_row, map_col]; out: (n_pix,)
+// rf: (frames, rows, cols); coords: (2, n_pix) [map_row, map_col]; out: (frames, n_pix)
 __global__ void __launch_bounds__(THREADS)
 scan_convert_kernel(const float* __restrict__ rf, int rows, int cols,
                     const float* __restrict__ coords, int n_pix, float* __restrict__ out) {
   const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (p >= n_pix) return;
-  out[p] = pixel(rf, rows, cols, __ldg(coords + p), __ldg(coords + n_pix + p));
+  const size_t frame = blockIdx.y;
+  out[frame * n_pix + p] = pixel(rf + frame * rows * cols, rows, cols, __ldg(coords + p),
+                                 __ldg(coords + n_pix + p));
 }
 
 }  // namespace
 
-// rf (rows, cols); coords (2, n_pix) = the (map_row, map_col) of the
-// n_pix = out_rows * out_cols output pixels; out (n_pix,). *blocks gets the grid.
-extern "C" int mcray_scan_convert(const float* rf, int rows, int cols, const float* coords,
-                                  int n_pix, float* out, int* blocks, cudaStream_t stream) {
+// rf (frames, rows, cols); coords (2, n_pix) = the (map_row, map_col) of the
+// n_pix = out_rows * out_cols output pixels; out (frames, n_pix). *blocks
+// gets the grid.
+extern "C" int mcray_scan_convert(const float* rf, int rows, int cols, int frames,
+                                  const float* coords, int n_pix, float* out, int* blocks,
+                                  cudaStream_t stream) {
   *blocks = 0;
-  if (n_pix > 0) {
-    const int grid = (int)((n_pix + (long long)THREADS - 1) / THREADS);
+  if (frames > 65535) return (int)cudaErrorInvalidValue;
+  if (n_pix > 0 && frames > 0) {
+    const dim3 grid((unsigned)((n_pix + (long long)THREADS - 1) / THREADS), frames);
     scan_convert_kernel<<<grid, THREADS, 0, stream>>>(rf, rows, cols, coords, n_pix, out);
-    *blocks = grid;
+    *blocks = (int)(grid.x * grid.y);
   }
   return (int)cudaGetLastError();
 }

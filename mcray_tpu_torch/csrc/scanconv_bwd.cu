@@ -18,6 +18,9 @@
 // for bit, at about the bytes of the bound). It ran 40-59% slower at
 // SimConfig() and 27x slower on a 400 x 500 image over 64 RF columns
 // (PERF.md).
+//
+// Frames. A batch of F cotangents (F, n_pix) -> (F, n_cells) is one launch:
+// blockIdx.y is the frame, and every frame walks the same lists.
 
 #include <cuda_runtime.h>
 
@@ -26,26 +29,32 @@ namespace {
 __global__ void scanconv_bwd_kernel(const int* __restrict__ row_ptr,
                                     const int* __restrict__ pixel,
                                     const float* __restrict__ weight,
-                                    const float* __restrict__ g, int n_cells,
+                                    const float* __restrict__ g, int n_cells, int n_pix,
                                     float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_cells) return;
+  const size_t frame = blockIdx.y;
+  g += frame * n_pix;
   float acc = 0.0f;
   const int end = row_ptr[i + 1];
   for (int p = row_ptr[i]; p < end; ++p) acc = acc + weight[p] * g[pixel[p]];
-  out[i] = acc;
+  out[frame * n_cells + i] = acc;
 }
 
 }  // namespace
 
+// g (frames, n_pix) B-mode cotangents -> out (frames, n_cells) RF gradients
 extern "C" int mcray_scan_convert_bwd(const int* row_ptr, const int* pixel, const float* weight,
-                                      const float* g, int n_cells, float* out, int* blocks,
-                                      cudaStream_t stream) {
+                                      const float* g, int n_cells, int n_pix, int frames,
+                                      float* out, int* blocks, cudaStream_t stream) {
   *blocks = 0;
-  if (n_cells > 0) {
+  if (frames > 65535) return (int)cudaErrorInvalidValue;
+  if (n_cells > 0 && frames > 0) {
     const int block = 256;
-    *blocks = (n_cells + block - 1) / block;
-    scanconv_bwd_kernel<<<*blocks, block, 0, stream>>>(row_ptr, pixel, weight, g, n_cells, out);
+    const dim3 grid((n_cells + block - 1) / block, frames);
+    scanconv_bwd_kernel<<<grid, block, 0, stream>>>(row_ptr, pixel, weight, g, n_cells, n_pix,
+                                                    out);
+    *blocks = (int)(grid.x * grid.y);
   }
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,13 @@ Randomness is explicit and keyed (``utils/rng.py``, threefry): ``render``
 takes the frame's draws (``physics.draw_bounce_randoms``) and the two
 texture seeds, and ``Simulator`` derives both from integer seeds by the
 reference's key chain, so one seed gives the reference's frame.
+
+A batch of frames is one pass, as the reference's ``vmap`` is one call
+(``render_frames``): B frames, each with its own draws and pose, trace as
+B x N paths (one closest-hit launch per bounce), march into one (rf_rows,
+B x E) image (one K2 launch; column b E + e is frame b's element e), and
+run K3 and K4 once over the (B, rows, cols) stack, whose kernels take the
+frame as their grid's second axis. ``render`` is its batch of one.
 """
 
 from __future__ import annotations
@@ -97,6 +104,11 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
     ``rays``: the (D, 6, N) [origin; segment] closest-hit queries of every
     bounce, as the intersect kernel received them.
 
+    ``probe_position`` and ``probe_angles_deg`` are one pose (3,) or B poses
+    (B, 3): B frames trace together as N = B x E x S paths, frame-major
+    (frame b's paths, and its ``draws``, are columns [b E S, (b+1) E S)), and
+    each path's ``element`` is its column b E + e of the (rf_rows, B E) image.
+
     ``culled_tris=(packed, mode)`` runs the closest hit through the cluster
     kernel of ``mode`` (``CLUSTER_INTERSECTS``) on ``intersect_tile_r``-ray
     packets, coherence-sorted first if ``sort_packets``; else ``bvh`` (the
@@ -114,7 +126,7 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
     eps = cfg.intensity_epsilon
     if elements is None:
         positions, directions = element_layout(probe_position, probe_angles_deg, cfg)
-        elem_idx = torch.arange(cfg.transducer_elements, dtype=torch.int32,
+        elem_idx = torch.arange(positions.shape[0], dtype=torch.int32,
                                 device=positions.device).repeat_interleave(n_samples)
     else:
         positions, directions, elem_idx = elements
@@ -270,12 +282,14 @@ def path_draws(trace_key: torch.Tensor, cfg: SimConfig, device,
     ``path_ids`` (default: every path of the frame, 0..N-1), each keyed
     ``fold_in(trace_key, global path id)`` (``trace_paths``' keying in the
     reference, ``mcray_tpu/models/simulator.py:91-100``): a shard draws for
-    its own paths only, and exactly what the whole frame draws for them."""
+    its own paths only, and exactly what the whole frame draws for them.
+    ``trace_key`` (B, 2), one trace key per frame, gives B frames' draws in
+    one pass, (D, B x N) frame-major: what B calls give, side by side."""
     if path_ids is None:
         path_ids = torch.arange(cfg.transducer_elements * cfg.samples_per_element,
                                 dtype=torch.int64, device=device)
-    path_keys = rng.fold_in(trace_key.to(device), path_ids.to(device))
-    return physics.draw_bounce_randoms(path_keys, cfg.max_depth)
+    path_keys = rng.fold_in(trace_key.to(device)[..., None, :], path_ids.to(device))
+    return physics.draw_bounce_randoms(path_keys.reshape(-1, 2), cfg.max_depth)
 
 
 def march_segments(segments, materials, seeds, volume, cfg: SimConfig, n_cols: int):
@@ -292,12 +306,50 @@ def march_segments(segments, materials, seeds, volume, cfg: SimConfig, n_cols: i
 
 def scan_convert_frame(rf_env, maps, cfg: SimConfig):
     """Log compression where ``cfg`` asks for it (over the whole image: its
-    maximum is global), then the scan conversion clamped at 0, as the
-    reference clamps on its kernel path (simulator.py:407-420). Returns
-    (rf_env, bmode)."""
+    maximum is global; each frame's own for a (B, rows, cols) stack), then
+    the scan conversion clamped at 0, as the reference clamps on its kernel
+    path (simulator.py:407-420). Returns (rf_env, bmode)."""
     if cfg.log_compression:
         rf_env = imaging.log_compress(rf_env)
     return rf_env, torch.clamp(scan_convert_cuda(rf_env, maps), min=0.0)
+
+
+#: the keys of ``render_frames`` that carry the frame axis
+FRAME_KEYS = ("bmode", "rf_raw", "rf_conv", "rf_env", "segments_valid")
+
+
+def render_frames(draws, seeds, materials, positions, angles, scene, spacing,
+                  starting_material: int, maps, cfg: SimConfig, volume=None,
+                  **trace_kw) -> dict[str, torch.Tensor]:
+    """B frames in one pass, each from its own randomness and pose: the
+    reference's ``vmap`` of ``render`` over frames
+    (``mcray_tpu/models/simulator.py:617-621``). ``positions`` and
+    ``angles`` are (B, 3); ``draws`` are the (D, B x N) fields of
+    ``physics.draw_bounce_randoms``, frame-major (``path_draws`` of the B
+    trace keys); the texture ``seeds``, ``materials`` and the rest are
+    shared, as in ``render``.
+
+    Every stage runs once for the B frames: the closest hit on B x N rays a
+    bounce, K2 on the (rf_rows, B E) image whose column b E + e is frame b's
+    element e (then laid out as (B, rf_rows, E): a permuted copy), K3 and
+    K4 over the (B, ...) stacks. Frame b equals ``render`` of its own draws
+    and pose. Returns ``render``'s keys with a leading B: ``bmode`` (B,
+    bmode_rows, bmode_cols), ``rf_raw``, ``rf_conv``, ``rf_env`` (B, rf_rows,
+    rf_cols), ``segments_valid`` (B, D, N); and ``segments`` (D, B x N) and
+    ``soa`` (of the wide image) as the march took them."""
+    b = positions.shape[0]
+    segments = trace_paths(draws, materials, positions, angles, scene, spacing,
+                           starting_material, cfg, **trace_kw)
+    soa, rf_wide = march_segments(segments, materials, seeds, volume, cfg, b * cfg.rf_cols)
+    rf_raw = rf_wide.reshape(cfg.rf_rows, b, cfg.rf_cols).transpose(0, 1).contiguous()
+    rf_env = postproc_cuda(rf_raw, cfg)
+    fused = rf_raw.device.type == "cuda" and kernel_modes(cfg)
+    rf_conv = rf_raw if fused else imaging.convolve_psf(rf_raw, cfg)
+    rf_env, bmode = scan_convert_frame(rf_env, maps, cfg)
+    valid = segments["valid"]
+    return {"bmode": bmode, "rf_raw": rf_raw, "rf_conv": rf_conv, "rf_env": rf_env,
+            "segments_valid": valid.reshape(valid.shape[0], b, -1).transpose(0, 1),
+            "soa": soa, "segments": segments}
 
 
 def render(draws, seeds, materials, probe_position, probe_angles_deg, scene, spacing,
@@ -309,7 +361,8 @@ def render(draws, seeds, materials, probe_position, probe_angles_deg, scene, spa
     texture volume of ``seeds`` where it holds tables ("table" mode: the
     scatter march gathers from them, the kernels evaluate the hash);
     ``trace_kw`` (the closest-hit choice) go to ``trace_paths``. If
-    ``materials`` requires grad, ``bmode`` is attached to it.
+    ``materials`` requires grad, ``bmode`` is attached to it. The batch of
+    one of ``render_frames``: the same launches, one of each stage.
 
     Returns the reference's keys (``mcray_tpu/models/simulator.py:422-429``):
     ``bmode`` (bmode_rows, bmode_cols), ``rf_raw``, ``rf_conv``, ``rf_env``
@@ -321,15 +374,12 @@ def render(draws, seeds, materials, probe_position, probe_angles_deg, scene, spa
     ``rf_raw``, as on the reference's fused-kernel path; where the plain
     postproc runs (the CPU, the centered PSF, the Hilbert envelope) it is
     ``imaging.convolve_psf(rf_raw)``."""
-    segments = trace_paths(draws, materials, probe_position, probe_angles_deg, scene,
-                           spacing, starting_material, cfg, **trace_kw)
-    soa, rf_raw = march_segments(segments, materials, seeds, volume, cfg, cfg.rf_cols)
-    rf_env = postproc_cuda(rf_raw, cfg)
-    fused = rf_raw.device.type == "cuda" and kernel_modes(cfg)
-    rf_conv = rf_raw if fused else imaging.convolve_psf(rf_raw, cfg)
-    rf_env, bmode = scan_convert_frame(rf_env, maps, cfg)
-    return {"bmode": bmode, "rf_raw": rf_raw, "rf_conv": rf_conv, "rf_env": rf_env,
-            "segments_valid": segments["valid"], "soa": soa, "segments": segments}
+    out = render_frames(draws, seeds, materials, probe_position[None], probe_angles_deg[None],
+                        scene, spacing, starting_material, maps, cfg, volume, **trace_kw)
+    frame = {k: v[0] if k in FRAME_KEYS else v for k, v in out.items()}
+    if out["rf_conv"] is out["rf_raw"]:  # K3 fused the convolution: one image, as there
+        frame["rf_conv"] = frame["rf_raw"]
+    return frame
 
 
 class Simulator:
@@ -429,12 +479,26 @@ class Simulator:
     def _tensor(self, x, default):
         return default if x is None else torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    @staticmethod
+    def _frame_keys(seeds) -> torch.Tensor:
+        """The (B, 2) keys (on the CPU) of ``seeds``: integer frame seeds, (2,)
+        keys, or a (B, 2) tensor of keys (``rng.split``'s)."""
+        if isinstance(seeds, torch.Tensor):
+            return seeds.reshape(-1, 2).cpu()
+        return torch.stack([(s if isinstance(s, torch.Tensor) else rng.prng_key(s)).cpu()
+                            for s in seeds])
+
     def draws(self, seed) -> dict[str, torch.Tensor]:
         """The frame's random draws on the device, keyed as the reference
         keys them: ``seed`` is the frame's integer seed or its (2,) key."""
-        key = seed if isinstance(seed, torch.Tensor) else rng.prng_key(seed)
-        # the frame's trace key is one key: derived on the host, not by ~150 launches
-        return path_draws(rng.fold_in(key.cpu(), 0), self.cfg, self.device)
+        return self.batch_draws([seed])
+
+    def batch_draws(self, seeds) -> dict[str, torch.Tensor]:
+        """The (D, B x N) draws of B frames (``seeds`` as ``render_frames``
+        takes them) in one pass: frame b's are columns [b N, (b+1) N),
+        bitwise ``draws(seeds[b])``."""
+        # the frames' trace keys are B keys: derived on the host, not by ~150 launches
+        return path_draws(rng.fold_in(self._frame_keys(seeds), 0), self.cfg, self.device)
 
     def render_frame(self, seed=0, materials=None, position=None, angles=None, draws=None):
         """One frame; returns the dict of ``render``. ``seed`` is an integer
@@ -449,14 +513,35 @@ class Simulator:
             volume=self.volume, **self.trace_kw,
         )
 
+    def render_frames(self, seeds, materials=None, positions=None, angles=None):
+        """B frames in one batched pass (``render_frames``); returns its dict.
+        ``seeds`` are integer frame seeds, (2,) keys, or a (B, 2) tensor of
+        keys (``rng.split``'s); ``positions`` and ``angles``
+        are one pose (3,) for every frame (the scene's by default) or one per
+        frame (B, 3). Frame b is ``render_frame(seeds[b], materials,
+        positions[b], angles[b])``, bitwise on the card."""
+        keys = self._frame_keys(seeds)
+        b = keys.shape[0]
+
+        def per_frame(x, default):
+            return self._tensor(x, default).expand(b, 3)
+
+        return render_frames(
+            self.batch_draws(keys), self.seeds, self._tensor(materials, self.materials),
+            per_frame(positions, self.position), per_frame(angles, self.angles),
+            self.scene, self.spacing, self.starting_material, self.scan_maps, self.cfg,
+            volume=self.volume, **self.trace_kw,
+        )
+
     def render_batch(self, seeds, materials=None, position=None, angles=None) -> torch.Tensor:
-        """(B, H, W) B-modes of independent Monte-Carlo frames, one per seed."""
-        return torch.stack([
-            self.render_frame(s, materials, position, angles)["bmode"] for s in seeds
-        ])
+        """(B, H, W) B-modes of independent Monte-Carlo frames, one per seed,
+        in one batched pass at one pose (the reference's ``render_batch``:
+        many frames in one device call)."""
+        return self.render_frames(seeds, materials, position, angles)["bmode"]
 
     def render_compound(self, seeds, **kw) -> torch.Tensor:
-        """Speckle-compounded B-mode: the mean of independent frames."""
+        """Speckle-compounded B-mode: the mean of independent frames, one
+        batched pass (``render_batch``)."""
         return self.render_batch(seeds, **kw).mean(dim=0)
 
     @property

@@ -83,7 +83,11 @@ class MaterialFitter:
     ``fixed_frame`` freezes the Monte-Carlo noise (the same speckle
     realisation for target and prediction), the standard inverse-rendering
     set-up; without it the fit sees a speckle-decorrelation noise floor and
-    needs ``n_frames_per_step`` > 1 to average it out.
+    needs ``n_frames_per_step`` > 1 to average it out. Those frames render
+    in one batched call through ``render_batch_fn(keys (n, 2), materials)
+    -> (n, H, W)`` where one is given (``from_simulator`` gives
+    ``Simulator.render_batch``), as the reference's ``vmap`` does; with the
+    bare ``render_fn`` alone they render one after another.
     """
 
     def __init__(
@@ -96,8 +100,10 @@ class MaterialFitter:
         trainable_rows=None,
         n_frames_per_step: int = 1,
         fixed_frame=None,
+        render_batch_fn: Callable[..., torch.Tensor] | None = None,
     ):
         self.render_fn = render_fn
+        self.render_batch_fn = render_batch_fn
         self.device = init_materials.device
         self.target = target.detach().to(self.device)
         self.mask = column_mask(init_materials.shape[0], trainable, trainable_rows).to(self.device)
@@ -110,15 +116,20 @@ class MaterialFitter:
 
     @classmethod
     def from_simulator(cls, sim, init_materials, target, *, position=None, angles=None, **kw):
-        """A fitter rendering through ``sim.render_frame`` on ``sim``'s device;
+        """A fitter rendering through ``sim.render_frame`` (several frames a
+        step: ``sim.render_batch``, one batched call) on ``sim``'s device;
         ``init_materials`` and ``target`` may be arrays or tensors."""
         def render_fn(frame, materials):
             draws = frame if isinstance(frame, dict) else None
             return sim.render_frame(0 if draws is not None else frame, materials, position,
                                     angles, draws=draws)["bmode"]
 
+        def render_batch_fn(keys, materials):
+            return sim.render_batch(keys, materials, position, angles)
+
         init = torch.as_tensor(init_materials, dtype=torch.float32, device=sim.device)
-        return cls(render_fn, init, torch.as_tensor(target, device=sim.device), **kw)
+        return cls(render_fn, init, torch.as_tensor(target, device=sim.device),
+                   render_batch_fn=render_batch_fn, **kw)
 
     # --- state, as the checkpoint stores it -------------------------------
     @property
@@ -150,7 +161,8 @@ class MaterialFitter:
     def loss(self, materials: torch.Tensor, frame) -> torch.Tensor:
         """Pixel MSE of the frame (the mean of ``n_frames_per_step`` frames,
         keyed by ``split(key of frame, n_frames_per_step)`` as the reference
-        keys them) against the target."""
+        keys them, rendered in one batched call where ``render_batch_fn`` is
+        given) against the target."""
         if self.n_frames == 1:
             pred = self.render_fn(frame, materials)
         else:
@@ -158,8 +170,12 @@ class MaterialFitter:
                 raise ValueError("n_frames_per_step > 1 needs an integer frame seed or a key, "
                                  "not fixed draws")
             key = frame if isinstance(frame, torch.Tensor) else rng.prng_key(frame)
-            pred = torch.stack([self.render_fn(k, materials)
-                                for k in rng.split(key, self.n_frames)]).mean(dim=0)
+            keys = rng.split(key, self.n_frames)
+            if self.render_batch_fn is not None:
+                frames = self.render_batch_fn(keys, materials)
+            else:
+                frames = torch.stack([self.render_fn(k, materials) for k in keys])
+            pred = frames.mean(dim=0)
         return torch.mean((pred - self.target) ** 2)
 
     def step(self, frame) -> float:
@@ -189,15 +205,20 @@ class PoseFitter:
     ``fit_angles``, its angles) whose rendered B-mode matches a target.
 
     ``render_fn(key, position, angles) -> bmode`` renders one frame; the key
-    is a (2,) key of ``utils/rng.py``. The tensors live where
+    is a (2,) key of ``utils/rng.py``. ``render_batch_fn(keys (B, 2),
+    positions (B, 3), angles (B, 3)) -> (B, H, W)``, where given, renders B
+    frames, each at its own pose, in one batched call. The tensors live where
     ``init_position`` lives; ``from_simulator`` renders through a
-    ``Simulator`` on its device. Two methods, as the reference's:
+    ``Simulator`` on its device and gives both. Two methods, as the reference's:
 
     - ``method="fd"``, the registration method: central differences on a
       speckle-robust objective, the pixel MSE between multi-scale Gaussian-
       blurred, K-key compounded B-modes (``keys``, default
       ``split(prng_key(42), 4)``; ``scales``). The 2d + 1 points x K keys are
-      rendered frame by frame with no graph. Adam's rate decays as
+      rendered with no graph in one ``render_batch_fn`` call, frame (p, k)
+      at point p's pose with key k, as the reference's ``vmap`` of a
+      ``vmap`` renders them; a fitter given only ``render_fn`` renders them
+      one after another. Adam's rate decays as
       ``lr * lr_decay**k`` at its k-th update (counted from 0 across ``run``
       calls, ``optax.exponential_decay(lr, 1, lr_decay)``), and the step
       ``delta = max(fd_delta_min, fd_delta * fd_decay**i)`` anneals over the
@@ -216,12 +237,14 @@ class PoseFitter:
                  fit_angles: bool = False, fixed_key=None, method: str = "ad", keys=None,
                  scales: tuple = (2.0, 4.0, 8.0), fd_delta: float = 0.06,
                  fd_delta_min: float = 0.025, fd_decay: float = 0.95,
-                 fd_delta_angles: float = 1.0, lr_decay: float = 0.95):
+                 fd_delta_angles: float = 1.0, lr_decay: float = 0.95,
+                 render_batch_fn=None):
         if method not in ("ad", "fd"):
             raise ValueError(f"unknown method {method!r}; expected 'ad' or 'fd'")
         position = torch.as_tensor(init_position, dtype=torch.float32)
         self.device = position.device
         self.render_fn = render_fn
+        self.render_batch_fn = render_batch_fn
         self.target = torch.as_tensor(target, device=self.device).detach()
         self.fit_angles = fit_angles
         self.fixed_key = fixed_key
@@ -246,15 +269,21 @@ class PoseFitter:
 
     @classmethod
     def from_simulator(cls, sim, init_position, init_angles, target, **kw):
-        """A fitter rendering through ``sim.render_frame`` on ``sim``'s device."""
+        """A fitter rendering through ``sim.render_frame`` (the ad step) and
+        ``sim.render_frames`` (the fd step's frames, one batched call) on
+        ``sim``'s device."""
         def render_fn(key, position, angles):
             return sim.render_frame(key, position=position, angles=angles)["bmode"]
+
+        def render_batch_fn(keys, positions, angles):
+            return sim.render_frames(keys, positions=positions, angles=angles)["bmode"]
 
         def tensor(x):
             return torch.as_tensor(np.array(x) if isinstance(x, np.ndarray) else x,
                                    dtype=torch.float32, device=sim.device)
 
-        return cls(render_fn, tensor(init_position), tensor(init_angles), target, **kw)
+        return cls(render_fn, tensor(init_position), tensor(init_angles), target,
+                   render_batch_fn=render_batch_fn, **kw)
 
     @staticmethod
     def compound(render_fn, keys, position, angles) -> torch.Tensor:
@@ -306,6 +335,28 @@ class PoseFitter:
             return sum(torch.mean((gaussian_blur(c, s) - tb) ** 2)
                        for s, tb in zip(self.scales, self._target_bank))
 
+    def point_losses(self, pts: torch.Tensor) -> torch.Tensor:
+        """``point_loss`` at each pose of ``pts`` (P, d): the P x K frames in
+        one ``render_batch_fn`` call (frame p K + k at pose p with key k),
+        then per point the mean over its keys, the blurs (batched over the
+        points) and the MSE, each reduction as ``point_loss`` makes it, so
+        the losses equal P calls of it. Without ``render_batch_fn``, P calls."""
+        if self.render_batch_fn is None:
+            return torch.stack([self.point_loss(p) for p in pts])
+        n_pts, k = pts.shape[0], self.keys.shape[0]
+        positions = pts[:, :3]
+        angles = pts[:, 3:6] if self.fit_angles else self._angles0.expand(n_pts, 3)
+        with torch.no_grad():
+            frames = self.render_batch_fn(self.keys.repeat(n_pts, 1),
+                                          positions.repeat_interleave(k, dim=0),
+                                          angles.repeat_interleave(k, dim=0))
+            c = torch.stack([frames[p * k : (p + 1) * k].mean(dim=0)
+                             for p in range(n_pts)]) / self._tmax
+            blurred = [gaussian_blur(c, s) for s in self.scales]
+            return torch.stack([sum(torch.mean((b[p] - tb) ** 2)
+                                    for b, tb in zip(blurred, self._target_bank))
+                                for p in range(n_pts)])
+
     def fd_gradient(self, delta: float):
         """(the 2d + 1 point losses, the central-difference gradient) at the
         current pose: points vec, vec + dvec_i e_i, vec - dvec_i e_i, with
@@ -316,7 +367,7 @@ class PoseFitter:
         dvec[3:] = self.fd[3]
         eye = torch.eye(d, dtype=torch.float32, device=self.device) * dvec[:, None]
         pts = torch.cat([vec[None], vec[None] + eye, vec[None] - eye])
-        vals = torch.stack([self.point_loss(p) for p in pts])
+        vals = self.point_losses(pts)
         return vals, (vals[1 : d + 1] - vals[d + 1 :]) / (2.0 * dvec)
 
     def apply_fd_update(self, g: torch.Tensor) -> None:

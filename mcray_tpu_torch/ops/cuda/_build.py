@@ -52,10 +52,10 @@ SIGNATURES = {
     "mcray_intersect_staged_static_shared": [],
     "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
     "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
-    "mcray_postproc": [P, I, I, P, I, P, I, I, P, P, P, P],
-    "mcray_postproc_slab_floats": [I, I, I, I],
-    "mcray_scan_convert": [P, I, I, P, I, P, P, P],
-    "mcray_scan_convert_bwd": [P, P, P, P, I, P, P, P],
+    "mcray_postproc": [P, I, I, I, P, I, P, I, I, P, P, P, P],
+    "mcray_postproc_slab_floats": [I, I, I, I, I],
+    "mcray_scan_convert": [P, I, I, I, P, I, P, P, P],
+    "mcray_scan_convert_bwd": [P, P, P, P, I, I, I, P, P, P],
 }
 
 RESTYPES = {"mcray_postproc_slab_floats": ctypes.c_longlong}

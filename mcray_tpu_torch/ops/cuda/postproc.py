@@ -17,7 +17,9 @@ lerps on its own. The convolved image never goes to device memory; the
 source's header note has the details. Images of any height: past 992 rows
 (31 rows per lane's peak mask) a second instance walks longer runs, and
 where a strip's buffers outgrow a block's shared memory (~1,600 rows) they
-go to a slab of device memory the wrapper allocates.
+go to a slab of device memory the wrapper allocates. A batch of frames
+(F, rows, cols) is one launch: the grid's second axis is the frame, and
+every frame's window and lateral halo are its own.
 
 Modes: the kernel computes the reference envelope after the uncentered
 PSF. The centered PSF and the Hilbert envelope are no mode of the
@@ -58,7 +60,8 @@ MAX_SHARED_BYTES = 232448
 
 
 def postproc_plain(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    """Plain version: ``imaging.apply_envelope(imaging.convolve_psf(rf))``."""
+    """Plain version: ``imaging.apply_envelope(imaging.convolve_psf(rf))``,
+    per image of (rows, cols) or (frames, rows, cols)."""
     return imaging.apply_envelope(imaging.convolve_psf(rf, cfg), cfg)
 
 
@@ -93,7 +96,8 @@ class _Postproc(torch.autograd.Function):
 
 
 def postproc_cuda(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    """Convolved + enveloped RF image of the same (rows, cols) shape,
+    """Convolved + enveloped RF image(s) of the same (rows, cols) or
+    (frames, rows, cols) shape,
     differentiable in ``rf``: the CUDA kernel for a CUDA ``rf``, the plain
     version for a CPU one; the backward is ``postproc_bwd_plain`` on both."""
     return _Postproc.apply(rf, cfg)
@@ -111,20 +115,23 @@ def postproc_forward(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     global launches, last_blocks
     if rf.device.type == "cpu" or not kernel_modes(cfg):
         return postproc_plain(rf, cfg)
-    rows, cols = rf.shape
-    _build.require(rf, "rf", torch.float32, (rows, cols))
+    if rf.dim() not in (2, 3):
+        raise ValueError(f"rf: expected (rows, cols) or (frames, rows, cols), got {tuple(rf.shape)}")
+    rows, cols = rf.shape[-2:]
+    frames = rf.shape[0] if rf.dim() == 3 else 1
+    _build.require(rf, "rf", torch.float32)
     a, l = cfg.psf_axial_size, cfg.psf_lateral_size
     taps = _taps(cfg, rf.device)
     do_conv = int(rows > 2 * a and cols > l + l // 2)  # else the reference's loops never run
     out = torch.empty_like(rf)
     lib = _build.library()
-    n_slab = lib.mcray_postproc_slab_floats(rows, cols, l, MAX_SHARED_BYTES)
+    n_slab = lib.mcray_postproc_slab_floats(rows, cols, frames, l, MAX_SHARED_BYTES)
     slab = torch.empty(n_slab, dtype=torch.float32, device=rf.device) if n_slab else None
     blocks = ctypes.c_int(0)
     code = lib.mcray_postproc(
-        rf.data_ptr(), rows, cols, taps.data_ptr(), a, taps.data_ptr() + 4 * a, l, do_conv,
-        slab.data_ptr() if slab is not None else None, out.data_ptr(), ctypes.byref(blocks),
-        _build.stream_of(rf),
+        rf.data_ptr(), rows, cols, frames, taps.data_ptr(), a, taps.data_ptr() + 4 * a, l,
+        do_conv, slab.data_ptr() if slab is not None else None, out.data_ptr(),
+        ctypes.byref(blocks), _build.stream_of(rf),
     )
     _build.check(code, "mcray_postproc")
     launches += 1

@@ -37,6 +37,11 @@ The maps, the table and its transpose are one static object, ``ScanMaps``,
 built together by ``scan_maps``. ``scan_convert_cuda`` is a
 ``torch.autograd.Function`` over both kernels: K4 / K9 for CUDA tensors, the
 plain versions for CPU tensors.
+
+Frames: every function here takes one image, (rows, cols) -> (out_rows,
+out_cols), or a batch of frames, (F, rows, cols) -> (F, out_rows,
+out_cols), on the same maps. A batch is one launch of K4 (and of K9): the
+grid's second axis is the frame.
 """
 
 from __future__ import annotations
@@ -94,7 +99,8 @@ def pack_scan_maps(map_row: np.ndarray, map_col: np.ndarray, rf_rows: int, rf_co
 
 
 def scan_convert_plain(rf: torch.Tensor, table: torch.Tensor, out_cols: int) -> torch.Tensor:
-    """Plain version: the same 4-tap gather from the packed table."""
+    """Plain version: the same 4-tap gather from the packed table, per
+    image of ``rf`` (rows, cols) or (frames, rows, cols)."""
     t = table[:, :, :out_cols]
     return imaging.bilinear_gather(rf, t[:, 0].long(), t[:, 1], t[:, 2], t[:, 3].long(), t[:, 4], t[:, 5])
 
@@ -104,8 +110,9 @@ def scan_convert_coords_plain(rf: torch.Tensor, coords: torch.Tensor) -> torch.T
     out_cols) coordinate maps, each pixel's floor, fraction and edge weights
     in ``pack_scan_maps``' f32 operations, the four taps, and 0 where all
     four weights are 0. Equal to ``scan_convert_plain`` on the packed table
-    (a pixel outside the fan is +0.0 here, a sum of zero-weighted taps there)."""
-    rows, cols = rf.shape
+    (a pixel outside the fan is +0.0 here, a sum of zero-weighted taps there).
+    ``rf`` may carry a leading frame axis."""
+    rows, cols = rf.shape[-2:]
 
     def axis(m, n):
         i0 = torch.floor(m)
@@ -152,18 +159,22 @@ def invert_scan_table(table: np.ndarray, rf_rows: int, rf_cols: int, out_cols: i
 def scan_convert_bwd_plain(g: torch.Tensor, table: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     """Plain version of the backward: the RF gradient (rows, cols) from the
     B-mode cotangent ``g`` (out_rows, out_cols), the four taps transposed
-    into scatter-adds."""
-    t = table[:, :, : g.shape[1]]
+    into scatter-adds; a cotangent (F, out_rows, out_cols) gives (F, rows,
+    cols), each frame's taps into its own image."""
+    lead = g.shape[:-2]
+    g = g.reshape((-1,) + g.shape[-2:])
+    t = table[:, :, : g.shape[-1]]
     r0, c0 = t[:, 0].long(), t[:, 3].long()
-    grf = torch.zeros(rows * cols, dtype=g.dtype, device=g.device)
+    base = torch.arange(g.shape[0], device=g.device)[:, None, None] * (rows * cols)
+    grf = torch.zeros(g.shape[0] * rows * cols, dtype=g.dtype, device=g.device)
     for dr, w_r in ((0, t[:, 1]), (1, t[:, 2])):
         for dc, w_c in ((0, t[:, 4]), (1, t[:, 5])):
             r, c = r0 + dr, c0 + dc
             ok = (r >= 0) & (r < rows) & (c >= 0) & (c < cols)
-            index = r.clamp(0, rows - 1) * cols + c.clamp(0, cols - 1)
+            index = base + (r.clamp(0, rows - 1) * cols + c.clamp(0, cols - 1))
             grf.index_put_((index.reshape(-1),),
                            torch.where(ok, (w_r * w_c) * g, 0.0).reshape(-1), accumulate=True)
-    return grf.reshape(rows, cols)
+    return grf.reshape(lead + (rows, cols))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,23 +207,36 @@ def scan_maps(map_row: np.ndarray, map_col: np.ndarray, rf_rows: int, rf_cols: i
                     rf_rows, rf_cols, out_cols)
 
 
+def _frames(x: torch.Tensor, name: str, image: tuple) -> tuple[tuple, int]:
+    """(the leading shape, the frame count) of ``x``, one ``image``-shaped
+    image or a (frames, *image) batch of them; else ValueError."""
+    lead = tuple(x.shape[:-2])
+    if len(lead) > 1 or tuple(x.shape[-2:]) != tuple(image):
+        raise ValueError(f"{name}: expected {tuple(image)} or (frames, *{tuple(image)}), got "
+                         f"{tuple(x.shape)}")
+    return lead, lead[0] if lead else 1
+
+
 def scan_convert_backward(g: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
-    """RF gradient (rf_rows, rf_cols) from the B-mode cotangent ``g``: K9 for
-    CUDA tensors, ``scan_convert_bwd_plain`` for CPU tensors."""
+    """RF gradient (rf_rows, rf_cols) from the B-mode cotangent ``g``
+    (out_rows, out_cols), or (F, rf_rows, rf_cols) from (F, out_rows,
+    out_cols): K9 for CUDA tensors, ``scan_convert_bwd_plain`` for CPU tensors."""
     global launches_bwd, last_blocks_bwd
     rows, cols = maps.rf_rows, maps.rf_cols
     if g.device.type == "cpu" and maps.table.device.type == "cpu":
         return scan_convert_bwd_plain(g, maps.table, rows, cols)
     n_cells = rows * cols
-    _build.require(g, "g", torch.float32, (maps.table.shape[0], maps.out_cols))
+    lead, frames = _frames(g, "g", (maps.table.shape[0], maps.out_cols))
+    _build.require(g, "g", torch.float32)
     _build.require(maps.row_ptr, "row_ptr", torch.int32, (n_cells + 1,))
     _build.require(maps.pixel, "pixel", torch.int32)
     _build.require(maps.weight, "weight", torch.float32, tuple(maps.pixel.shape))
-    out = torch.empty((rows, cols), dtype=torch.float32, device=g.device)
+    out = torch.empty(lead + (rows, cols), dtype=torch.float32, device=g.device)
     blocks = ctypes.c_int(0)
     code = _build.library().mcray_scan_convert_bwd(
         maps.row_ptr.data_ptr(), maps.pixel.data_ptr(), maps.weight.data_ptr(), g.data_ptr(),
-        n_cells, out.data_ptr(), ctypes.byref(blocks), _build.stream_of(g),
+        n_cells, g.shape[-2] * g.shape[-1], frames, out.data_ptr(), ctypes.byref(blocks),
+        _build.stream_of(g),
     )
     _build.check(code, "mcray_scan_convert_bwd")
     launches_bwd += 1
@@ -232,26 +256,29 @@ class _ScanConvert(torch.autograd.Function):
 
 
 def scan_convert_cuda(rf: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
-    """B-mode image (out_rows, out_cols) from the enveloped RF image,
+    """B-mode image (out_rows, out_cols) from the enveloped RF image (or
+    (F, out_rows, out_cols) from F of them),
     differentiable in ``rf``: the CUDA kernels (K4 forward, K9 backward) for
     CUDA tensors, the plain versions for CPU tensors."""
     return _ScanConvert.apply(rf, maps)
 
 
 def scan_convert_forward(rf: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
-    """K4 for CUDA tensors, ``scan_convert_plain`` for CPU tensors (no autograd)."""
+    """K4 for CUDA tensors, ``scan_convert_plain`` for CPU tensors (no
+    autograd); ``rf`` is (rf_rows, rf_cols) or (F, rf_rows, rf_cols)."""
     global launches, last_blocks
     if rf.device.type == "cpu" and maps.table.device.type == "cpu":
         return scan_convert_plain(rf, maps.table, maps.out_cols)
     rows, cols = maps.rf_rows, maps.rf_cols
     out_rows = maps.table.shape[0]
-    _build.require(rf, "rf", torch.float32, (rows, cols))
+    lead, frames = _frames(rf, "rf", (rows, cols))
+    _build.require(rf, "rf", torch.float32)
     _build.require(maps.coords, "coords", torch.float32, (2, out_rows, maps.out_cols))
-    out = torch.empty((out_rows, maps.out_cols), dtype=torch.float32, device=rf.device)
+    out = torch.empty(lead + (out_rows, maps.out_cols), dtype=torch.float32, device=rf.device)
     blocks = ctypes.c_int(0)
     code = _build.library().mcray_scan_convert(
-        rf.data_ptr(), rows, cols, maps.coords.data_ptr(), out.numel(), out.data_ptr(),
-        ctypes.byref(blocks), _build.stream_of(rf),
+        rf.data_ptr(), rows, cols, frames, maps.coords.data_ptr(), out_rows * maps.out_cols,
+        out.data_ptr(), ctypes.byref(blocks), _build.stream_of(rf),
     )
     _build.check(code, "mcray_scan_convert")
     launches += 1

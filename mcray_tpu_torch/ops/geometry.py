@@ -38,11 +38,13 @@ def rotate(v: torch.Tensor, axis: torch.Tensor, angle: torch.Tensor) -> torch.Te
 
 
 def euler_zxy(v: torch.Tensor, angles_rad: torch.Tensor) -> torch.Tensor:
-    """About z by angles[2], then x by angles[0], then y by angles[1]."""
+    """About z by angles[..., 2], then x by angles[..., 0], then y by
+    angles[..., 1]; ``angles_rad`` (..., 3) broadcasts against ``v``'s
+    leading dims (one rotation, or one per pose of a batch)."""
     eye = torch.eye(3, dtype=v.dtype, device=v.device)
-    v = rotate(v, eye[2], angles_rad[2])
-    v = rotate(v, eye[0], angles_rad[0])
-    return rotate(v, eye[1], angles_rad[1])
+    v = rotate(v, eye[2], angles_rad[..., 2:3])
+    v = rotate(v, eye[0], angles_rad[..., 0:1])
+    return rotate(v, eye[1], angles_rad[..., 1:2])
 
 
 def safe_sqrt(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:

@@ -25,7 +25,11 @@ bitwise to its plain version (t, winner, node and test counts) and to K1 (t,
 winner) at edge shapes, and its sphere frame to the brute frame; one pose fd step on
 the card against the CPU (point losses rtol 1e-4, gradient 1e-3 of its
 largest entry, pose 1e-5); ``serve``'s drain waits on the drained frame's
-event and nothing else. The parallel layer on a one-rank NCCL group: the
+event and nothing else. The frame axis: K3, K4 and K9 over 3 frames that
+differ, in one launch each, bitwise the kernel per frame (B = 1: the 2-D
+call); a batched frame bitwise ``render_frame``'s; the batched pose fd step
+bitwise its per-point loop, and a 2-frame fit step's loss bitwise and its
+gradient within 1e-5 of its largest entry against its loop of frames. The parallel layer on a one-rank NCCL group: the
 sharded frame's RF bitwise the ``Simulator``'s (the gathered B-mode too, the
 halo B-mode at 1e-5 / 1e-6), and a cuda mesh raises where NCCL is missing;
 ``render``'s ``rf_conv`` is ``rf_raw`` where K3 runs; ``FrameMetrics`` waits
@@ -717,6 +721,159 @@ def test_pose_fd_step_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(g_g, g_c, rtol=0, atol=1e-3 * float(g_c.abs().max()))
     strong = g_c.abs() > 0.01 * g_c.abs().max()
     np.testing.assert_allclose(p_g[strong], p_c[strong], atol=1e-5)
+
+
+def _differing_frames(rows: int, cols: int, frames: int, seed: int) -> torch.Tensor:
+    """(frames, rows, cols) noise images that differ: each its own scale, one
+    with a falling column (no peak) and one with a plateau across the rows."""
+    g = torch.Generator().manual_seed(seed)
+    rf = torch.randn((frames, rows, cols), generator=g)
+    rf *= torch.arange(1, frames + 1, dtype=torch.float32)[:, None, None]
+    rf[0, :, 7] = torch.linspace(1.0, -1.0, rows)
+    rf[-1, rows // 3 : rows // 2, :] = rf[-1, rows // 3 : rows // 3 + 1, :]
+    return rf
+
+
+@pytest.mark.parametrize("rows", [465, 1200, 2000])
+def test_postproc_kernel_takes_a_frame_axis(cuda, rows):
+    """K3 over B = 3 frames that differ in one launch (the grid's second axis
+    is the frame): bitwise the kernel launched per frame, B = 1 bitwise the
+    2-D call, and against its plain version over the stack at 1e-5 / 1e-6
+    (bitwise at 1,200 rows, past a lane's mask, and at 2,000, where the
+    strips' buffers are a device-memory slab per block of every frame)."""
+    cfg = SimConfig()
+    rf = _differing_frames(rows, 96, 3, rows).to(cuda)
+    before = postproc.launches
+    got = postproc.postproc_forward(rf, cfg)
+    assert postproc.launches == before + 1
+    assert postproc.last_blocks == 3 * (96 // 4)
+    each = torch.stack([postproc.postproc_forward(rf[b], cfg) for b in range(3)])
+    assert torch.equal(got, each)
+    assert torch.equal(postproc.postproc_forward(rf[1:2], cfg)[0], each[1])
+    want = postproc.postproc_plain(rf, cfg)
+    if rows == 465:
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(got, want)
+    slab = _build.library().mcray_postproc_slab_floats(rows, 96, 3, cfg.psf_lateral_size,
+                                                       postproc.MAX_SHARED_BYTES)
+    assert (slab > 0) == (rows == 2000)
+
+
+def test_scan_kernels_take_a_frame_axis(cuda):
+    """K4 and K9 over B = 3 frames that differ in one launch each: K4
+    bitwise its plain versions over the stack and the kernel per frame; K9
+    bitwise its CSR lists summed in order on the host, per frame, and the
+    kernel per frame; B = 1 bitwise the 2-D call; the autograd Function
+    routes a (B, H, W) cotangent through one K9 launch."""
+    cfg = SimConfig()
+    maps = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols,
+                              device=cuda)
+    rf = _differing_frames(cfg.rf_rows, cfg.rf_cols, 3, 5).to(cuda)
+    g = _differing_frames(cfg.bmode_rows, cfg.bmode_cols, 3, 6).to(cuda)
+    n_pix = cfg.bmode_rows * cfg.bmode_cols
+    before = scanconv.launches, scanconv.launches_bwd
+    got = scanconv.scan_convert_forward(rf, maps)
+    grad = scanconv.scan_convert_backward(g, maps)
+    assert (scanconv.launches, scanconv.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert scanconv.last_blocks == 3 * -(-n_pix // 128)
+    assert scanconv.last_blocks_bwd == 3 * -(-cfg.rf_rows * cfg.rf_cols // 256)
+    assert torch.equal(got, scanconv.scan_convert_coords_plain(rf, maps.coords))
+    assert torch.equal(got, scanconv.scan_convert_plain(rf, maps.table, cfg.bmode_cols))
+    for b in range(3):
+        assert torch.equal(got[b], scanconv.scan_convert_forward(rf[b], maps))
+        assert torch.equal(grad[b], scanconv.scan_convert_backward(g[b], maps))
+    assert torch.equal(scanconv.scan_convert_forward(rf[2:], maps)[0], got[2])
+    assert torch.equal(scanconv.scan_convert_backward(g[2:], maps)[0], grad[2])
+    row_ptr, pixel, weight = (a.cpu().numpy() for a in (maps.row_ptr, maps.pixel, maps.weight))
+    cell = np.repeat(np.arange(cfg.rf_rows * cfg.rf_cols), np.diff(row_ptr))
+    for b in range(3):
+        in_order = np.zeros(cfg.rf_rows * cfg.rf_cols, np.float32)
+        np.add.at(in_order, cell, weight * g[b].cpu().numpy().reshape(-1)[pixel])
+        np.testing.assert_array_equal(grad[b].cpu().numpy().reshape(-1), in_order)
+    np.testing.assert_allclose(
+        grad.cpu(), scanconv.scan_convert_bwd_plain(g, maps.table, cfg.rf_rows, cfg.rf_cols).cpu(),
+        rtol=1e-5, atol=1e-6)
+    x = rf.clone().requires_grad_(True)
+    before = scanconv.launches_bwd
+    (through,) = torch.autograd.grad(scanconv.scan_convert_cuda(x, maps), x, g)
+    assert scanconv.launches_bwd == before + 1 and torch.equal(through, grad)
+    with pytest.raises(ValueError):  # a frame of another shape
+        scanconv.scan_convert_forward(rf[:, :, :-1].contiguous(), maps)
+
+
+def test_batched_frame_on_the_card_equals_single_frames(cuda):
+    """``render_frames`` of 3 seeds at 3 poses (log compression on: each
+    frame's own maximum) on the card: one launch of K2, K3 and K4 and
+    ``max_depth`` of K5, and every frame's rf_raw, rf_env and bmode bitwise
+    ``render_frame``'s."""
+    from mcray_tpu_torch.ops import cuda as kernels
+
+    cfg = small_test_config(transducer_elements=32, samples_per_element=2, log_compression=True)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=1)
+    positions = sim.position + torch.tensor([[0.0, 0.0, 0.0], [0.1, 0.0, 0.0], [0.0, 0.2, 0.0]],
+                                            device=cuda)
+    angles = sim.angles + torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, 3.0], [2.0, 0.0, 0.0]],
+                                       device=cuda)
+    kernels.reset_launch_counts()
+    batch = sim.render_frames([1, 2, 3], positions=positions, angles=angles)
+    counts = kernels.launch_counts()
+    assert counts["intersect_listed"] == cfg.max_depth
+    assert (counts["march"], counts["postproc"], counts["scanconv"]) == (1, 1, 1)
+    for b, seed in enumerate((1, 2, 3)):
+        one = sim.render_frame(seed, position=positions[b], angles=angles[b])
+        for key in ("rf_raw", "rf_env", "bmode"):
+            assert torch.equal(batch[key][b], one[key]), (key, b)
+
+
+def test_batched_fd_and_fit_steps_on_the_card_equal_their_loops(cuda):
+    """The pose fd step through ``from_simulator`` (7 points x 2 keys in one
+    batched call) against the per-point loop: losses, gradient and the pose
+    after the update bitwise. A 2-frame fit step (one batched call, K8 and
+    K9 once) against the loop of frames: the loss bitwise, the gradient
+    within 1e-5 of its largest entry (another summation order, and the
+    card's gather backward adds with atomics)."""
+    from mcray_tpu_torch.models.trainer import MaterialFitter
+    from mcray_tpu_torch.ops import cuda as kernels
+
+    pack = load_and_compile(SPHERE_SCENE)
+    cfg = small_test_config(transducer_elements=32, samples_per_element=1)
+    sim = Simulator(pack, cfg, device=cuda, seed=0)
+    keys = rng.split(rng.prng_key(42), 2)
+    render = lambda k, p, a: sim.render_frame(k, position=p, angles=a)["bmode"]
+    with torch.no_grad():
+        target = sim.render_compound(keys)
+    start = sim.position + torch.tensor([0.0, 0.3, 0.0], device=cuda)
+    kw = dict(method="fd", keys=keys, scales=(4.0, 8.0))
+    batched = PoseFitter.from_simulator(sim, start, sim.angles, target, **kw)
+    looped = PoseFitter(render, start, sim.angles, target, **kw)
+    kernels.reset_launch_counts()
+    got = batched.fd_step(0)
+    assert kernels.launch_counts()["intersect_listed"] == cfg.max_depth
+    want = looped.fd_step(0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(batched.position, looped.position)
+
+    fcfg = small_test_config(transducer_elements=32, samples_per_element=2,
+                             soft_scattering=True, trilinear_texture=True)
+    fsim = Simulator(pack, fcfg, device=cuda, seed=1)
+    with torch.no_grad():
+        ftarget = fsim.render_frame(1)["bmode"]
+    start_m = pack.materials.copy()
+    start_m[3, physics.ATTENUATION] *= 2.0
+    fkw = dict(trainable=(physics.ATTENUATION,), trainable_rows=[3], n_frames_per_step=2)
+    fit = MaterialFitter.from_simulator(fsim, start_m, ftarget, **fkw)
+    loop = MaterialFitter(lambda k, m: fsim.render_frame(k, m)["bmode"],
+                          torch.tensor(start_m, device=cuda), ftarget, **fkw)
+    kernels.reset_launch_counts()
+    loss = fit.step(rng.prng_key(2))
+    counts = kernels.launch_counts()
+    assert (counts["march"], counts["march_bwd"], counts["scanconv_bwd"]) == (1, 1, 1)
+    assert loop.step(rng.prng_key(2)) == loss
+    scale = float(loop.last_grad.abs().max())
+    assert scale > 0
+    np.testing.assert_allclose(fit.last_grad.cpu(), loop.last_grad.cpu(), rtol=0,
+                               atol=1e-5 * scale)
 
 
 def test_serve_drain_waits_on_the_previous_frame_only(cuda, tmp_path, monkeypatch, capsys):
