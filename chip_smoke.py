@@ -13,11 +13,12 @@ with the launch counts set to 0 just before it and read just after:
   few requests (poses, seeds, a compound);
 - the sphere on the brute closest hit (K1), and by BVH traversal (K11,
   ``use_bvh``: no TPU kernel, the reference's jnp while_loop);
-- the 123,224-triangle ircad_hd scene on its default (listed) set;
+- the 123,224-triangle ircad_hd scene on its default (listed) set, by BVH
+  traversal and on the brute closest hit (the bvh frame's anchor);
 - the culled (K6) and staged (K7) closest hits on both scenes;
 - the ~615k-triangle ircad11_mega scene in grouped mode (K10 and its
   residual K5 pass, then K2, K3, K4) and in listed mode: one seed, so the
-  two frames must agree;
+  two frames must agree; and by BVH traversal against its brute frame (K1);
 - the isotropic 2,560-ray query on a 200,000-triangle synthetic scene that
   the grouped kernel was built for, and the same scene's coherent fan;
 - the differentiable material fit on the sphere in soft + trilinear mode:
@@ -42,6 +43,8 @@ with the launch counts set to 0 just before it and read just after:
   a fit step, each timed beside its loop, profiled, its peak memory read;
   K3, K4 and K9 with the frame axis against per-frame launches and their
   plain versions; the mega listed scene's batch of 8 and its peak memory;
+  the sphere's batch of 8 by BVH traversal (K11 10 launches, every frame
+  bitwise ``render_frame``'s);
 - the probe-pose paths: ``PoseFitter(method="fd")`` from the scene's pose +
   (0, 0.3, 0), 5 steps of 28 frames in one batched pass each (4 keys,
   scales 2, 4, 8), and
@@ -69,9 +72,10 @@ on made-up images (zeros, plateaus, no peak, no convolution) and bitwise
 on a 1,200- and a 2,000-row image, the CUDA path against the plain CPU path
 on a small config (the frame, the loss and material gradient of one
 fit step, one pose fd step's 7 point losses, the pose gradient), K11
-bitwise against its plain version (t, winner, node and test counts) and
-against K1 (t, winner) at every bounce of the sphere bvh frame and on each
-ircad_hd bounce, the bvh frame bitwise the brute frame, a served PNG byte
+bitwise against its plain version (t, winner, the 4-wide walk's node and
+test counts) and against the binary walk and K1 (t, winner) at every bounce
+of the sphere, ircad_hd and mega bvh frames and of the sphere's bvh batch of
+8, each bvh frame bitwise its brute frame, a served PNG byte
 for byte ``save_png`` of ``render_frame`` at its request, the keyed randomness on the card against the CPU (bits equal,
 normals allclose), and every frame's image is checked. The march kernels
 (K2, K8) are also held against their plain versions at full size (the
@@ -91,12 +95,14 @@ kernels are also timed replayed from a CUDA graph (the
 kernels back to back, without the host's time to launch each), K1 on the
 sphere brute and ircad_hd bounces, K5 on each of its ray sets, K6 and K7 on
 the sphere and ircad_hd frames, K10 on the mega grouped frame, its bounces
-0 and 5 and the two 200,000-triangle sets, K2 and K8 in their default and
+0 and 5 and the two 200,000-triangle sets, K11 on the sphere, ircad_hd and
+mega bvh bounces and the bvh batch's (its bound from the binary walk's node
+and test counts), K2 and K8 in their default and
 Box–Muller modes, K4 and K9 beside their library calls, and beside the time
 of one launch of the library's cheapest call; the grids of K1, K3, K4, K5,
-K6, K7, K9 and K10 are read back and must fill half the card. The sphere
-brute frame and the ircad_hd frames (listed, culled, staged) are profiled
-as the sphere's and the mega scene's are.
+K6, K7, K9, K10 and K11 are read back and must fill half the card. The sphere
+brute frame, the ircad_hd frames (listed, culled, staged) and the three
+bvh frames are profiled as the sphere's and the mega scene's are.
 
 The last lines are the kernel record ({"kernels": [...]}; each entry's
 ``sharded_launches`` gives its launches per sharded frame in each imaging
@@ -152,9 +158,12 @@ IRCAD_HD_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_hd")
 MEGA_SCENE = os.path.join(REPO, "assets", "ircad11_mega", "santi-liver-mega.scene")
 MEGA_ASSETS = os.path.join(REPO, "build", "mcray_tpu_torch", "ircad11_mega")
 TIMED_FRAMES = {"sphere": 10, "sphere brute": 5, "sphere bvh": 5, "ircad_hd": 5,
-                "ircad_hd culled": 5, "ircad_hd staged": 5, "mega listed": 5, "mega grouped": 5}
+                "ircad_hd culled": 5, "ircad_hd staged": 5, "ircad_hd bvh": 5, "mega listed": 5,
+                "mega grouped": 5, "mega bvh": 5}
 PROFILED_FRAMES = ("sphere", "sphere brute", "sphere bvh", "ircad_hd", "ircad_hd culled",
-                   "ircad_hd staged", "mega listed", "mega grouped")
+                   "ircad_hd staged", "ircad_hd bvh", "mega listed", "mega grouped", "mega bvh")
+# the scenes whose frames also run by BVH traversal (K11), each beside its brute frame (K1)
+BVH_SCENES = ("sphere", "ircad_hd", "mega")
 # packet sizes K6 and K7 are also checked at, beyond the frame's 512 (any
 # divisor of the padded ray count runs; 100 is no multiple of 32, 2,048 more
 # rays than a block has threads), and K5 at the two its other checks leave out
@@ -1293,64 +1302,96 @@ def render_flags_phase(tmp: str) -> dict:
     return {"counts": counts}
 
 
-def check_bvh(sim, out, brute_out, tri_soa, ircad_bvh, ircad_rays, ircad_soa) -> dict:
-    """K11 against its plain version (t, winner, per-ray node and test counts
-    bitwise) and against K1 (t and winner bitwise) at every bounce of the
-    sphere bvh frame; on ircad_hd against K1 (t and winner bitwise) on each
-    whole bounce and its plain version on IRCAD_K1_SAMPLE rays of each; the
-    bvh frame equal to the brute frame. Returns the per-bounce rays and counts."""
-    cfg = sim.cfg
-    vs_plain = vs_k1 = 0
-    sphere = []
-    for d in range(cfg.max_depth):
-        rays = out["segments"]["rays"][d].contiguous()
-        t_k, j_k, c_k = bvh_intersect.bvh_best(rays, sim.bvh, counts=True)
-        t_p, j_p, c_p = bvh.bvh_best_plain(rays, sim.bvh, counts=True)
-        t_1, i_1 = intersect.intersect_best(rays, tri_soa)
-        vs_plain += int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum()
-                        + (j_k != j_p).sum() + (c_k != c_p).sum())
-        vs_k1 += int((t_k.view(torch.int32) != t_1.view(torch.int32)).sum() + (j_k != i_1).sum())
-        sphere.append((rays, c_k))
-    hd_vs_k1 = hd_vs_plain = 0
-    ircad = []
-    for d in range(cfg.max_depth):
-        rays = ircad_rays[d].contiguous()
-        t_k, j_k, c_k = bvh_intersect.bvh_best(rays, ircad_bvh, counts=True)
-        t_1, i_1 = intersect.intersect_best(rays, ircad_soa)
-        hd_vs_k1 += int((t_k.view(torch.int32) != t_1.view(torch.int32)).sum()
-                        + (j_k != i_1).sum())
-        live = torch.nonzero(rays[3:6].abs().sum(dim=0) > 0).squeeze(1)
-        pick = live[torch.linspace(0, max(live.numel() - 1, 0), min(IRCAD_K1_SAMPLE, live.numel()),
-                                   device=live.device).long()]
-        t_p, j_p = bvh.bvh_best_plain(rays[:, pick].contiguous(), ircad_bvh)
-        hd_vs_plain += int((t_k[pick].view(torch.int32) != t_p.view(torch.int32)).sum()
-                           + (j_k[pick] != j_p).sum())
-        ircad.append((rays, c_k))
-    frame_equal = {key: torch.equal(out["segments"][key], brute_out["segments"][key])
-                   for key in ("rays", "valid", "to", "reflected")}
-    frame_equal["bmode"] = torch.equal(out["bmode"], brute_out["bmode"])
-    print(f"[bvh] bvh_intersect: {vs_plain} differing (t, winner, counts) vs plain and {vs_k1} "
-          f"differing (t, winner) vs K1 over the sphere bvh frame's {cfg.max_depth} bounces; "
-          f"ircad_hd: {hd_vs_k1} differing (t, winner) vs K1 on whole bounces, {hd_vs_plain} vs "
-          f"plain on {IRCAD_K1_SAMPLE} rays a bounce; the sphere bvh frame equal to the brute "
-          f"frame: {frame_equal}")
-    if vs_plain or vs_k1 or hd_vs_k1 or hd_vs_plain or not all(frame_equal.values()):
-        raise AssertionError("bvh_intersect disagrees with its plain version or with K1, or the "
-                             "bvh frame with the brute frame")
-    return {"sphere": sphere, "ircad_hd": ircad}
+def bvh_compare(dbvh, rays, tri_soa) -> tuple[dict, tuple]:
+    """K11 on one bounce's rays against its plain version (t bits, winner, the
+    4-wide walk's counts), the binary walk and K1 (t bits, winner): the
+    differing entries of each; the binary and 4-wide walks' (2, N) counts, and
+    the binary walk's touched (nodes, triangles) masks."""
+    t_k, j_k, c_k = bvh_intersect.bvh_best(rays, dbvh, counts=True)
+    t_p, j_p, c_p = bvh.bvh4_best_plain(rays, dbvh, counts=True)
+    t_b, j_b, c_b, touched = bvh.bvh_best_plain(rays, dbvh, counts=True, touched=True)
+    t_1, i_1 = intersect.intersect_best(rays, tri_soa)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    diff = {"plain": int((bits(t_k) != bits(t_p)).sum() + (j_k != j_p).sum() + (c_k != c_p).sum()),
+            "binary": int((bits(t_k) != bits(t_b)).sum() + (j_k != j_b).sum()),
+            "k1": int((bits(t_k) != bits(t_1)).sum() + (j_k != i_1).sum())}
+    return diff, (c_b, c_p, touched)
+
+
+def check_bvh(sims, outs, tri_soa, batch_rays) -> dict:
+    """K11 at every bounce of the sphere, ircad_hd and mega bvh frames and of
+    the sphere's bvh batch of 8 (``bvh_compare``), each bvh frame bitwise its
+    brute frame (K1). Returns, by ray set, each bounce's rays with the binary
+    and the 4-wide walk's counts and the binary walk's touched masks."""
+    sets = {scene: (sims[f"{scene} bvh"].bvh, outs[f"{scene} bvh"]["segments"]["rays"],
+                    tri_soa[scene]) for scene in BVH_SCENES}
+    sets["batch"] = (sims["sphere bvh"].bvh, batch_rays, tri_soa["sphere"])
+    calls, failed = {}, []
+    for name, (dbvh, rays, soa) in sets.items():
+        diff = {"plain": 0, "binary": 0, "k1": 0}
+        calls[name] = []
+        for d in range(rays.shape[0]):
+            q = rays[d].contiguous()
+            got, (c_b, c_p, touched) = bvh_compare(dbvh, q, soa)
+            diff = {k: diff[k] + got[k] for k in diff}
+            calls[name].append((q, c_b, c_p, touched))
+        print(f"[bvh] bvh_intersect, {name} ({q.shape[1]} rays x {rays.shape[0]} bounces, 4-wide "
+              f"depth {dbvh.depth}, stack need {dbvh.stack_need}): {diff['plain']} differing (t, "
+              f"winner, counts) vs its plain version, {diff['binary']} (t, winner) vs the binary "
+              f"walk, {diff['k1']} vs K1")
+        if any(diff.values()):
+            failed.append(name)
+    for scene in BVH_SCENES:
+        out, brute = outs[f"{scene} bvh"], outs[f"{scene} brute"]
+        equal = {key: torch.equal(out["segments"][key], brute["segments"][key])
+                 for key in ("rays", "valid", "to", "reflected")}
+        equal["bmode"] = torch.equal(out["bmode"], brute["bmode"])
+        print(f"[bvh] {scene} bvh frame equal to the brute frame: {equal}")
+        if not all(equal.values()):
+            failed.append(f"{scene} frame")
+    if failed:
+        raise AssertionError(f"bvh_intersect disagrees with its plain version, the binary walk or "
+                             f"K1, or a bvh frame with its brute frame: {failed}")
+    return calls
 
 
 def bvh_bound(calls, device_bvh) -> tuple[float, str]:
-    """K11 per launch, mean over the bounces, for this run's rays: every node
-    each ray pops (its slab test) and every triangle it tests, by the
-    kernel's own counts; the rays, nodes, meta and triangles read once, (t,
-    winner) written once."""
+    """K11 per launch, mean over the bounces, for this run's rays: the work of
+    the reference walk (``bvh_best_plain``), whatever walk the kernel takes:
+    every node it pops (its slab test) and every triangle it tests, by its
+    counts; the rays read once, (t, winner) written once, and once each the
+    distinct flat nodes (box, meta) and triangles (v0, e1, e2, scene index)
+    that the launch's rays touch, by its masks."""
+    node_bytes = nbytes(device_bvh.nodes[0], device_bvh.meta[0])
+    tri_bytes = nbytes(device_bvh.tri_soa[:, 0], device_bvh.tri_order[0])
     n_b = n_o = 0
-    for rays, counts in calls:
-        n_b += (nbytes(rays, device_bvh.nodes, device_bvh.meta, device_bvh.tri_soa)
-                + 8 * rays.shape[1])
-        n_o += int(counts[0].sum()) * OPS_SLAB_NODE + int(counts[1].sum()) * OPS_MOLLER_TRUMBORE
+    for rays, ref_counts, _, (seen_nodes, seen_tris) in calls:
+        n_b += (nbytes(rays) + 8 * rays.shape[1] + int(seen_nodes.sum()) * node_bytes
+                + int(seen_tris.sum()) * tri_bytes)
+        n_o += (int(ref_counts[0].sum()) * OPS_SLAB_NODE
+                + int(ref_counts[1].sum()) * OPS_MOLLER_TRUMBORE)
     return bound(n_b / len(calls), n_o / len(calls))
+
+
+def bvh_touched(calls) -> dict[str, float]:
+    """The distinct flat nodes and triangles a launch's rays touch in the
+    reference walk, mean over the bounces."""
+    nodes = sum(int(seen[0].sum()) for *_, seen in calls) / len(calls)
+    tris = sum(int(seen[1].sum()) for *_, seen in calls) / len(calls)
+    return {"nodes": nodes, "triangles": tris}
+
+
+def walk_means(calls) -> dict[str, float]:
+    """Nodes and triangles per live ray of the binary walk and the 4-wide walk."""
+    live = ref = four = 0
+    for rays, ref_counts, counts, _ in calls:
+        alive = rays[3:6].abs().sum(dim=0) > 0
+        live += int(alive.sum())
+        ref = ref + ref_counts[:, alive].sum(dim=1).double()
+        four = four + counts[:, alive].sum(dim=1).double()
+    (r_nodes, r_tests), (f_nodes, f_tests) = (ref / live).tolist(), (four / live).tolist()
+    return {"live_rays": live, "binary_pops": r_nodes, "binary_tests": r_tests,
+            "four_wide_nodes": f_nodes, "four_wide_tests": f_tests}
 
 
 def nonzero(counts: dict[str, int]) -> dict[str, int]:
@@ -1693,6 +1734,34 @@ def mega_batch_phase(sim) -> dict:
             "launches": counts}
 
 
+def bvh_batch_phase(sim) -> dict:
+    """The sphere's batch of BATCH_SEEDS by BVH traversal: its launches (K11
+    10 in all), every frame bitwise its ``render_frame`` (the segments' rays,
+    valid, to and reflected, rf_raw, rf_env and bmode); its rays for K11."""
+    cfg = sim.cfg
+    seeds = list(BATCH_SEEDS)
+    kernels.reset_launch_counts()
+    out = sim.render_frames(seeds)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_launches("sphere bvh batch of 8", counts, {"bvh_intersect": cfg.max_depth, "march": 1,
+                                                     "postproc": 1, "scanconv": 1})
+    singles = [sim.render_frame(s) for s in seeds]
+    n = singles[0]["segments"]["valid"].shape[1]  # paths a frame
+    differing = {}
+    for key in ("rays", "valid", "to", "reflected"):
+        dim = 2 if key == "rays" else 1
+        differing[key] = [b for b, f in enumerate(singles) if not torch.equal(
+            out["segments"][key].narrow(dim, b * n, n), f["segments"][key])]
+    for key in ("rf_raw", "rf_env", "bmode"):
+        differing[key] = [b for b, f in enumerate(singles) if not torch.equal(out[key][b], f[key])]
+    print(f"[batch] sphere bvh, seeds {seeds}: launches {nonzero(counts)}; frames differing from "
+          f"render_frame: {differing}")
+    if any(differing.values()):
+        raise AssertionError(f"the bvh batch != render_frame: {differing}")
+    return {"launches": counts, "rays": out["segments"]["rays"]}
+
+
 T_START = time.perf_counter()
 
 
@@ -1742,6 +1811,9 @@ def main() -> int:
         "sphere brute": Simulator(sphere, cfg, device="cuda", seed=0, use_culled_intersect=False),
         "sphere bvh": Simulator(sphere, cfg, device="cuda", seed=0, use_bvh=True),
         "ircad_hd": Simulator(ircad, cfg, device="cuda", seed=0),
+        "ircad_hd bvh": Simulator(ircad, cfg, device="cuda", seed=0, use_bvh=True),
+        "ircad_hd brute": Simulator(ircad, cfg, device="cuda", seed=0,
+                                    use_culled_intersect=False),
         "sphere culled": Simulator(sphere, cfg, device="cuda", seed=0, intersect_mode="culled"),
         "ircad_hd culled": Simulator(ircad, cfg, device="cuda", seed=0, intersect_mode="culled"),
         "sphere staged": Simulator(sphere, cfg, device="cuda", seed=0, intersect_mode="staged"),
@@ -1752,6 +1824,15 @@ def main() -> int:
         sims[f"mega {mode}"] = Simulator(mega, cfg, device="cuda", seed=0, intersect_mode=mode)
         print(f"  mega {mode}: {sims[f'mega {mode}'].culled_tris[0].n_clusters} clusters packed "
               f"and uploaded in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sims["mega bvh"] = Simulator(mega, cfg, device="cuda", seed=0, use_bvh=True)
+    sims["mega brute"] = Simulator(mega, cfg, device="cuda", seed=0, use_culled_intersect=False)
+    for name in ("sphere bvh", "ircad_hd bvh", "mega bvh"):
+        print(f"  {name}: {sims[name].bvh.nodes4.shape[0]} 4-wide nodes (the flat tree's "
+              f"{len(sims[name].bvh.flat.meta)}), depth {sims[name].bvh.depth}, stack need "
+              f"{sims[name].bvh.stack_need}" + (f"; mega's collapsed and uploaded in "
+                                                f"{time.perf_counter() - t0:.1f} s"
+                                                if name == "mega bvh" else ""))
     expected = {
         "sphere": {"intersect_listed": cfg.max_depth, **loop},
         "sphere brute": {"intersect": cfg.max_depth, **loop},
@@ -1764,6 +1845,10 @@ def main() -> int:
         "mega grouped": {"intersect_grouped": cfg.max_depth, "intersect_listed": cfg.max_depth,
                          **loop},
         "mega listed": {"intersect_listed": cfg.max_depth, **loop},
+        "ircad_hd bvh": {"bvh_intersect": cfg.max_depth, **loop},
+        "ircad_hd brute": {"intersect": cfg.max_depth, **loop},
+        "mega bvh": {"bvh_intersect": cfg.max_depth, **loop},
+        "mega brute": {"intersect": cfg.max_depth, **loop},
     }
     outs, counts = {}, {}
     for name, sim in sims.items():
@@ -1803,6 +1888,8 @@ def main() -> int:
     mark("shard")
     batch = batch_phase(sphere, sims["sphere"], fit, smi)
     batch["mega"] = mega_batch_phase(sims["mega listed"])
+    bvh_batch = bvh_batch_phase(sims["sphere bvh"])
+    batch["launches"]["render_batch_8_bvh"] = bvh_batch["launches"]
     mark("batch")
     # the probe-pose paths: registration (fd, ad), serve, sweep
     pose_fd_phase(sphere, smi)
@@ -1837,10 +1924,7 @@ def main() -> int:
         [outs["ircad_hd"]["segments"]["rays"][d].contiguous() for d in range(cfg.max_depth)],
         tri_soa["ircad_hd"])
     k1_edges = check_k1_edges()
-    ircad_bvh = bvh.DeviceBVH.from_flat(ircad.bvh, tri_soa["ircad_hd"])
-    bvh_calls = check_bvh(sims["sphere bvh"], outs["sphere bvh"], outs["sphere brute"],
-                          tri_soa["sphere"], ircad_bvh, outs["ircad_hd"]["segments"]["rays"],
-                          tri_soa["ircad_hd"])
+    bvh_calls = check_bvh(sims, outs, tri_soa, bvh_batch["rays"])
     errs["bvh_intersect"] = 0.0
     cluster_calls = {}
     for name in ("sphere", "ircad_hd", "sphere culled", "ircad_hd culled", "sphere staged",
@@ -1953,15 +2037,16 @@ def main() -> int:
     for name in ("sphere", "ircad_hd", "mega listed", "mega grouped"):
         time_stages(name, sims[name], outs[name])
     views = {name: device_view(f"{name} frame", lambda sim=sims[name]: sim.render_frame(seed=7),
-                               frame_ms[name])
+                               frame_ms[name], expect={"bvh4": cfg.max_depth}
+                               if sims[name].bvh is not None else None)
              for name in PROFILED_FRAMES}
     for name, view in views.items():
-        if sims[name].culled_tris is None:  # K11's or K1's kernel
-            names = {"bvh_intersect" if sims[name].bvh is not None else "intersect_closest"}
+        if sims[name].culled_tris is None:  # K11's (bvh4_*_kernel) or K1's kernel
+            names = {"bvh4" if sims[name].bvh is not None else "intersect_closest"}
         else:  # grouped mode also runs a residual K5 pass
             mode = sims[name].culled_tris[1]
             names = {CLUSTER_KERNEL[mode], CLUSTER_KERNEL["listed" if mode == "grouped" else mode]}
-        ours = {k: sum(v for n, v in view["by_name"].items() if f"{k}_kernel" in n) for k in names}
+        ours = {k: sum(v for n, v in view["by_name"].items() if k in n) for k in names}
         print(f"  {name} frame, per frame on the device: "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(ours.items()))
               + f" of {view['busy_ms']:.3f} ms busy; the frame's draws are "
@@ -2005,13 +2090,13 @@ def main() -> int:
             lambda: scanconv.scan_convert_backward(g_bm, maps),
             lambda: scanconv.scan_convert_bwd_plain(g_bm, maps.table, cfg.rf_rows, cfg.rf_cols)),
     })
-    bvh_sets = {"sphere": (sims["sphere bvh"].bvh, [r for r, _ in bvh_calls["sphere"]]),
-                "ircad_hd": (ircad_bvh, [r for r, _ in bvh_calls["ircad_hd"]])}
-    for scene, (dbvh, rays) in bvh_sets.items():
+    bvh_sets = {name: (sims["sphere bvh" if name == "batch" else f"{name} bvh"].bvh,
+                       [r for r, *_ in calls]) for name, calls in bvh_calls.items()}
+    for scene in ("sphere", "ircad_hd"):
+        dbvh, rays = bvh_sets[scene]
         timed[scene]["bvh_intersect"] = (
             lambda b=dbvh, q=rays: [bvh_intersect.bvh_best(r, b) for r in q],
-            (lambda b=dbvh, q=rays: [bvh.bvh_best_plain(r, b) for r in q])
-            if scene == "sphere" else None)
+            lambda b=dbvh, q=rays: [bvh.bvh4_best_plain(r, b) for r in q])
     # seconds per call: timed once
     slow_plain = ("march soft+trilinear", "march_bwd", "bvh_intersect")
     per_call = {k: cfg.max_depth for k in CLUSTER_KERNEL.values()} | {
@@ -2115,16 +2200,34 @@ def main() -> int:
           + f"; blocks march {k2_blocks}, march_bwd {k8_blocks}")
     print(f"  device ms per launch (graph replay): intersect sphere brute "
           f"{k1_device_ms['sphere']:.5f}, ircad_hd {k1_device_ms['ircad_hd']:.5f}")
-    k11_device_ms = {
-        scene: graph_ms(lambda b=dbvh, q=rays: [bvh_intersect.bvh_best(r, b) for r in q],
-                        cfg.max_depth)
-        for scene, (dbvh, rays) in bvh_sets.items()}
-    bvh_intersect.bvh_best(bvh_sets["sphere"][1][0], bvh_sets["sphere"][0])
-    k11_blocks = bvh_intersect.last_blocks
-    print(f"  device ms per launch (graph replay): bvh_intersect sphere "
-          f"{k11_device_ms['sphere']:.5f}, ircad_hd {k11_device_ms['ircad_hd']:.5f}; "
-          f"{k11_blocks} blocks (a thread per ray); intersect_listed sphere "
-          f"{k5_device_ms['sphere']:.5f}")
+    # K11 on every bvh ray set; the bound from the reference walk's counts,
+    # and both walks' nodes and triangles per live ray
+    k11 = {"device_ms": {}, "blocks": {}, "bound": {}, "walks": {}, "touched": {}}
+    for name, (dbvh, rays) in bvh_sets.items():
+        k11["device_ms"][name] = graph_ms(
+            lambda b=dbvh, q=rays: [bvh_intersect.bvh_best(r, b) for r in q], cfg.max_depth)
+        k11["blocks"][name] = bvh_intersect.last_blocks
+        k11["bound"][name] = bvh_bound(bvh_calls[name], dbvh)
+        k11["walks"][name] = walk_means(bvh_calls[name])
+        k11["touched"][name] = bvh_touched(bvh_calls[name])
+        (b_ms, b_by), walks = k11["bound"][name], k11["walks"][name]
+        print(f"  device ms per launch (graph replay): bvh_intersect {name} "
+              f"{k11['device_ms'][name]:.5f} ({k11['blocks'][name]} blocks), bound {b_ms:.5f} ms "
+              f"by {b_by} ({b_ms / k11['device_ms'][name]:.2%} of it; a launch touches "
+              f"{k11['touched'][name]['nodes']:.1f} flat nodes and "
+              f"{k11['touched'][name]['triangles']:.1f} triangles); per live ray (of "
+              f"{walks['live_rays']}) the binary walk pops {walks['binary_pops']:.2f} nodes and "
+              f"tests {walks['binary_tests']:.2f} triangles, the 4-wide walk visits "
+              f"{walks['four_wide_nodes']:.2f} and tests {walks['four_wide_tests']:.2f}")
+    k11_device_ms, k11_blocks = k11["device_ms"], k11["blocks"]
+    print(f"  intersect_listed sphere {k5_device_ms['sphere']:.5f} ms device, beside K11's "
+          f"{k11_device_ms['sphere']:.5f}")
+    batch_rays = bvh_sets["batch"][1]
+    k11_batch = {"ms": cuda_ms(lambda: [bvh_intersect.bvh_best(r, bvh_sets["batch"][0])
+                                        for r in batch_rays], 5) / cfg.max_depth,
+                 "device_ms": k11_device_ms["batch"], "bound_ms": k11["bound"]["batch"][0],
+                 "bound_by": k11["bound"]["batch"][1], "blocks": k11_blocks["batch"],
+                 "frames": len(BATCH_SEEDS)}
     # the grid of one sphere launch of each, as the launch reported it
     intersect_listed.listed_best(*cluster_calls["sphere"][0][2])
     postproc.postproc_forward(rf_raw, cfg)
@@ -2137,7 +2240,7 @@ def main() -> int:
     print(f"  blocks per launch on the sphere frame: intersect_listed {k5_blocks}, postproc "
           f"{k3_blocks}, intersect (brute) {k1_blocks}, scanconv {k4_blocks}, scanconv_bwd "
           f"{k9_blocks}; intersect_grouped (mega bounce 0) {k10_blocks} (132 SMs)")
-    if min(k5_blocks, k1_blocks, k4_blocks, k9_blocks, k10_blocks,
+    if min(k5_blocks, k1_blocks, k4_blocks, k9_blocks, k10_blocks, k11_blocks["sphere"],
            *cluster_blocks.values()) < 66 or k3_blocks < 64:
         raise AssertionError("a redesigned kernel launches too few blocks to fill half the card")
     # the floor small kernels are read against: the cheapest call of the library, back to back
@@ -2183,7 +2286,7 @@ def main() -> int:
                                  tri_soa["ircad_hd"]),
         **{CLUSTER_KERNEL[sims[name].culled_tris[1]]: cluster_bound(sims[name], cluster_calls[name])
            for name in ("ircad_hd", "ircad_hd culled", "ircad_hd staged")},
-        "bvh_intersect": bvh_bound(bvh_calls["ircad_hd"], ircad_bvh)}
+        "bvh_intersect": k11["bound"]["ircad_hd"]}
     bounds = {
         "intersect": brute_bound([brute_rays[d].contiguous() for d in range(cfg.max_depth)],
                                  tri_soa["sphere"]),
@@ -2201,7 +2304,7 @@ def main() -> int:
         # lists the kernels read are the port's own, larger, representations
         "scanconv": bound(4 * n_rf + 2 * 4 * n_bm + 4 * n_bm, n_bm * OPS_SCANCONV_PIXEL),
         "scanconv_bwd": bound(4 * n_bm + 2 * 4 * n_bm + 4 * n_rf, 2 * maps.pixel.numel()),
-        "bvh_intersect": bvh_bound(bvh_calls["sphere"], sims["sphere bvh"].bvh),
+        "bvh_intersect": k11["bound"]["sphere"],
     }
     print(f"  march steps inside the window: frame {steps_frame}, fit frame {steps_fit}; "
           f"transposed remap taps {maps.pixel.numel()}; bytes the scan kernels read beyond their "
@@ -2270,7 +2373,10 @@ def main() -> int:
             entry["blocks"] = k9_blocks
         if name == "bvh_intersect":
             entry.update({"note": "no TPU kernel: the reference's jnp while_loop traversal",
-                          "device_ms": k11_device_ms, "blocks": k11_blocks})
+                          "device_ms": k11_device_ms, "blocks": k11_blocks,
+                          "bound_by_set": k11["bound"], "walks": k11["walks"],
+                          "touched": k11["touched"],
+                          "batch": k11_batch})
         if name == "march":  # the fit runs K2 in soft + trilinear mode: its own numbers
             mode = "march soft+trilinear"
             entry.update({"fit_mode_ms": ms["sphere"][mode][0],

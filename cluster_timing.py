@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's closest hits and scan conversion on one NVIDIA GPU, in one short process.
 
-    python3 cluster_timing.py [--tree DIR]
+    python3 cluster_timing.py [--tree DIR] [--only k11]
 
 Imports ``mcray_tpu_torch`` from DIR (default: the directory of this
 script), so one copy of the script times two checkouts in turns: run it
@@ -28,7 +28,18 @@ sphere (listed and brute), ircad_hd (listed, culled and staged) and mega
 profiled by ``torch.profiler`` (3 frames): device busy ms, the idle share
 against the unprofiled median, device operations and the closest-hit
 kernel's ms per frame (each profile holds every launch of the kernel it
-reads, or is taken again). Prints one JSON line: the tree, the
+reads, or is taken again). The K11 section (all that ``--only k11`` runs)
+renders seed 0 of the sphere, ircad_hd and mega frames with ``use_bvh`` and
+the sphere's 8-seed batch (seeds 0-7, 20,480 rays a bounce), and times the
+BVH traversal (K11) on each set's ten bounces replayed from a CUDA graph
+(device ms per launch, mean over the bounces), with its blocks and the mean
+nodes and triangles per live ray by its own counts, and, summed over the
+bounces that have a live ray, each launch beside its slowest ray (the most
+nodes) launched alone and that ray's nodes: how much of a launch is one
+ray's chain of dependent loads, and its ms per node; then times (5 frames)
+and profiles (3) the three bvh frames as above. ``--only k11`` is for the
+in-turns A/B of K11 (four runs: parent, change, change, parent), so that
+those runs hold the card for that section alone. Prints one JSON line: the tree, the
 card's ``nvidia-smi`` name and power limit, and the numbers, with a digest
 of each ray set so that two trees' runs can be seen to time the same rays.
 Needs the card; without one it exits non-zero.
@@ -59,7 +70,7 @@ PROFILED = [("sphere", "listed"), ("sphere", "brute"), ("ircad_hd", "listed"), (
 # the closest-hit kernel of each mode, by its name in the profile
 KERNEL_NAME = {"brute": "intersect_closest_kernel", "listed": "intersect_listed_kernel",
                "culled": "intersect_culled_kernel", "staged": "intersect_staged_kernel",
-               "grouped": "intersect_grouped_kernel"}
+               "grouped": "intersect_grouped_kernel", "bvh": "bvh"}
 MEGA_BOUNCES = (0, 5)     # K10 also on these bounces alone
 STRESS_TRIS, STRESS_RAYS = 200_000, 2560
 
@@ -68,6 +79,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=here, help="checkout whose mcray_tpu_torch is timed")
+    parser.add_argument("--only", choices=["all", "k11"], default="all",
+                        help="k11: the K11 section alone")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -82,8 +95,9 @@ def main() -> int:
     from mcray_tpu_torch.models.simulator import Simulator
     from mcray_tpu_torch.ops import clusters, imaging
     from mcray_tpu_torch.ops.bvh import build_bvh
-    from mcray_tpu_torch.ops.cuda import (intersect, intersect_culled, intersect_grouped,
-                                          intersect_listed, intersect_staged, scanconv)
+    from mcray_tpu_torch.ops.cuda import (bvh_intersect, intersect, intersect_culled,
+                                          intersect_grouped, intersect_listed, intersect_staged,
+                                          scanconv)
     from mcray_tpu_torch.ops.geometry import NO_HIT_T
     from mcray_tpu_torch.scene import stress
     from mcray_tpu_torch.scene.compile import load_and_compile
@@ -144,13 +158,77 @@ def main() -> int:
 
     cfg = SimConfig()
     packs, sims, out = {}, {}, {"tree": tree, "gpu": smi, "device_ms": {}, "rays_digest": {}}
-    k10_sets = {}  # K10's argument sets by name
-    for scene, mode in RUNS:
+
+    def pack_of(scene):
         if scene not in packs:
             path, assets = SCENES[scene]
             packs[scene] = load_and_compile(os.path.join(tree, *path),
                                             asset_dir=assets and os.path.join(tree, *assets))
-        sim = sims[scene, mode] = Simulator(packs[scene], cfg, device="cuda", seed=0,
+        return packs[scene]
+
+    def profile_frames(runs):
+        """Each frame timed by events (5) and profiled (3), as ``out["frames"]``."""
+        module = {"brute": intersect, "listed": intersect_listed, "culled": intersect_culled,
+                  "staged": intersect_staged, "grouped": intersect_grouped, "bvh": bvh_intersect}
+        for scene, mode in runs:
+            sim = sims[scene, mode]
+            seeds = iter(range(100, 105))
+            frame_ms = event_ms(lambda: sim.render_frame(seed=next(seeds)), 5)
+            before = module[mode].launches
+            sim.render_frame(seed=7)
+            view = busy_view(lambda: sim.render_frame(seed=7), 3,
+                             expect={KERNEL_NAME[mode]: module[mode].launches - before})
+            med = statistics.median(frame_ms)
+            out.setdefault("frames", {})[f"{scene} {mode}"] = {
+                "median_ms": med, "min_ms": min(frame_ms), "max_ms": max(frame_ms),
+                "busy_ms": view["busy_ms"], "idle_share": 1 - view["busy_ms"] / med,
+                "device_operations": view["operations"],
+                "kernel_ms": sum(v for k, v in view["by_name"].items() if KERNEL_NAME[mode] in k)}
+
+    # K11 on the bvh frames' bounces and on the sphere's batch of 8; then the
+    # bvh frames timed and profiled
+    bvh_sets = {}
+    for scene in ("sphere", "ircad_hd", "mega"):
+        sim = sims[scene, "bvh"] = Simulator(pack_of(scene), cfg, device="cuda", seed=0,
+                                             use_bvh=True)
+        rays = sim.render_frame(seed=0)["segments"]["rays"]
+        bvh_sets[scene] = (sim.bvh, [rays[d].contiguous() for d in range(rays.shape[0])])
+        out["rays_digest"][f"{scene} bvh"] = digest(rays)
+    batch = sims["sphere", "bvh"].render_frames(list(range(8)))["segments"]["rays"]
+    bvh_sets["sphere batch of 8"] = (sims["sphere", "bvh"].bvh,
+                                     [batch[d].contiguous() for d in range(batch.shape[0])])
+    out["rays_digest"]["sphere batch of 8"] = digest(batch)
+    out["k11"] = {}
+    for name, (dbvh, bounces) in bvh_sets.items():
+        entry = out["k11"][name] = {
+            "device_ms": graph_ms(lambda b=dbvh, q=bounces: [bvh_intersect.bvh_best(r, b)
+                                                             for r in q], len(bounces)),
+            "blocks": bvh_intersect.last_blocks}
+        live = tallies = 0
+        slowest = {"launches_ms": 0.0, "alone_ms": 0.0, "nodes": 0}
+        for r in bounces:
+            alive = r[3:6].abs().sum(dim=0) > 0
+            counts = bvh_intersect.bvh_best(r, dbvh, counts=True)[2]
+            tallies = tallies + counts[:, alive].sum(dim=1).double()
+            live += int(alive.sum())
+            if not bool(alive.any()):
+                continue
+            # the launch against its slowest ray (the most nodes) launched alone
+            j = int(counts[0].argmax())
+            one = r[:, j:j + 1].contiguous()
+            slowest["launches_ms"] += graph_ms(lambda q=r: bvh_intersect.bvh_best(q, dbvh), 1)
+            slowest["alone_ms"] += graph_ms(lambda q=one: bvh_intersect.bvh_best(q, dbvh), 1)
+            slowest["nodes"] += int(counts[0, j])
+        entry["nodes_per_live_ray"], entry["tests_per_live_ray"] = (tallies / live).tolist()
+        entry["slowest_ray"] = slowest
+    profile_frames([(scene, "bvh") for scene in ("sphere", "ircad_hd", "mega")])
+    if args.only == "k11":
+        print(json.dumps(out))
+        return 0
+
+    k10_sets = {}  # K10's argument sets by name
+    for scene, mode in RUNS:
+        sim = sims[scene, mode] = Simulator(pack_of(scene), cfg, device="cuda", seed=0,
                                             intersect_mode=mode)
         rays = sim.render_frame(seed=0)["segments"]["rays"]
         calls = kernel_calls(sim, rays)
@@ -211,23 +289,7 @@ def main() -> int:
     out["device_ms"]["scanconv_bwd_fine"] = graph_ms(
         lambda: scanconv.scan_convert_backward(g_fine, fine_maps), 1)
 
-    out["frames"] = {}
-    module = {"brute": intersect, "listed": intersect_listed, "culled": intersect_culled,
-              "staged": intersect_staged, "grouped": intersect_grouped}
-    for scene, mode in PROFILED:
-        sim = sims[scene, mode]
-        seeds = iter(range(100, 105))
-        frame_ms = event_ms(lambda: sim.render_frame(seed=next(seeds)), 5)
-        before = module[mode].launches
-        sim.render_frame(seed=7)
-        view = busy_view(lambda: sim.render_frame(seed=7), 3,
-                         expect={KERNEL_NAME[mode]: module[mode].launches - before})
-        med = statistics.median(frame_ms)
-        out["frames"][f"{scene} {mode}"] = {
-            "median_ms": med, "min_ms": min(frame_ms), "max_ms": max(frame_ms),
-            "busy_ms": view["busy_ms"], "idle_share": 1 - view["busy_ms"] / med,
-            "device_operations": view["operations"],
-            "kernel_ms": sum(v for k, v in view["by_name"].items() if KERNEL_NAME[mode] in k)}
+    profile_frames(PROFILED)
     print(json.dumps(out))
     return 0
 

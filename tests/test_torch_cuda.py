@@ -21,8 +21,9 @@ CSR lists summed in order on the host and at 1e-5 / 1e-6 against the
 scatter-add plain version, and a whole fit step's loss and material
 gradient against the CPU plain path. K10 is held per ray (t and slot
 bitwise) against ``grouped_winners_plain``. K11 (the BVH traversal) is held
-bitwise to its plain version (t, winner, node and test counts) and to K1 (t,
-winner) at edge shapes, and its sphere frame to the brute frame; one pose fd step on
+bitwise to its plain version (t, winner, node and test counts of the 4-wide
+walk) and to the binary walk and K1 (t, winner) at edge shapes, ray counts
+that fill no block and 20,480 rays, and its sphere frame to the brute frame; one pose fd step on
 the card against the CPU (point losses rtol 1e-4, gradient 1e-3 of its
 largest entry, pose 1e-5); ``serve``'s drain waits on the drained frame's
 event and nothing else. The frame axis: K3, K4 and K9 over 3 frames that
@@ -659,29 +660,38 @@ def _bvh_case(n_rays: int, n_tris: int, dead: bool = False):
 
 @pytest.mark.parametrize("n_rays,n_tris,dead", [(1, 700, False), (1000, 0, False),
                                                 (300, 3, False), (500, 700, True),
-                                                (2560, 2220, False)],
-                         ids=["1 ray", "no triangle", "leaf only", "all dead", "2560 x 2220"])
+                                                (2560, 2220, False), (1001, 700, False),
+                                                (17, 2220, False), (20480, 2220, False)],
+                         ids=["1 ray", "no triangle", "leaf only", "all dead", "2560 x 2220",
+                              "1001 rays", "17 rays", "20480 x 2220"])
 def test_bvh_kernel_matches_plain_bitwise(cuda, n_rays, n_tris, dead):
-    """K11 against its plain version: t, winner and the per-ray node and
-    test counts bitwise; t and winner against K1 bitwise."""
+    """K11 against its plain version: t, winner and the per-ray node and test
+    counts of the 4-wide walk bitwise; t and winner against the binary walk
+    and against K1 bitwise. 1,001 and 17 rays fill no 16-ray block."""
     rays, device_bvh = _bvh_case(n_rays, n_tris, dead)
     before = bvh_intersect.launches
     t_k, j_k, c_k = bvh_intersect.bvh_best(rays, device_bvh, counts=True)
+    torch.cuda.synchronize()
     assert bvh_intersect.launches == before + 1
-    t_p, j_p, c_p = bvh.bvh_best_plain(rays, device_bvh, counts=True)
+    assert bvh_intersect.last_blocks == -(-n_rays // 16)
+    t_p, j_p, c_p = bvh.bvh4_best_plain(rays, device_bvh, counts=True)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
     assert torch.equal(j_k, j_p) and torch.equal(c_k, c_p)
+    t_b, j_b = bvh.bvh_best_plain(rays, device_bvh)
+    assert torch.equal(t_k.view(torch.int32), t_b.view(torch.int32)) and torch.equal(j_k, j_b)
     # K1 on the scene's triangles in their own order: the same (t, index)
     scene_soa = torch.empty_like(device_bvh.tri_soa)
     scene_soa[:, device_bvh.tri_order.long()] = device_bvh.tri_soa
     t_1, i_1 = intersect.intersect_best(rays, scene_soa)
     assert torch.equal(t_k, t_1) and torch.equal(j_k, i_1)
+    assert torch.equal(bvh_intersect.bvh_best(rays, device_bvh)[0], t_k)  # without counts
     if dead or not n_tris:
         assert bool((t_k == geometry.NO_HIT_T).all()) and bool((j_k == 0).all())
+        assert not bool(c_k.any())  # a dead ray visits nothing
     if n_tris == 3:
-        assert device_bvh.nodes.shape[0] == 1
-    if n_rays == 2560:
-        assert int((t_k < 1.5).sum()) > 600
+        assert device_bvh.nodes.shape[0] == 1 and device_bvh.nodes4.shape[0] == 1
+    if n_rays >= 2560:
+        assert int((t_k < 1.5).sum()) > n_rays // 4
 
 
 def test_bvh_frame_on_the_card_equals_the_brute_frame(cuda):
