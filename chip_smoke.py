@@ -86,11 +86,13 @@ texture): K2 bitwise with bitsum normals, Box–Muller's gate flips counted
 and bounded. The modes the reference runs outside its kernels (centered
 PSF, Hilbert envelope, soft row binning, table texture) render a frame on
 the card against the CPU path.
-Frames, fit steps, stages and kernels (beside their plain versions and,
+Frames, fit steps and kernels (beside their plain versions and,
 where one PyTorch call computes the same function, beside that call) are
 timed with CUDA events; each kernel's bound (the least time the card could
 take: bytes over 3.35 TB/s or operations over 67 TFLOP/s of plain f32,
-whichever is larger) is computed from the run's own inputs. All ten
+whichever is larger) is computed from the run's own inputs by
+``mcray_tpu_torch/utils/roofline.py``, and every time is taken by
+``mcray_tpu_torch/utils/benchmarking.py``. All ten
 kernels are also timed replayed from a CUDA graph (the
 kernels back to back, without the host's time to launch each), K1 on the
 sphere brute and ircad_hd bounces, K5 on each of its ray sets, K6 and K7 on
@@ -102,7 +104,13 @@ Box–Muller modes, K4 and K9 beside their library calls, and beside the time
 of one launch of the library's cheapest call; the grids of K1, K3, K4, K5,
 K6, K7, K9, K10 and K11 are read back and must fill half the card. The sphere
 brute frame, the ircad_hd frames (listed, culled, staged) and the three
-bvh frames are profiled as the sphere's and the mega scene's are.
+bvh frames are profiled as the sphere's and the mega scene's are. The
+``[roofline]`` phase prints the stage table (``roofline.stage_table``: each
+of draws, trace, march, postproc and scan conversion timed alone by the
+profiler's busy ms against the floor of the work its function needs) of the
+sphere frame, the sphere batch of 8, and the ircad_hd listed, mega listed
+and mega bvh frames, beside the card's name and power limit; the mega listed
+and mega bvh frames' trace floors must be equal.
 
 The last lines are the kernel record ({"kernels": [...]}; each entry's
 ``sharded_launches`` gives its launches per sharded frame in each imaging
@@ -129,7 +137,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from device_timing import busy_view, cuda_ms, event_ms, graph_ms, grid_sample_remap, nvidia_smi
 from mcray_tpu_torch import cli
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models import simulator
@@ -147,7 +154,9 @@ from mcray_tpu_torch.parallel.shard import (ShardedRenderer, ShardedRenderer2D, 
                                             make_mesh_2d)
 from mcray_tpu_torch.scene import stress
 from mcray_tpu_torch.scene.compile import load_and_compile
-from mcray_tpu_torch.utils import rng
+from mcray_tpu_torch.utils import rng, roofline
+from mcray_tpu_torch.utils.benchmarking import (busy_view, cuda_ms, event_ms, graph_ms,
+                                               grid_sample_remap, nvidia_smi)
 from mcray_tpu_torch.utils.native import get_native
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -218,20 +227,14 @@ BATCH_SEEDS = tuple(range(8))
 BATCH_FIT_FRAMES, BATCH_TIMED = 4, 10
 FIT_BATCH_GRAD_TOL = 1e-5
 SWEEP_FRAMES = 3
+# the stage tables (roofline.stage_table): label -> (the frame's Simulator, its seeds, the
+# [bvh] ray set whose reference walks its trace floor reads where they are of its rays)
+ROOFLINE_FRAMES = {"sphere": ("sphere", (0,), "sphere"),
+                   "sphere batch of 8": ("sphere", BATCH_SEEDS, "batch"),
+                   "ircad_hd listed": ("ircad_hd", (0,), "ircad_hd"),
+                   "mega listed": ("mega listed", (0,), "mega"),
+                   "mega bvh": ("mega bvh", (0,), "mega")}
 
-# the card's published peaks (H100 SXM data sheet): device memory and plain
-# f32 outside the tensor cores, which is what every kernel here computes in
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-# operation counts per unit of work, from the formulas in the sources
-OPS_MOLLER_TRUMBORE = 50          # per ray-triangle test (2 cross, 4 dot, 1 div, compares)
-OPS_HASH_PAIR = 40                # two lowbias32 hashes + two bitsum normals of one voxel
-OPS_MARCH_STEP = {False: OPS_HASH_PAIR + 30,            # nearest: index, gate, exp, accumulate
-                  True: 8 * (OPS_HASH_PAIR + 12) + 60}   # trilinear: 8 corners + weights
-OPS_MARCH_BWD_STEP = {False: OPS_HASH_PAIR + 60, True: 8 * (OPS_HASH_PAIR + 36) + 120}
-OPS_POSTPROC_CELL = 2 * (7 + 13) + 10   # the two tap sums + the envelope lerp
-OPS_SCANCONV_PIXEL = 11                 # 4 weight products, 4 multiplies, 3 adds
-OPS_SLAB_NODE = 26                      # per node popped: 6 sub, 6 mul, 10 min/max, 4 compares
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "intersect": ("mcray_tpu_torch/csrc/intersect.cu", "mcray_tpu/ops/pallas/intersect.py:41"),
     "intersect_listed": ("mcray_tpu_torch/csrc/intersect_listed.cu",
@@ -538,93 +541,12 @@ def time_frames(name: str, sim, n: int) -> float:
     return med
 
 
-def time_stages(name: str, sim, out) -> dict[str, float]:
-    cfg = sim.cfg
-    draws = sim.draws(0)
-    args = (draws, sim.materials, sim.position, sim.angles, sim.scene, sim.spacing,
-            sim.starting_material, cfg)
-    stage_ms = {
-        "trace": cuda_ms(lambda: simulator.trace_paths(*args, **sim.trace_kw), 5),
-        "march": cuda_ms(lambda: march.march_cuda(
-            march.pack_segments(out["segments"], sim.materials, cfg, cfg.rf_cols),
-            sim.seeds, cfg, cfg.rf_cols), 10),
-        "postproc": cuda_ms(lambda: postproc.postproc_cuda(out["rf_raw"], cfg), 20),
-        "scanconv": cuda_ms(lambda: scanconv.scan_convert_cuda(out["rf_env"], sim.scan_maps), 20),
-    }
-    print(f"  {name} stages (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
-          + " (march includes pack_segments)")
-    return stage_ms
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """(bound_ms, bound_by): the larger of bytes over the card's memory rate
-    and operations over its plain-f32 rate."""
-    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-def brute_bound(bounce_rays, tri_soa) -> tuple[float, str]:
-    """K1 per launch, mean over the bounces: every live ray (a parked dead
-    ray has a zero segment and needs no test) against every triangle."""
-    n_b = n_o = 0
-    for rays in bounce_rays:
-        live = int((rays[3:6].abs().sum(dim=0) > 0).sum())
-        n_b += nbytes(rays, tri_soa) + 8 * rays.shape[1]
-        n_o += live * tri_soa.shape[1] * OPS_MOLLER_TRUMBORE
-    return bound(n_b / len(bounce_rays), n_o / len(bounce_rays))
-
-
-def cluster_bound(sim, calls) -> tuple[float, str]:
-    """A cluster kernel per launch, mean over the bounces, for this run's
-    rays: each live ray tested against the triangles of every cluster whose
-    box it enters before its own final t (no closest hit in slot order can
-    skip one of those); rows v0/e1/e2 and the box of every cluster some ray
-    needs read once, the rays (and K5's lists) read once, t and slot
-    written once."""
+def cluster_bound(sim, calls) -> roofline.Bound:
+    """``roofline.cluster_bound`` of a cluster kernel's launches on ``sim``'s
+    clusters: each launch's padded rays, its final t and K5's lists."""
     packed, mode = sim.culled_tris
-    n_b = n_o = 0
-    for kernel, _, args in calls:
-        padded = args[0]
-        best_t, _ = kernel(*args)
-        o, s = padded[0:3].T, padded[3:6].T
-        live = s.abs().sum(dim=1) > 0
-        need = clusters.box_active(o[live][None], clusters.inverse_dirs(s[live])[None],
-                                   packed.aabb_cluster, best_t[live][None])  # (clusters, rays)
-        n_o += int(need.sum()) * packed.tile_t * OPS_MOLLER_TRUMBORE
-        n_b += (nbytes(padded) + 8 * padded.shape[1]
-                + int(need.any(dim=1).sum()) * (9 * packed.tile_t + 8) * 4)
-        if mode == "listed":
-            n_b += nbytes(*args[1:4])
-    return bound(n_b / len(calls), n_o / len(calls))
-
-
-def grouped_bound(calls) -> tuple[float, str]:
-    """K10 per launch, mean over the given calls, for this run's tables:
-    every (ray, cluster) incidence in a table tested against the cluster's
-    triangles; rows v0/e1/e2 of each cluster that holds a ray read once, the
-    rays, the counts and the used table slots read once, and each ray's
-    winner, (t, slot), written once."""
-    n_b = n_o = 0
-    for _, _, (padded, ray_ids, counts, packed) in calls:
-        in_table = int(counts.sum())
-        n_o += in_table * packed.tile_t * OPS_MOLLER_TRUMBORE
-        n_b += (nbytes(padded, counts) + 4 * in_table + 8 * padded.shape[1]
-                + int((counts > 0).sum()) * 9 * packed.tile_t * 4)
-    return bound(n_b / len(calls), n_o / len(calls))
-
-
-def matched_steps(soa: torch.Tensor, cfg, n_cols: int) -> int:
-    """March steps of this SoA that land inside the time window: the work
-    the march kernels need for these segments."""
-    t0, steps = soa[:, march.F_T0, :n_cols], soa[:, march.F_STEPS, :n_cols]
-    valid = soa[:, march.F_VALID, :n_cols] > 0.5
-    in_window = torch.ceil((float(cfg.max_travel_time_us) - t0) / cfg.march_dt_us).clamp(min=0.0)
-    return int((torch.minimum(steps, in_window) * valid).sum())
+    return roofline.cluster_bound(packed, [(a[0], k(*a)[0], a[1:4] if mode == "listed" else ())
+                                           for k, _, a in calls])
 
 
 def check_march_bwd(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -671,7 +593,7 @@ def device_view(label: str, fn, unit_ms: float, n: int = 3, top: int = 8,
     the unprofiled median ``unit_ms``, device operations per call and the
     largest kernels; ``expect`` as ``busy_view`` takes it (the launches a call
     makes by kernel name, for a window that lost none). Returns
-    ``device_timing.busy_view``'s busy ms, operations and ms by kernel name,
+    ``benchmarking.busy_view``'s busy ms, operations and ms by kernel name,
     per call."""
     view = busy_view(fn, n, expect=expect)
     busy_ms = view["busy_ms"]
@@ -822,7 +744,7 @@ def time_grouped_query(label: str, o, s, packed, tile_r: int) -> dict:
         o, s, packed, residual_tile_r=tile_r), 5)
     whole_l = cuda_ms(lambda: intersect_listed.intersect_closest_listed(
         o, s, packed, tile_r=tile_r), 5)
-    b_ms, b_by = grouped_bound([(None, None, g_args)])
+    b_ms, b_by = roofline.grouped_bound([g_args])
     lists = int(l_args[1].sum())
     print(f"  {label}: {stats['live']} live rays, {stats['per_ray']:.2f} clusters per ray "
           f"({stats['incidences']} incidences, {stats['in_table']} in the tables of "
@@ -1318,23 +1240,25 @@ def bvh_compare(dbvh, rays, tri_soa) -> tuple[dict, tuple]:
     return diff, (c_b, c_p, touched)
 
 
-def check_bvh(sims, outs, tri_soa, batch_rays) -> dict:
+def check_bvh(sims, outs, tri_soa, batch_rays) -> tuple[dict, dict]:
     """K11 at every bounce of the sphere, ircad_hd and mega bvh frames and of
     the sphere's bvh batch of 8 (``bvh_compare``), each bvh frame bitwise its
-    brute frame (K1). Returns, by ray set, each bounce's rays with the binary
-    and the 4-wide walk's counts and the binary walk's touched masks."""
+    brute frame (K1). Returns, by ray set, the binary walk of each bounce
+    (``roofline.reference_walks``' form: its rays, counts and touched masks),
+    and the 4-wide walk's counts of each bounce."""
     sets = {scene: (sims[f"{scene} bvh"].bvh, outs[f"{scene} bvh"]["segments"]["rays"],
                     tri_soa[scene]) for scene in BVH_SCENES}
     sets["batch"] = (sims["sphere bvh"].bvh, batch_rays, tri_soa["sphere"])
-    calls, failed = {}, []
+    walks, four_wide, failed = {}, {}, []
     for name, (dbvh, rays, soa) in sets.items():
         diff = {"plain": 0, "binary": 0, "k1": 0}
-        calls[name] = []
+        walks[name], four_wide[name] = [], []
         for d in range(rays.shape[0]):
             q = rays[d].contiguous()
             got, (c_b, c_p, touched) = bvh_compare(dbvh, q, soa)
             diff = {k: diff[k] + got[k] for k in diff}
-            calls[name].append((q, c_b, c_p, touched))
+            walks[name].append((q, c_b, touched))
+            four_wide[name].append(c_p)
         print(f"[bvh] bvh_intersect, {name} ({q.shape[1]} rays x {rays.shape[0]} bounces, 4-wide "
               f"depth {dbvh.depth}, stack need {dbvh.stack_need}): {diff['plain']} differing (t, "
               f"winner, counts) vs its plain version, {diff['binary']} (t, winner) vs the binary "
@@ -1352,39 +1276,14 @@ def check_bvh(sims, outs, tri_soa, batch_rays) -> dict:
     if failed:
         raise AssertionError(f"bvh_intersect disagrees with its plain version, the binary walk or "
                              f"K1, or a bvh frame with its brute frame: {failed}")
-    return calls
+    return walks, four_wide
 
 
-def bvh_bound(calls, device_bvh) -> tuple[float, str]:
-    """K11 per launch, mean over the bounces, for this run's rays: the work of
-    the reference walk (``bvh_best_plain``), whatever walk the kernel takes:
-    every node it pops (its slab test) and every triangle it tests, by its
-    counts; the rays read once, (t, winner) written once, and once each the
-    distinct flat nodes (box, meta) and triangles (v0, e1, e2, scene index)
-    that the launch's rays touch, by its masks."""
-    node_bytes = nbytes(device_bvh.nodes[0], device_bvh.meta[0])
-    tri_bytes = nbytes(device_bvh.tri_soa[:, 0], device_bvh.tri_order[0])
-    n_b = n_o = 0
-    for rays, ref_counts, _, (seen_nodes, seen_tris) in calls:
-        n_b += (nbytes(rays) + 8 * rays.shape[1] + int(seen_nodes.sum()) * node_bytes
-                + int(seen_tris.sum()) * tri_bytes)
-        n_o += (int(ref_counts[0].sum()) * OPS_SLAB_NODE
-                + int(ref_counts[1].sum()) * OPS_MOLLER_TRUMBORE)
-    return bound(n_b / len(calls), n_o / len(calls))
-
-
-def bvh_touched(calls) -> dict[str, float]:
-    """The distinct flat nodes and triangles a launch's rays touch in the
-    reference walk, mean over the bounces."""
-    nodes = sum(int(seen[0].sum()) for *_, seen in calls) / len(calls)
-    tris = sum(int(seen[1].sum()) for *_, seen in calls) / len(calls)
-    return {"nodes": nodes, "triangles": tris}
-
-
-def walk_means(calls) -> dict[str, float]:
-    """Nodes and triangles per live ray of the binary walk and the 4-wide walk."""
+def walk_means(walks, four_wide) -> dict[str, float]:
+    """Nodes and triangles per live ray of the binary walk (``walks``) and the
+    4-wide walk (its (2, N) counts a bounce)."""
     live = ref = four = 0
-    for rays, ref_counts, counts, _ in calls:
+    for (rays, ref_counts, _), counts in zip(walks, four_wide):
         alive = rays[3:6].abs().sum(dim=0) > 0
         live += int(alive.sum())
         ref = ref + ref_counts[:, alive].sum(dim=1).double()
@@ -1392,6 +1291,42 @@ def walk_means(calls) -> dict[str, float]:
     (r_nodes, r_tests), (f_nodes, f_tests) = (ref / live).tolist(), (four / live).tolist()
     return {"live_rays": live, "binary_pops": r_nodes, "binary_tests": r_tests,
             "four_wide_nodes": f_nodes, "four_wide_tests": f_tests}
+
+
+def roofline_phase(sims, outs, walks, smi: str) -> dict:
+    """The stage table of each of ROOFLINE_FRAMES beside the card's name and
+    power limit: each stage's busy ms against its floor
+    (``roofline.frame_costs``), the frame's busy ms, median, idle share and
+    device operations. The trace floor reads the ``[bvh]`` phase's reference
+    walks where they are of the frame's rays, else it walks them: for a
+    single frame (seed 0, the ``[path]`` frames' seed) the path-bounces whose
+    rays differ from those walks' are counted (the cluster kernels break an
+    equal-t tie by cluster slot, K1 and K11 by triangle index, so a listed
+    frame can send a path on from another triangle). The mega listed frame
+    must trace the mega bvh frame's rays, and so have its trace floor."""
+    tables, differing = {}, {}
+    for label, (name, seeds, ray_set) in ROOFLINE_FRAMES.items():
+        t0 = time.perf_counter()
+        bvh_sim = sims["sphere bvh" if ray_set == "batch" else f"{ray_set} bvh"]
+        tables[label] = roofline.stage_table(sims[name], seeds, walks[ray_set], bvh_sim.bvh)
+        print("[roofline] " + roofline.to_markdown(tables[label], f"{label}; {smi}"))
+        note = "of the [bvh] phase" if tables[label]["walks_reused"] else "walked here"
+        if len(seeds) == 1:
+            rays = outs[name]["segments"]["rays"]
+            differing[label] = sum(int((w[0] != rays[d]).any(dim=0).sum())
+                                   for d, w in enumerate(walks[ray_set]))
+            note += (f"; {differing[label]} of {rays.shape[0] * rays.shape[2]} path-bounces' rays "
+                     f"differ from the [bvh] phase's {ray_set} frame")
+        print(f"  {time.perf_counter() - t0:.1f} s; the reference walks {note}")
+    floors = {label: next((r["n_ops"], r["n_bytes"]) for r in tables[label]["stages"]
+                          if r["stage"] == "trace") for label in ("mega listed", "mega bvh")}
+    print(f"[roofline] trace floor (operations, bytes): mega listed {floors['mega listed']}, "
+          f"mega bvh {floors['mega bvh']}")
+    if differing["mega listed"] or floors["mega listed"] != floors["mega bvh"]:
+        raise AssertionError("the mega listed frame does not trace the mega bvh frame's rays, or "
+                             "their trace floors differ")
+    print("[roofline] summary: " + json.dumps(tables))
+    return tables
 
 
 def nonzero(counts: dict[str, int]) -> dict[str, int]:
@@ -1642,25 +1577,20 @@ def batch_phase(pack, sim, fit, smi: str) -> dict:
     g_rf = torch.randn((cfg.rf_rows, fit_cols), device="cuda", generator=gen)
     g_bm = torch.randn((BATCH_FIT_FRAMES, cfg.bmode_rows, cfg.bmode_cols), device="cuda",
                        generator=gen)
-    n_rf, n_bm = cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols
-    steps = matched_steps(out["soa"], cfg, n_cols)
-    fit_steps = matched_steps(fit_soa, fit["cfg"], fit_cols)
     fns = {
         "intersect_listed": (lambda: [k(*a) for k, _, a in calls], cfg.max_depth,
                              cluster_bound(sim, calls)),
         "march": (lambda: march.march_forward(out["soa"], sim.seeds, cfg, n_cols), 1,
-                  bound(nbytes(out["soa"]) + 4 * n * n_rf, steps * OPS_MARCH_STEP[False])),
+                  roofline.march_cost(out["soa"], cfg, n_cols).floor()),
         "postproc": (lambda: postproc.postproc_forward(out["rf_raw"], cfg), 1,
-                     bound(2 * 4 * n * n_rf, n * n_rf * OPS_POSTPROC_CELL)),
+                     roofline.postproc_cost(cfg, n).floor()),
         "scanconv": (lambda: scanconv.scan_convert_forward(out["rf_env"], maps), 1,
-                     bound(4 * n * n_rf + 2 * 4 * n_bm + 4 * n * n_bm,
-                           n * n_bm * OPS_SCANCONV_PIXEL)),
+                     roofline.scanconv_cost(cfg, n).floor()),
         "march_bwd": (lambda: march.march_backward(fit_soa, fit_sim.seeds, g_rf, fit["cfg"]), 1,
-                      bound(2 * nbytes(fit_soa) + 4 * BATCH_FIT_FRAMES * n_rf,
-                            fit_steps * OPS_MARCH_BWD_STEP[True])),
+                      roofline.march_bwd_cost(fit_soa, fit["cfg"], fit_cols).floor()),
         "scanconv_bwd": (lambda: scanconv.scan_convert_backward(g_bm, maps), 1,
-                         bound(4 * BATCH_FIT_FRAMES * (n_bm + n_rf) + 2 * 4 * n_bm,
-                               2 * BATCH_FIT_FRAMES * maps.pixel.numel())),
+                         roofline.scanconv_bwd_cost(cfg, maps.pixel.numel(),
+                                                    BATCH_FIT_FRAMES).floor()),
     }
     kernel_numbers = {}
     for name, (fn, per_call, (b_ms, b_by)) in fns.items():
@@ -1679,8 +1609,8 @@ def batch_phase(pack, sim, fit, smi: str) -> dict:
     wide = march.march_forward(out["soa"], sim.seeds, cfg, n_cols)
     copy_ms = graph_ms(
         lambda: wide.reshape(cfg.rf_rows, n, cfg.rf_cols).transpose(0, 1).contiguous(), 1)
-    result["layout_copy"] = {"device_ms": copy_ms, "bound_ms": bound(2 * nbytes(wide), 0)[0]}
-    print(f"  the wide image's permuted copy to (B, rows, E), {nbytes(wide)} bytes: device "
+    result["layout_copy"] = {"device_ms": copy_ms, "bound_ms": roofline.copy_bound(wide)[0]}
+    print(f"  the wide image's permuted copy to (B, rows, E), {roofline.nbytes(wide)} bytes: device "
           f"{copy_ms:.5f} ms, bound {result['layout_copy']['bound_ms']:.5f} ms by bytes")
     # K3, K4 and K9 with the frame axis against their plain versions on these frames
     k3 = postproc.postproc_forward(out["rf_raw"], cfg)
@@ -1924,7 +1854,7 @@ def main() -> int:
         [outs["ircad_hd"]["segments"]["rays"][d].contiguous() for d in range(cfg.max_depth)],
         tri_soa["ircad_hd"])
     k1_edges = check_k1_edges()
-    bvh_calls = check_bvh(sims, outs, tri_soa, bvh_batch["rays"])
+    bvh_walks, bvh_four_wide = check_bvh(sims, outs, tri_soa, bvh_batch["rays"])
     errs["bvh_intersect"] = 0.0
     cluster_calls = {}
     for name in ("sphere", "ircad_hd", "sphere culled", "ircad_hd culled", "sphere staged",
@@ -2034,8 +1964,6 @@ def main() -> int:
     # 5. timing (CUDA events, after the warm-up above)
     print(f"[timing] {smi}")
     frame_ms = {name: time_frames(name, sims[name], n) for name, n in TIMED_FRAMES.items()}
-    for name in ("sphere", "ircad_hd", "mega listed", "mega grouped"):
-        time_stages(name, sims[name], outs[name])
     views = {name: device_view(f"{name} frame", lambda sim=sims[name]: sim.render_frame(seed=7),
                                frame_ms[name], expect={"bvh4": cfg.max_depth}
                                if sims[name].bvh is not None else None)
@@ -2091,7 +2019,7 @@ def main() -> int:
             lambda: scanconv.scan_convert_bwd_plain(g_bm, maps.table, cfg.rf_rows, cfg.rf_cols)),
     })
     bvh_sets = {name: (sims["sphere bvh" if name == "batch" else f"{name} bvh"].bvh,
-                       [r for r, *_ in calls]) for name, calls in bvh_calls.items()}
+                       [r for r, *_ in walks]) for name, walks in bvh_walks.items()}
     for scene in ("sphere", "ircad_hd"):
         dbvh, rays = bvh_sets[scene]
         timed[scene]["bvh_intersect"] = (
@@ -2207,9 +2135,9 @@ def main() -> int:
         k11["device_ms"][name] = graph_ms(
             lambda b=dbvh, q=rays: [bvh_intersect.bvh_best(r, b) for r in q], cfg.max_depth)
         k11["blocks"][name] = bvh_intersect.last_blocks
-        k11["bound"][name] = bvh_bound(bvh_calls[name], dbvh)
-        k11["walks"][name] = walk_means(bvh_calls[name])
-        k11["touched"][name] = bvh_touched(bvh_calls[name])
+        k11["bound"][name] = roofline.bvh_bound(bvh_walks[name], dbvh)
+        k11["walks"][name] = walk_means(bvh_walks[name], bvh_four_wide[name])
+        k11["touched"][name] = roofline.bvh_touched(bvh_walks[name])
         (b_ms, b_by), walks = k11["bound"][name], k11["walks"][name]
         print(f"  device ms per launch (graph replay): bvh_intersect {name} "
               f"{k11['device_ms'][name]:.5f} ({k11['blocks'][name]} blocks), bound {b_ms:.5f} ms "
@@ -2277,39 +2205,37 @@ def main() -> int:
 
     mark("kernel timing")
     # the least time the card could take for each kernel's work on this run's inputs
-    n_rf, n_bm = cfg.rf_rows * cfg.rf_cols, cfg.bmode_rows * cfg.bmode_cols
-    steps_frame, steps_fit = matched_steps(soa, cfg, cfg.rf_cols), matched_steps(
-        fit_soa, fit_cfg, cfg.rf_cols)
+    n_bm = cfg.bmode_rows * cfg.bmode_cols
+    steps_frame, steps_fit = (roofline.matched_steps(soa, cfg, cfg.rf_cols),
+                              roofline.matched_steps(fit_soa, fit_cfg, cfg.rf_cols))
     ircad_rays = outs["ircad_hd"]["segments"]["rays"]
     ircad_bounds = {
-        "intersect": brute_bound([ircad_rays[d].contiguous() for d in range(cfg.max_depth)],
-                                 tri_soa["ircad_hd"]),
+        "intersect": roofline.brute_bound(
+            [ircad_rays[d].contiguous() for d in range(cfg.max_depth)], tri_soa["ircad_hd"]),
         **{CLUSTER_KERNEL[sims[name].culled_tris[1]]: cluster_bound(sims[name], cluster_calls[name])
            for name in ("ircad_hd", "ircad_hd culled", "ircad_hd staged")},
         "bvh_intersect": k11["bound"]["ircad_hd"]}
     bounds = {
-        "intersect": brute_bound([brute_rays[d].contiguous() for d in range(cfg.max_depth)],
-                                 tri_soa["sphere"]),
+        "intersect": roofline.brute_bound(
+            [brute_rays[d].contiguous() for d in range(cfg.max_depth)], tri_soa["sphere"]),
         "intersect_listed": cluster_bound(sims["sphere"], cluster_calls["sphere"]),
         "intersect_culled": cluster_bound(sims["sphere culled"], cluster_calls["sphere culled"]),
         "intersect_staged": cluster_bound(sims["sphere staged"], cluster_calls["sphere staged"]),
-        "intersect_grouped": grouped_bound(mega_calls),
-        "march": bound(nbytes(soa) + 4 * n_rf, steps_frame * OPS_MARCH_STEP[False]),
-        "march soft+trilinear": bound(nbytes(fit_soa) + 4 * n_rf,
-                                      steps_fit * OPS_MARCH_STEP[True]),
-        "march_bwd": bound(2 * nbytes(fit_soa) + 4 * n_rf, steps_fit * OPS_MARCH_BWD_STEP[True]),
-        "postproc": bound(2 * 4 * n_rf, n_rf * OPS_POSTPROC_CELL),
-        # the remap and its transpose are functions of one image and the two
-        # f32 coordinate maps (out_rows, out_cols); the packed table and the CSR
-        # lists the kernels read are the port's own, larger, representations
-        "scanconv": bound(4 * n_rf + 2 * 4 * n_bm + 4 * n_bm, n_bm * OPS_SCANCONV_PIXEL),
-        "scanconv_bwd": bound(4 * n_bm + 2 * 4 * n_bm + 4 * n_rf, 2 * maps.pixel.numel()),
+        "intersect_grouped": roofline.grouped_bound([a for _, _, a in mega_calls]),
+        "march": roofline.march_cost(soa, cfg, cfg.rf_cols).floor(),
+        "march soft+trilinear": roofline.march_cost(fit_soa, fit_cfg, cfg.rf_cols).floor(),
+        "march_bwd": roofline.march_bwd_cost(fit_soa, fit_cfg, cfg.rf_cols).floor(),
+        "postproc": roofline.postproc_cost(cfg).floor(),
+        "scanconv": roofline.scanconv_cost(cfg).floor(),
+        "scanconv_bwd": roofline.scanconv_bwd_cost(cfg, maps.pixel.numel()).floor(),
         "bvh_intersect": k11["bound"]["sphere"],
     }
     print(f"  march steps inside the window: frame {steps_frame}, fit frame {steps_fit}; "
           f"transposed remap taps {maps.pixel.numel()}; bytes the scan kernels read beyond their "
-          f"bound's: K4's maps {nbytes(maps.coords) - 2 * 4 * n_bm}, K9's CSR lists "
-          f"{nbytes(maps.row_ptr, maps.pixel, maps.weight) - 2 * 4 * n_bm}")
+          f"bound's: K4's maps {roofline.nbytes(maps.coords) - 2 * 4 * n_bm}, K9's CSR lists "
+          f"{roofline.nbytes(maps.row_ptr, maps.pixel, maps.weight) - 2 * 4 * n_bm}")
+    roofline_phase(sims, outs, bvh_walks, smi)
+    mark("roofline")
 
     path_of = {"intersect": "sphere brute", "intersect_listed": "sphere",
                "intersect_culled": "sphere culled", "intersect_staged": "sphere staged",
@@ -2393,7 +2319,8 @@ def main() -> int:
             entry["batch"] = batch["kernels"][name]
         record.append(entry)
         print(f"  {name}: {k_ms:.4f} ms, bound {bounds[name][0]:.5f} ms by {bounds[name][1]} "
-              f"({bounds[name][0] / k_ms:.1%} of the kernel's time)")
+              f"({bounds[name][0] / k_ms:.1%} of the kernel's time; {bounds[name].n_bytes:.1f} "
+              f"bytes, {bounds[name].n_ops:.1f} operations)")
 
     print("[shard] summary: " + json.dumps({k: v for k, v in shard.items() if k != "launches"}))
     print("[batch] summary: " + json.dumps(

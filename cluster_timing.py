@@ -7,8 +7,8 @@ Imports ``mcray_tpu_torch`` from DIR (default: the directory of this
 script), so one copy of the script times two checkouts in turns: run it
 alternately with ``--tree`` of each, one process per run. The times
 and the profile are taken as ``chip_smoke.py`` takes them, by
-``device_timing.py`` beside this script. At ``SimConfig()``
-widths it renders seed 0 of the sphere and the ircad_hd frames in listed
+``mcray_tpu_torch/utils/benchmarking.py`` of this script's checkout. At
+``SimConfig()`` widths it renders seed 0 of the sphere and the ircad_hd frames in listed
 (K5), culled (K6) and staged (K7) mode and of the mega frame in listed and
 grouped (K10) mode, takes each frame's ten bounces of rays, and times the
 frame's closest-hit kernel on them replayed from a CUDA graph (the launches
@@ -48,13 +48,29 @@ Needs the card; without one it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
 import sys
 
-from device_timing import (busy_view, cold_graph_ms, event_ms, graph_ms, grid_sample_remap,
-                           nvidia_smi)
+
+def _own_benchmarking():
+    """This checkout's ``mcray_tpu_torch/utils/benchmarking.py``, loaded by its
+    path: every ``--tree`` is timed by this one copy, and importing the package
+    here would bind ``mcray_tpu_torch`` to this checkout instead of the tree's."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mcray_tpu_torch", "utils",
+                        "benchmarking.py")
+    spec = importlib.util.spec_from_file_location("benchmarking", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_timing = _own_benchmarking()
+busy_view, cold_graph_ms, event_ms = _timing.busy_view, _timing.cold_graph_ms, _timing.event_ms
+graph_ms, grid_sample_remap, nvidia_smi = (_timing.graph_ms, _timing.grid_sample_remap,
+                                           _timing.nvidia_smi)
 
 SCENES = {  # name: (scene file, directory its meshes are generated into)
     "sphere": (("assets", "sphere", "sphere.scene"), None),

@@ -7,8 +7,8 @@ Imports ``mcray_tpu_torch`` from DIR (default: the directory of this
 script), so one copy of the script times two checkouts in turns: run it
 alternately with ``--tree`` of each, one process per run. The times
 and the profile are taken as ``chip_smoke.py`` takes them, by
-``device_timing.py`` beside this script. The set-up is
-``chip_smoke.py``'s fit phase: the sphere at ``SimConfig()`` widths in soft +
+``mcray_tpu_torch/utils/benchmarking.py`` of this script's checkout. The
+set-up is ``chip_smoke.py``'s fit phase: the sphere at ``SimConfig()`` widths in soft +
 trilinear mode, the target frame from fixed draws, LIVER's attenuation
 doubled and fitted back by Adam; one step to warm up, then N steps timed by
 CUDA events, then ``torch.profiler`` over 3 steps for the device's view.
@@ -20,12 +20,27 @@ operations per step. Needs the card; without one it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
 import sys
 
-from device_timing import busy_view, event_ms, nvidia_smi
+
+def _own_benchmarking():
+    """This checkout's ``mcray_tpu_torch/utils/benchmarking.py``, loaded by its
+    path: every ``--tree`` is timed by this one copy, and importing the package
+    here would bind ``mcray_tpu_torch`` to this checkout instead of the tree's."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mcray_tpu_torch", "utils",
+                        "benchmarking.py")
+    spec = importlib.util.spec_from_file_location("benchmarking", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_timing = _own_benchmarking()
+busy_view, event_ms, nvidia_smi = _timing.busy_view, _timing.event_ms, _timing.nvidia_smi
 
 
 def main() -> int:

@@ -34,7 +34,8 @@ gradient within 1e-5 of its largest entry against its loop of frames. The parall
 sharded frame's RF bitwise the ``Simulator``'s (the gathered B-mode too, the
 halo B-mode at 1e-5 / 1e-6), and a cuda mesh raises where NCCL is missing;
 ``render``'s ``rf_conv`` is ``rf_raw`` where K3 runs; ``FrameMetrics`` waits
-on the card for a CUDA tensor.
+on the card for a CUDA tensor. The measuring layer: ``graph_ms`` and
+``busy_view`` of one K4 launch, and the stage table of a small sphere frame.
 """
 
 import dataclasses
@@ -986,3 +987,34 @@ def test_cuda_mesh_raises_without_nccl(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="NCCL"):
         make_mesh(device="cuda")
     assert not dist.is_initialized()
+
+
+def test_graph_ms_and_busy_view_of_one_scanconv_launch(cuda):
+    """The measuring layer on one K4 launch: a positive device time by graph
+    replay and by the profiler, which sees the launch as one operation."""
+    from mcray_tpu_torch.utils import benchmarking
+
+    cfg = small_test_config()
+    maps = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols,
+                              device=cuda)
+    rf = to_torch(np.random.default_rng(5).random((cfg.rf_rows, cfg.rf_cols), np.float32)).to(cuda)
+
+    def launch():
+        return scanconv.scan_convert_forward(rf, maps)
+
+    assert benchmarking.graph_ms(launch, 1) > 0.0
+    view = benchmarking.busy_view(launch, 3, expect={"scan_convert_kernel": 1})
+    assert view["busy_ms"] > 0.0 and view["operations"] == 1
+
+
+def test_stage_table_of_a_small_sphere_frame(cuda):
+    """The stage table of a small sphere frame: its five stages, each timed,
+    and the frame's floor a share of its busy time in (0, 100]."""
+    from mcray_tpu_torch.utils import roofline
+
+    sim = Simulator(load_and_compile(SPHERE_SCENE), small_test_config(), device=cuda)
+    table = roofline.stage_table(sim, [0])
+    assert [r["stage"] for r in table["stages"]] == ["draws", "trace", "march", "postproc", "scan_convert"]
+    assert all(r["ms"] > 0.0 and r["n_ops"] > 0 for r in table["stages"])
+    assert 0.0 < table["frame_pct_of_roofline"] <= 100.0
+    assert table["full_frame_ms"] > 0.0 and table["frame_operations"] > 0
