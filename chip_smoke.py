@@ -45,6 +45,13 @@ with the launch counts set to 0 just before it and read just after:
   plain versions; the mega listed scene's batch of 8 and its peak memory;
   the sphere's batch of 8 by BVH traversal (K11 10 launches, every frame
   bitwise ``render_frame``'s);
+- the chained batch (``Simulator.make_chained_batch``: each step of 8
+  frames replayed from a CUDA graph of one step), sphere 8 x 16 and
+  ircad_hd 8 x 8: the last step bitwise ``render_frames`` of its keys,
+  ``carry`` 0; capture ms and graph memory, beside the whole chain captured
+  as one graph; the call beside the same steps run eagerly, timed in turns
+  and profiled (K5, K2, K3, K4 launched from the graph, counted by the
+  profiler's kernel names);
 - the probe-pose paths: ``PoseFitter(method="fd")`` from the scene's pose +
   (0, 0.3, 0), 5 steps of 28 frames in one batched pass each (4 keys,
   scales 2, 4, 8), and
@@ -114,8 +121,9 @@ and mega bvh frames' trace floors must be equal.
 
 The last lines are the kernel record ({"kernels": [...]}; each entry's
 ``sharded_launches`` gives its launches per sharded frame in each imaging
-mode and per sharded train step, ``batch_launches`` per batched set-up, and
-``batch`` its time and bound per launch at the batch's shapes), the card's
+mode and per sharded train step, ``batch_launches`` per batched set-up,
+``batch`` its time and bound per launch at the batch's shapes, and K2-K5's
+``chained_replay_launches`` their launches in one chained call by scene), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}. Any
 failed phase raises (exit code != 0, no result line). Without a CUDA
 device it fails at once.
@@ -227,6 +235,9 @@ BATCH_SEEDS = tuple(range(8))
 BATCH_FIT_FRAMES, BATCH_TIMED = 4, 10
 FIT_BATCH_GRAD_TOL = 1e-5
 SWEEP_FRAMES = 3
+# the chained batch: scene -> (batch, n_chain), bench.py's set-ups; the seed0 of its first call
+CHAINED = {"sphere": (8, 16), "ircad_hd": (8, 8)}
+CHAINED_SEED = 10
 # the stage tables (roofline.stage_table): label -> (the frame's Simulator, its seeds, the
 # [bvh] ray set whose reference walks its trace floor reads where they are of its rays)
 ROOFLINE_FRAMES = {"sphere": ("sphere", (0,), "sphere"),
@@ -1695,6 +1706,140 @@ def bvh_batch_phase(sim) -> dict:
 T_START = time.perf_counter()
 
 
+def whole_chain_graph(sim, batch: int, n_chain: int):
+    """The other graph design, measured beside the library's: all n_chain
+    steps of a chained batch captured into one CUDA graph (after an eager
+    warm-up step on a side stream), replayed once a call. Returns
+    (call(seed0) -> the last step's B-modes, capture ms)."""
+    steps = sim.make_chained_batch(batch, n_chain)
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        steps.step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n_chain):
+            out = steps.step()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def call(seed0):
+        steps.key.copy_(rng.prng_key(seed0))
+        steps.i.zero_()
+        steps.carry.zero_()
+        graph.replay()
+        return out
+
+    return call, capture_ms
+
+
+def chained_phase(sims, smi: str) -> dict:
+    """``Simulator.make_chained_batch`` at ``SimConfig()`` on the sphere (8 x
+    16, ``bench.py``'s and ``bench_torch.py``'s) and on ircad_hd (8 x 8): one
+    step captured as a CUDA graph, replayed n_chain times. The first call
+    (the warm-up step, the capture, the replays) is driven with the launch
+    counts set to 0 just before it and read just after (the wrappers count
+    at the warm-up and the capture: 2 steps); its last step must be bitwise
+    ``render_frames`` of its keys run eagerly, ``carry`` 0 after it and every
+    frame a good B-mode. Then, per scene: capture ms and graph memory (the
+    device memory the graph's pool keeps, after ``empty_cache``) of the
+    chained call and of the whole chain in one graph (``whole_chain_graph``);
+    both and the same n_chain steps run eagerly one after another timed by
+    events in turns (graph, chain graph, eager, eager, chain graph, graph),
+    wall ms per frame, all three bitwise alike; the device's view (busy ms,
+    operations, idle share) of one chained call and of the eager steps, the
+    chained call's launches by kernel name from the profiler (n_chain times
+    a step's: K5 10, K2, K3, K4 1)."""
+    result = {}
+    for name, (batch, n_chain) in CHAINED.items():
+        sim = sims[name]
+        cfg = sim.cfg
+        frames = batch * n_chain
+        per_step = frame_launches(cfg, 1)
+        expect = {roofline.EVENT_NAMES[k]: v * n_chain for k, v in per_step.items()}
+        print(f"[chained] {name}: make_chained_batch({batch}, {n_chain}), {frames} frames a call")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        chained = sim.make_chained_batch(batch, n_chain)
+        kernels.reset_launch_counts()
+        last = chained(CHAINED_SEED)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check_launches(f"[chained] {name} first call", counts, per_step, runs=2)
+        torch.cuda.empty_cache()
+        graph_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+        keys = rng.fold_in(rng.prng_key(CHAINED_SEED),
+                           (n_chain - 1) * batch + torch.arange(batch, dtype=torch.int64))
+        eager = sim.render_frames(keys)["bmode"]
+        same = torch.equal(last, eager)
+        print(f"  capture {chained.capture_ms:.1f} ms (with the warm-up step), graph memory "
+              f"{graph_mib:.1f} MiB; launches at the first call {nonzero(counts)}; last step "
+              f"bitwise render_frames of its keys: {same}; carry {int(chained.carry)}, i "
+              f"{int(chained.i)}")
+        if not same or int(chained.carry) != 0 or int(chained.i) != n_chain:
+            raise AssertionError(f"[chained] {name}: the last step differs from render_frames "
+                                 "of its keys")
+        for b in range(batch):
+            check_bmode(f"{name} chained frame {b}", sim, last[b])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        chain_call, chain_capture_ms = whole_chain_graph(sim, batch, n_chain)
+        chain_call(CHAINED_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        chain_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+        print(f"  the whole chain one graph: capture {chain_capture_ms:.1f} ms (with the warm-up "
+              f"step), graph memory {chain_mib:.1f} MiB")
+        row = {"batch": batch, "n_chain": n_chain,
+               "graph": {"capture_ms": chained.capture_ms, "graph_mib": graph_mib,
+                         "first_call_launches": nonzero(counts)},
+               "chain_graph": {"capture_ms": chain_capture_ms, "graph_mib": chain_mib},
+               "eager": {}}
+
+        steps = sim.make_chained_batch(batch, n_chain)  # its steps, one by one, no graph
+
+        def eager_call(seed0):
+            steps.key.copy_(rng.prng_key(seed0))
+            steps.i.zero_()
+            steps.carry.zero_()
+            for _ in range(n_chain):
+                out = steps.step()
+            return out
+
+        calls = {"graph": lambda: chained(CHAINED_SEED + 1),
+                 "chain_graph": lambda: chain_call(CHAINED_SEED + 1),
+                 "eager": lambda: eager_call(CHAINED_SEED + 1)}
+        ms = {k: [] for k in calls}
+        for k in ("graph", "chain_graph", "eager", "eager", "chain_graph", "graph"):
+            ms[k] += event_ms(calls[k], 1)
+        if not (torch.equal(chained.out, calls["chain_graph"]())
+                and torch.equal(chained.out, eager_call(CHAINED_SEED + 1))):
+            raise AssertionError(f"[chained] {name}: the two graphs and the eager steps differ")
+        for k, v in ms.items():
+            row[k]["ms"] = v
+            print(f"  {k}: {statistics.mean(v):.3f} ms a call (in turns: {v}), "
+                  f"{statistics.mean(v) / frames:.4f} ms a frame")
+        for k, label in (("graph", "chained call"), ("eager", "eager steps")):
+            view = device_view(label, calls[k], statistics.mean(ms[k]), n=1, expect=expect)
+            launched = {e: sum(c for kernel, c in view["count_by_name"].items() if e in kernel)
+                        for e in expect}
+            print(f"    launches by kernel name: {launched} (expected {expect}); per frame: busy "
+                  f"{view['busy_ms'] / frames:.4f} ms, {view['operations'] / frames:.1f} "
+                  f"operations")
+            row[k].update({"busy_ms": view["busy_ms"], "operations": view["operations"],
+                           "idle_share": 1.0 - view["busy_ms"] / statistics.mean(ms[k]),
+                           "launches_by_name": launched})
+        result[name] = row
+        del chained, chain_call, steps
+        torch.cuda.empty_cache()
+    print(f"[chained] summary ({smi}): " + json.dumps(result))
+    return result
+
+
 def mark(label: str) -> None:
     """The run's elapsed seconds at the end of a phase."""
     print(f"[elapsed] {time.perf_counter() - T_START:.1f} s after {label}")
@@ -1821,6 +1966,8 @@ def main() -> int:
     bvh_batch = bvh_batch_phase(sims["sphere bvh"])
     batch["launches"]["render_batch_8_bvh"] = bvh_batch["launches"]
     mark("batch")
+    chained = chained_phase(sims, smi)
+    mark("chained")
     # the probe-pose paths: registration (fd, ad), serve, sweep
     pose_fd_phase(sphere, smi)
     mark("pose fd")
@@ -2317,6 +2464,11 @@ def main() -> int:
         entry["batch_launches"] = {label: n[name] for label, n in batch["launches"].items()}
         if name in batch["kernels"]:
             entry["batch"] = batch["kernels"][name]
+        # launches inside one chained call's graph replays, by the profiler's kernel names
+        event = roofline.EVENT_NAMES[name]
+        if event in chained["sphere"]["graph"]["launches_by_name"]:
+            entry["chained_replay_launches"] = {
+                scene: row["graph"]["launches_by_name"][event] for scene, row in chained.items()}
         record.append(entry)
         print(f"  {name}: {k_ms:.4f} ms, bound {bounds[name][0]:.5f} ms by {bounds[name][1]} "
               f"({bounds[name][0] / k_ms:.1%} of the kernel's time; {bounds[name].n_bytes:.1f} "

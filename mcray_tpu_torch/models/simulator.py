@@ -42,6 +42,7 @@ frame as their grid's second axis. ``render`` is its batch of one.
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
@@ -61,7 +62,6 @@ from ..ops.geometry import safe_norm
 from ..ops.texture import fdiv
 from ..probe.transducer import element_layout
 from ..utils import convert, rng
-
 
 #: the cluster closest hits by intersect_mode
 CLUSTER_INTERSECTS = {
@@ -481,10 +481,11 @@ class Simulator:
 
     @staticmethod
     def _frame_keys(seeds) -> torch.Tensor:
-        """The (B, 2) keys (on the CPU) of ``seeds``: integer frame seeds, (2,)
-        keys, or a (B, 2) tensor of keys (``rng.split``'s)."""
+        """The (B, 2) keys of ``seeds``: integer frame seeds or (2,) keys (on
+        the CPU), or a (B, 2) tensor of keys (``rng.split``'s, left on its
+        device: the chained batch's, derived on the card, copy nothing)."""
         if isinstance(seeds, torch.Tensor):
-            return seeds.reshape(-1, 2).cpu()
+            return seeds.reshape(-1, 2)
         return torch.stack([(s if isinstance(s, torch.Tensor) else rng.prng_key(s)).cpu()
                             for s in seeds])
 
@@ -544,7 +545,105 @@ class Simulator:
         batched pass (``render_batch``)."""
         return self.render_batch(seeds, **kw).mean(dim=0)
 
+    def make_chained_batch(self, batch: int, n_chain: int):
+        """``fn(seed0) -> (batch, H, W)``: ``n_chain`` steps of ``batch``
+        frames in one call, the B-modes of the last step (the reference's
+        ``make_chained_batch``, ``mcray_tpu/models/simulator.py:642-679``).
+        See ``ChainedBatch``."""
+        return ChainedBatch(self, batch, n_chain)
+
     @property
     def rays_per_frame(self) -> int:
         """Traced path-bounce queries per frame (src/scene.cpp:75-117)."""
         return self.cfg.transducer_elements * self.cfg.samples_per_element * self.cfg.max_depth
+
+
+class ChainedBatch:
+    """``n_chain`` steps of ``batch`` frames from one seed, keyed as the
+    reference's ``make_chained_batch`` keys them: with ``key =
+    prng_key(seed0)``, step i renders the frames of the keys ``fold_in(key,
+    carry + i * batch + b)`` (b < batch, uint32), each as
+    ``Simulator.render_frames`` renders a frame of its key (draws from
+    ``fold_in(key, 0)``, the scene's pose and materials), and then adds
+    ``uint32(|bmode[0, 0, 0]| * 1e-30)`` to ``carry`` (0 for any finite
+    image: a data-dependent chain, as there). A call returns the last step's
+    (batch, H, W) B-modes.
+
+    On the card one step (the keys, the draws, ``render_frames``, the carry)
+    is captured as a CUDA graph at the first call, after one eager step on a
+    side stream that builds the kernels and fills the caches the step reads;
+    the graph has a memory pool of its own (the whole chain as one graph
+    replays no faster and takes longer to capture: ``PERF.md``, the chained
+    batch). A call writes ``seed0``'s key into the graph's key buffer, sets
+    ``i`` and ``carry`` (device buffers that each step advances) to 0, and
+    replays the graph ``n_chain`` times, so no host value enters between
+    steps. The returned tensor is the graph's output buffer: the next call
+    overwrites it. The graph reads the ``Simulator``'s tensors as they are at capture
+    (a later assignment to ``materials`` or the pose is not seen). A
+    capture or replay that fails raises; nothing runs the steps eagerly on
+    the card after that. The kernels' launch counters count at the warm-up
+    step and at capture, not at replay.
+
+    On the CPU the same step runs ``n_chain`` times, one after another, and
+    a call returns a tensor of its own.
+    """
+
+    def __init__(self, sim: Simulator, batch: int, n_chain: int):
+        if batch < 1 or n_chain < 1:
+            raise ValueError(f"batch {batch} and n_chain {n_chain} must be positive")
+        self.sim, self.batch, self.n_chain = sim, batch, n_chain
+        device = sim.device
+        self.key = torch.zeros(2, dtype=torch.int64, device=device)
+        self.i = torch.zeros((), dtype=torch.int64, device=device)
+        self.carry = torch.zeros((), dtype=torch.int64, device=device)
+        self.offsets = torch.arange(batch, dtype=torch.int64, device=device)
+        self.graph = None
+        self.out = None
+        #: host ms of the first call's warm-up step and capture (None before it)
+        self.capture_ms = None
+
+    def step_keys(self) -> torch.Tensor:
+        """The (batch, 2) frame keys of the next step: ``fold_in(key, carry +
+        i * batch + b)`` in uint32."""
+        return rng.fold_in(self.key, self.carry + self.i * self.batch + self.offsets)
+
+    def step(self) -> torch.Tensor:
+        """One step on the buffers: the next step's frames, then ``carry``
+        and ``i`` advanced. Returns the (batch, H, W) B-modes."""
+        with torch.no_grad():
+            bmode = self.sim.render_frames(self.step_keys())["bmode"]
+            dep = (bmode[0, 0, 0].abs() * 1e-30).to(torch.int64)
+            self.carry.copy_((self.carry + dep) & rng._MASK32)
+            self.i.add_(1)
+        return bmode
+
+    def capture(self) -> None:
+        """One eager step on a side stream, then one step captured into
+        ``graph`` (its own memory pool); ``capture_ms`` is the host time of
+        both."""
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(self.sim.device)
+        side.wait_stream(torch.cuda.current_stream(self.sim.device))
+        with torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream(self.sim.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self.step()
+        torch.cuda.synchronize(self.sim.device)
+        self.graph, self.out = graph, out
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def __call__(self, seed0: int) -> torch.Tensor:
+        if self.sim.device.type == "cuda" and self.graph is None:
+            self.capture()
+        self.key.copy_(rng.prng_key(seed0))
+        self.i.zero_()
+        self.carry.zero_()
+        if self.graph is None:  # the CPU
+            for _ in range(self.n_chain):
+                out = self.step()
+            return out
+        for _ in range(self.n_chain):
+            self.graph.replay()
+        return self.out

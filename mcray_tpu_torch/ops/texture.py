@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
-from ..utils.rng import randint, split
+from ..utils.rng import randint, scalar, split
 
 _MASK32 = 0xFFFFFFFF
 
@@ -37,8 +37,10 @@ def fdiv(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` as an IEEE f32 division. PyTorch on CUDA turns a division
     by a Python scalar into a multiply by its reciprocal, which can move a
     quotient by one ulp; dividing by a 0-dim tensor on ``x``'s device keeps
-    the true quotient that the reference and the CUDA kernels compute."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    the true quotient that the reference and the CUDA kernels compute. The
+    divisor is made once per (d, dtype, device) (``rng.scalar``), so a CUDA
+    graph can capture the division."""
+    return x / scalar(d, x.dtype, x.device)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -46,7 +46,7 @@ def element_layout_linear(position, angles_deg, cfg: SimConfig):
     n = cfg.transducer_elements
     pitch_world = cfg.element_separation_mm / 10.0  # mm -> world (cm-ish)
     offsets = (_arange(n, position) - (n - 1) / 2.0) * pitch_world
-    axes = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=position.device)
+    axes = torch.eye(3, device=position.device)[:2]  # made on the device: no host copy
     rotated = _rotated(axes, angles_deg)
     lateral, beam = rotated[..., 0, :], rotated[..., 1, :]
     positions = position.float()[..., None, :] + offsets[:, None] * lateral[..., None, :]

@@ -132,7 +132,9 @@ def cold_graph_ms(fn, flush_mb: int = 96) -> float:
 def busy_view(fn, n: int = 3, attempts: int = 5, expect: dict[str, int] | None = None) -> dict:
     """``n`` calls of ``fn`` under ``torch.profiler``, per call: ``busy_ms``
     (the union of the device events' intervals), ``operations`` (device
-    events) and ``by_name`` (ms by kernel name). On an H100 the profiler
+    events), ``by_name`` (ms by kernel name) and ``count_by_name`` (events
+    by kernel name: the launches a call made, those replayed from a CUDA
+    graph included). On an H100 the profiler
     now and then loses device events of a window of small kernels, all of
     them or some: a window is profiled again, ``attempts`` times in all,
     until it holds a device event and, for each name in ``expect``, exactly
@@ -166,10 +168,13 @@ def busy_view(fn, n: int = 3, attempts: int = 5, expect: dict[str, int] | None =
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     by_name: dict[str, float] = {}
+    count: dict[str, int] = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+        count[e.name] = count.get(e.name, 0) + 1
     return {"busy_ms": busy / 1e3 / n, "operations": len(device) / n,
-            "by_name": {k: v / 1e3 / n for k, v in by_name.items()}}
+            "by_name": {k: v / 1e3 / n for k, v in by_name.items()},
+            "count_by_name": {k: v / n for k, v in count.items()}}
 
 
 def _pad() -> None:

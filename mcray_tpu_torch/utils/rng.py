@@ -27,6 +27,7 @@ XLA's f32 polynomial is itself up to 2e-5 off the exact value
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -38,6 +39,17 @@ _PARITY = 0x1BD11BDA
 #: the largest f32 below 1 in magnitude, negated: normal()'s open lower end
 _MINUS_ONE_OPEN = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(math.sqrt(2.0)))
+
+
+@functools.lru_cache(maxsize=None)
+def scalar(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 0-dim tensor of ``value`` on ``device``, made once per (value,
+    dtype, device) and shared: never write to it. Making a tensor from a
+    Python number copies it from the host, which a stream refuses while a
+    CUDA graph captures it; a tensor made once outside the capture is read
+    like any other input (``Simulator.make_chained_batch``)."""
+    with torch.inference_mode(False):  # usable by autograd wherever the first call ran
+        return torch.tensor(value, dtype=dtype, device=device)
 
 
 def threefry2x32(k0, k1, x0, x1):
@@ -112,7 +124,7 @@ def normal_from_uniform(floats: torch.Tensor) -> torch.Tensor:
     scaled to (-1, 1) as JAX scales them, ``max(lo, floats * (1 - lo) + lo)``
     in f32 with lo the f32 next above -1 (the scale rounds to exactly 2, so
     XLA's fused multiply-add and torch's two roundings agree bitwise)."""
-    lo = torch.tensor(_MINUS_ONE_OPEN, dtype=torch.float32, device=floats.device)
+    lo = scalar(_MINUS_ONE_OPEN, torch.float32, floats.device)
     u = torch.maximum(lo, floats * (1.0 - lo) + lo)
     return _SQRT2 * torch.erfinv(u)
 

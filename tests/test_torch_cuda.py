@@ -36,6 +36,8 @@ halo B-mode at 1e-5 / 1e-6), and a cuda mesh raises where NCCL is missing;
 ``render``'s ``rf_conv`` is ``rf_raw`` where K3 runs; ``FrameMetrics`` waits
 on the card for a CUDA tensor. The measuring layer: ``graph_ms`` and
 ``busy_view`` of one K4 launch, and the stage table of a small sphere frame.
+The chained batch: replayed from a CUDA graph, bitwise its steps run
+eagerly and ``render_frames`` of the last step's keys, for two seeds.
 """
 
 import dataclasses
@@ -1018,3 +1020,37 @@ def test_stage_table_of_a_small_sphere_frame(cuda):
     assert all(r["ms"] > 0.0 and r["n_ops"] > 0 for r in table["stages"])
     assert 0.0 < table["frame_pct_of_roofline"] <= 100.0
     assert table["full_frame_ms"] > 0.0 and table["frame_operations"] > 0
+
+
+def test_chained_batch_replay_equals_the_eager_steps(cuda):
+    """``make_chained_batch(2, 3)`` replayed from a CUDA graph against its
+    steps run eagerly on the card, and its last step (keys derived on the
+    card) against ``render_frames`` of its keys made on the host, bitwise; a second
+    call with another seed0 gives that seed's frames (the graph holds no
+    stale key); the replays launch K5, K2, K3 and K4 as the eager steps do
+    (the profiler's operations by kernel name)."""
+    from mcray_tpu_torch.utils import benchmarking
+
+    cfg = small_test_config(transducer_elements=32, samples_per_element=2)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=1)
+    chained = sim.make_chained_batch(2, 3)
+    eager = sim.make_chained_batch(2, 3)  # its steps, called one by one without a graph
+
+    def eager_steps(seed0):
+        eager.key.copy_(rng.prng_key(seed0))
+        eager.i.zero_()
+        eager.carry.zero_()
+        return [eager.step() for _ in range(3)]
+
+    for seed0 in (3, 11):
+        got = chained(seed0).clone()
+        steps = eager_steps(seed0)
+        assert chained.graph is not None and int(chained.carry) == 0 and int(chained.i) == 3
+        assert torch.equal(got, steps[-1])
+        keys = rng.fold_in(rng.prng_key(seed0), 4 + torch.arange(2))
+        assert torch.equal(got, sim.render_frames(keys)["bmode"])
+    assert not torch.equal(steps[0], steps[-1])
+    view = benchmarking.busy_view(lambda: chained(5), 1, expect={
+        "intersect_listed_kernel": 3 * cfg.max_depth, "march_kernel": 3, "postproc_kernel": 3,
+        "scan_convert_kernel": 3})
+    assert view["busy_ms"] > 0.0
