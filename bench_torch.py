@@ -76,7 +76,7 @@ def chained_row(sim, batch: int, n_chain: int, seeds) -> dict:
     """Capture, time and profile ``sim.make_chained_batch(batch, n_chain)``,
     and check each timed call's last step against ``render_frames`` of its
     keys run eagerly."""
-    from mcray_tpu_torch.utils import rng
+    from mcray_tpu_torch.utils import profiling, rng
     from mcray_tpu_torch.utils.benchmarking import busy_view, event_ms
 
     frames = batch * n_chain
@@ -89,7 +89,8 @@ def chained_row(sim, batch: int, n_chain: int, seeds) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()  # what stays reserved is the graph's pool
-    setup = {"capture_ms": chained.capture_ms, "peak_allocated_mib": peak / 2**20,
+    setup = {"capture_ms": profiling.last_ms("chained.capture"),
+             "peak_allocated_mib": peak / 2**20,
              "graph_mib": (torch.cuda.memory_reserved() - reserved) / 2**20}
 
     correct = True

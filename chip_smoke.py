@@ -162,7 +162,7 @@ from mcray_tpu_torch.parallel.shard import (ShardedRenderer, ShardedRenderer2D, 
                                             make_mesh_2d)
 from mcray_tpu_torch.scene import stress
 from mcray_tpu_torch.scene.compile import load_and_compile
-from mcray_tpu_torch.utils import rng, roofline
+from mcray_tpu_torch.utils import profiling, rng, roofline
 from mcray_tpu_torch.utils.benchmarking import (busy_view, cuda_ms, event_ms, graph_ms,
                                                grid_sample_remap, nvidia_smi)
 from mcray_tpu_torch.utils.native import get_native
@@ -1740,8 +1740,8 @@ def chained_phase(sims, smi: str) -> dict:
     16, ``bench.py``'s and ``bench_torch.py``'s) and on ircad_hd (8 x 8): one
     step captured as a CUDA graph, replayed n_chain times. The first call
     (the warm-up step, the capture, the replays) is driven with the launch
-    counts set to 0 just before it and read just after (the wrappers count
-    at the warm-up and the capture: 2 steps); its last step must be bitwise
+    counts set to 0 just before it and read just after (the warm-up step and
+    n_chain replays: n_chain + 1 steps); its last step must be bitwise
     ``render_frames`` of its keys run eagerly, ``carry`` 0 after it and every
     frame a good B-mode. Then, per scene: capture ms and graph memory (the
     device memory the graph's pool keeps, after ``empty_cache``) of the
@@ -1768,14 +1768,15 @@ def chained_phase(sims, smi: str) -> dict:
         last = chained(CHAINED_SEED)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        check_launches(f"[chained] {name} first call", counts, per_step, runs=2)
+        check_launches(f"[chained] {name} first call", counts, per_step, runs=n_chain + 1)
+        capture_ms = profiling.last_ms("chained.capture")
         torch.cuda.empty_cache()
         graph_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
         keys = rng.fold_in(rng.prng_key(CHAINED_SEED),
                            (n_chain - 1) * batch + torch.arange(batch, dtype=torch.int64))
         eager = sim.render_frames(keys)["bmode"]
         same = torch.equal(last, eager)
-        print(f"  capture {chained.capture_ms:.1f} ms (with the warm-up step), graph memory "
+        print(f"  capture {capture_ms:.1f} ms (with the warm-up step), graph memory "
               f"{graph_mib:.1f} MiB; launches at the first call {nonzero(counts)}; last step "
               f"bitwise render_frames of its keys: {same}; carry {int(chained.carry)}, i "
               f"{int(chained.i)}")
@@ -1795,7 +1796,7 @@ def chained_phase(sims, smi: str) -> dict:
         print(f"  the whole chain one graph: capture {chain_capture_ms:.1f} ms (with the warm-up "
               f"step), graph memory {chain_mib:.1f} MiB")
         row = {"batch": batch, "n_chain": n_chain,
-               "graph": {"capture_ms": chained.capture_ms, "graph_mib": graph_mib,
+               "graph": {"capture_ms": capture_ms, "graph_mib": graph_mib,
                          "first_call_launches": nonzero(counts)},
                "chain_graph": {"capture_ms": chain_capture_ms, "graph_mib": chain_mib},
                "eager": {}}

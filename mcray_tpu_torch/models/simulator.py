@@ -42,13 +42,13 @@ frame as their grid's second axis. ``render`` is its batch of one.
 from __future__ import annotations
 
 import functools
-import time
 
 import torch
 
 from ..config import SimConfig, validate
 from ..ops import clusters, imaging, physics, texture
 from ..ops.bvh import DeviceBVH
+from ..ops.cuda import _build, add_launch_counts, launch_counts
 from ..ops.cuda.bvh_intersect import bvh_intersect_closest_cuda
 from ..ops.cuda.intersect import intersect_closest_cuda
 from ..ops.cuda.intersect_culled import intersect_closest_culled
@@ -61,7 +61,7 @@ from ..ops.cuda.scanconv import scan_convert_cuda, scan_maps
 from ..ops.geometry import safe_norm
 from ..ops.texture import fdiv
 from ..probe.transducer import element_layout
-from ..utils import convert, rng
+from ..utils import convert, profiling, rng
 
 #: the cluster closest hits by intersect_mode
 CLUSTER_INTERSECTS = {
@@ -124,6 +124,7 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
     n_samples = cfg.samples_per_element
     freq = cfg.transducer_frequency
     eps = cfg.intensity_epsilon
+    profiling.mark("bounce_physics", (probe_position if elements is None else elements[0]).device)
     if elements is None:
         positions, directions = element_layout(probe_position, probe_angles_deg, cfg)
         elem_idx = torch.arange(positions.shape[0], dtype=torch.int32,
@@ -172,6 +173,10 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
         seg_vec = (dest - origin) * alive_col
         origin = torch.where(alive_col, origin, 1e9)
 
+        # the listed closest hit marks where its prepass ends; the other
+        # modes are one stage
+        listed = culled_tris is not None and mode == "listed"
+        profiling.mark("prepass" if listed else "closest_hit", device)
         if culled_tris is None and bvh is not None:
             hits = bvh_intersect_closest_cuda(origin, seg_vec, tri_soa, tri_mesh_id, bvh)
         elif culled_tris is None:
@@ -180,6 +185,7 @@ def trace_paths(draws, materials, probe_position, probe_angles_deg, scene, spaci
             hits = clusters.intersect_sorted(cluster_fn, origin, seg_vec, packed)
         else:
             hits = cluster_fn(origin, seg_vec, packed)
+        profiling.mark("bounce_physics", device)
         hit = hits["hit"] & alive
 
         # sub-surface penetration fuzz: q ~ |N(0, thickness_inside)| (src/scene.cpp:129-139)
@@ -297,6 +303,7 @@ def march_segments(segments, materials, seeds, volume, cfg: SimConfig, n_cols: i
     its ``element``) and the packed SoA the march kernel read: K2 on the
     SoA, or under ``soft_row_binning`` the reference's plain scatter march
     (its kernel bins hard), with no SoA (None)."""
+    profiling.mark("march", segments["valid"].device)
     if cfg.soft_row_binning:
         return None, march_and_accumulate(segments, materials, volume or {"seeds": seeds}, cfg,
                                           n_cols)
@@ -342,6 +349,7 @@ def render_frames(draws, seeds, materials, positions, angles, scene, spacing,
                            starting_material, cfg, **trace_kw)
     soa, rf_wide = march_segments(segments, materials, seeds, volume, cfg, b * cfg.rf_cols)
     rf_raw = rf_wide.reshape(cfg.rf_rows, b, cfg.rf_cols).transpose(0, 1).contiguous()
+    profiling.mark("image", rf_raw.device)
     rf_env = postproc_cuda(rf_raw, cfg)
     fused = rf_raw.device.type == "cuda" and kernel_modes(cfg)
     rf_conv = rf_raw if fused else imaging.convolve_psf(rf_raw, cfg)
@@ -581,8 +589,18 @@ class ChainedBatch:
     overwrites it. The graph reads the ``Simulator``'s tensors as they are at capture
     (a later assignment to ``materials`` or the pose is not seen). A
     capture or replay that fails raises; nothing runs the steps eagerly on
-    the card after that. The kernels' launch counters count at the warm-up
-    step and at capture, not at replay.
+    the card after that. The kernels' launch counters
+    (``ops.cuda.launch_counts``) count what ran on the card: the warm-up
+    step, then each replay the captured step's launches (``launches``, by
+    kernel); the capture itself counts none.
+
+    The step carries the stage marks (``utils/profiling.py:mark``) into the
+    graph, so a profiled replay splits by stage. A call is the span
+    ``chained.call`` (a request id of its own; ``units``: its frames), each
+    replay a child span ``chained.replay``, and the first call's warm-up and
+    capture the span ``chained.capture``. The counters
+    ``chained.graph_nodes`` and ``chained.graph_frames`` (the step graph's
+    nodes and frames, once at capture) count what a replay hides.
 
     On the CPU the same step runs ``n_chain`` times, one after another, and
     a call returns a tensor of its own.
@@ -599,8 +617,8 @@ class ChainedBatch:
         self.offsets = torch.arange(batch, dtype=torch.int64, device=device)
         self.graph = None
         self.out = None
-        #: host ms of the first call's warm-up step and capture (None before it)
-        self.capture_ms = None
+        #: the captured step's kernel launches, by kernel (``launch_counts``' names)
+        self.launches = {}
 
     def step_keys(self) -> torch.Tensor:
         """The (batch, 2) frame keys of the next step: ``fold_in(key, carry +
@@ -611,6 +629,7 @@ class ChainedBatch:
         """One step on the buffers: the next step's frames, then ``carry``
         and ``i`` advanced. Returns the (batch, H, W) B-modes."""
         with torch.no_grad():
+            profiling.mark("draws", self.sim.device)
             bmode = self.sim.render_frames(self.step_keys())["bmode"]
             dep = (bmode[0, 0, 0].abs() * 1e-30).to(torch.int64)
             self.carry.copy_((self.carry + dep) & rng._MASK32)
@@ -619,22 +638,36 @@ class ChainedBatch:
 
     def capture(self) -> None:
         """One eager step on a side stream, then one step captured into
-        ``graph`` (its own memory pool); ``capture_ms`` is the host time of
-        both."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.sim.device)
-        side.wait_stream(torch.cuda.current_stream(self.sim.device))
-        with torch.cuda.stream(side):
-            self.step()
-        torch.cuda.current_stream(self.sim.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self.step()
-        torch.cuda.synchronize(self.sim.device)
+        ``graph`` (its own memory pool), both in the span
+        ``chained.capture``; counts the graph's nodes and the step's
+        launches. The kernel library is loaded first, outside the span (a
+        checkout's first run builds it)."""
+        device = self.sim.device
+        _build.library()
+        with profiling.span("chained.capture", units=self.batch):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self.step()
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with torch.cuda.graph(graph):
+                out = self.step()
+                nodes = profiling.capture_nodes(device)
+            torch.cuda.synchronize(device)
+        self.launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        add_launch_counts(self.launches, -1)  # captured, not run
+        profiling.count("chained.graph_nodes", nodes)
+        profiling.count("chained.graph_frames", self.batch)
         self.graph, self.out = graph, out
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def __call__(self, seed0: int) -> torch.Tensor:
+        with profiling.span("chained.call", request=profiling.request(),
+                            units=self.batch * self.n_chain):
+            return self._call(seed0)
+
+    def _call(self, seed0: int) -> torch.Tensor:
         if self.sim.device.type == "cuda" and self.graph is None:
             self.capture()
         self.key.copy_(rng.prng_key(seed0))
@@ -645,5 +678,7 @@ class ChainedBatch:
                 out = self.step()
             return out
         for _ in range(self.n_chain):
-            self.graph.replay()
+            with profiling.span("chained.replay", units=self.batch):
+                self.graph.replay()
+        add_launch_counts(self.launches, self.n_chain)
         return self.out

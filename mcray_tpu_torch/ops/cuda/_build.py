@@ -56,9 +56,12 @@ SIGNATURES = {
     "mcray_postproc_slab_floats": [I, I, I, I, I],
     "mcray_scan_convert": [P, I, I, I, P, I, P, P, P],
     "mcray_scan_convert_bwd": [P, P, P, P, I, I, I, P, P, P],
+    "mcray_mark": [I, P],
+    "mcray_capture_nodes": [P],
 }
 
-RESTYPES = {"mcray_postproc_slab_floats": ctypes.c_longlong}
+RESTYPES = {"mcray_postproc_slab_floats": ctypes.c_longlong,
+            "mcray_capture_nodes": ctypes.c_longlong}
 
 
 def _sources() -> list[Path]:

@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ...utils import profiling
 from .. import clusters
 from ..geometry import NO_HIT_T
 from . import _build
@@ -135,6 +136,7 @@ def intersect_closest_listed(origins, seg_vecs, packed: clusters.CulledTris, *,
     # detached rays, and gradients flow through the winner tail alone
     o, s, rays = clusters.pad_rays(origins.detach(), seg_vecs.detach(), tile_r)
     counts, ids, keys = clusters.packet_cluster_lists(o, s, packed, tile_r, method=list_method)
+    profiling.mark("closest_hit", rays.device)
     # inert lanes (zero segment: padding and parked dead rays) start at
     # t = 0 so they cannot hold the kernel's early stop open; `hit`
     # re-masks them below

@@ -16,6 +16,7 @@ import os
 import numpy as np
 
 from ..ops.bvh import FlatBVH, build_bvh
+from ..utils import profiling
 from . import primitives
 from .loader import SceneSpec, load_scene
 from .obj import load_obj
@@ -100,18 +101,20 @@ def compile_scene(spec: SceneSpec, *, asset_dir: str | None = None,
 
 def load_and_compile(scene_path: str, *, asset_dir: str | None = None,
                      with_bvh: bool = True) -> ScenePack:
-    """Load a ``.scene`` file, generating the shipped phantom meshes on first use."""
-    spec = load_scene(scene_path)
-    asset_dir = asset_dir or spec.working_dir
-    needed = {m.filename for m in spec.meshes}
-    missing = [f for f in needed if not os.path.exists(os.path.join(asset_dir, f))]
-    if missing:
-        if {"BOX.obj", "SPHERE.obj"} & set(missing):
-            primitives.ensure_assets(asset_dir)
-        elif "mega" in os.path.basename(os.path.normpath(asset_dir)):
-            primitives.ensure_ircad_mega_assets(asset_dir)
-        elif "hd" in os.path.basename(os.path.normpath(asset_dir)):
-            primitives.ensure_ircad_hd_assets(asset_dir)
-        else:
-            primitives.ensure_ircad_assets(asset_dir)
-    return compile_scene(spec, asset_dir=asset_dir, with_bvh=with_bvh)
+    """Load a ``.scene`` file, generating the shipped phantom meshes on first
+    use; the whole of it is the span ``scene.compile``."""
+    with profiling.span("scene.compile"):
+        spec = load_scene(scene_path)
+        asset_dir = asset_dir or spec.working_dir
+        needed = {m.filename for m in spec.meshes}
+        missing = [f for f in needed if not os.path.exists(os.path.join(asset_dir, f))]
+        if missing:
+            if {"BOX.obj", "SPHERE.obj"} & set(missing):
+                primitives.ensure_assets(asset_dir)
+            elif "mega" in os.path.basename(os.path.normpath(asset_dir)):
+                primitives.ensure_ircad_mega_assets(asset_dir)
+            elif "hd" in os.path.basename(os.path.normpath(asset_dir)):
+                primitives.ensure_ircad_hd_assets(asset_dir)
+            else:
+                primitives.ensure_ircad_assets(asset_dir)
+        return compile_scene(spec, asset_dir=asset_dir, with_bvh=with_bvh)

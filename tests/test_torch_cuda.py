@@ -37,7 +37,10 @@ halo B-mode at 1e-5 / 1e-6), and a cuda mesh raises where NCCL is missing;
 on the card for a CUDA tensor. The measuring layer: ``graph_ms`` and
 ``busy_view`` of one K4 launch, and the stage table of a small sphere frame.
 The chained batch: replayed from a CUDA graph, bitwise its steps run
-eagerly and ``render_frames`` of the last step's keys, for two seeds.
+eagerly and ``render_frames`` of the last step's keys, for two seeds; under
+the profiler its replays show every stage mark of every step, the launch
+counters count the replays, and the marked graph's B-modes are bitwise the
+eager, unmarked steps'.
 """
 
 import dataclasses
@@ -1054,3 +1057,55 @@ def test_chained_batch_replay_equals_the_eager_steps(cuda):
         "intersect_listed_kernel": 3 * cfg.max_depth, "march_kernel": 3, "postproc_kernel": 3,
         "scan_convert_kernel": 3})
     assert view["busy_ms"] > 0.0
+
+
+def test_chained_call_marks_every_stage_and_counts_its_replays(cuda):
+    """A ``make_chained_batch(2, 3)`` call under the profiler: ``draws``,
+    ``march`` and ``image`` once a step, ``prepass`` and
+    ``closest_hit`` once a bounce, ``bounce_physics`` once a bounce and once
+    before the first; ``launch_counts()`` counts each replay's launches (K5
+    a bounce, K2, K3, K4 once); the step graph's nodes are counted once, and
+    the call's B-modes are bitwise its steps run eagerly, where no mark
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcray_tpu_torch.ops import cuda as kernels
+    from mcray_tpu_torch.utils import profiling
+
+    cfg = small_test_config(transducer_elements=32, samples_per_element=2)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=1)
+    chained = sim.make_chained_batch(2, 3)
+    nodes = profiling.counters().get("chained.graph_nodes", 0)
+    chained(1)  # the capture
+    assert profiling.counters()["chained.graph_nodes"] > nodes
+    assert chained.launches == {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1,
+                                "scanconv": 1}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = chained(9).clone()
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {k: 3 * v for k, v in chained.launches.items()}
+    marks = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "mcray_mark_" in e.name:
+            stage = e.name.split("mcray_mark_", 1)[1].split("(")[0]
+            marks[stage] = marks.get(stage, 0) + 1
+    d = cfg.max_depth
+    assert marks == {"draws": 3, "prepass": 3 * d, "closest_hit": 3 * d,
+                     "bounce_physics": 3 * (d + 1), "march": 3, "image": 3}
+
+    eager = sim.make_chained_batch(2, 3)
+    eager.key.copy_(rng.prng_key(9))
+    eager.i.zero_()
+    eager.carry.zero_()
+    kernels.reset_launch_counts()
+    steps = [eager.step() for _ in range(3)]
+    assert torch.equal(got, steps[-1])
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == counts
+    call, = [s for s in profiling.spans() if s.name == "chained.call" and s.profiled][-1:]
+    replays = [s for s in profiling.spans() if s.name == "chained.replay"
+               and s.request == call.request]
+    assert len(replays) == 3
+    assert all(s.parent == call.id and s.units == 2 for s in replays)

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``mcray_tpu_torch`` (nor
 ``chip_smoke.py``, ``bench_torch.py``, ``fit_step_timing.py``, ``cluster_timing.py``,
-``examples/quickstart_torch.py`` and the gloo ranks'
+``launch_probe.py``, ``examples/quickstart_torch.py`` and the gloo ranks'
 ``tests/torch_shard_worker.py``) imports ``jax`` or anything of
 ``mcray_tpu``, and the copies it keeps of the reference's JAX-free modules
 (the config, the loader, the VTP converter) agree with them."""
@@ -30,7 +30,8 @@ from mcray_tpu_torch.utils import vtp_to_obj as port_vtp_to_obj
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # run on the card, not imported
 SCRIPTS = [ROOT / "fit_step_timing.py", ROOT / "cluster_timing.py", ROOT / "chip_smoke.py",
-           ROOT / "bench_torch.py", ROOT / "examples" / "quickstart_torch.py",
+           ROOT / "bench_torch.py", ROOT / "launch_probe.py",
+           ROOT / "examples" / "quickstart_torch.py",
            ROOT / "tests" / "torch_shard_worker.py"]
 PORT_FILES = sorted((ROOT / "mcray_tpu_torch").rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "mcray_tpu")
