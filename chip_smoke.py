@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the eleven CUDA kernels from mcray_tpu_torch/csrc (one nvcc per
+Builds the CUDA kernels from mcray_tpu_torch/csrc (one nvcc per
 source, all at once) and drives the port's paths at SimConfig() (512
 elements x 5 paths x 10 bounces, 465 x 512 RF, 400 x 500 B-mode), each
 with the launch counts set to 0 just before it and read just after:
@@ -50,8 +50,8 @@ with the launch counts set to 0 just before it and read just after:
   ircad_hd 8 x 8: the last step bitwise ``render_frames`` of its keys,
   ``carry`` 0; capture ms and graph memory, beside the whole chain captured
   as one graph; the call beside the same steps run eagerly, timed in turns
-  and profiled (K5, K2, K3, K4 launched from the graph, counted by the
-  profiler's kernel names);
+  and profiled (K5, K2, K3, K4 and the draws kernels launched from the
+  graph, counted by the profiler's kernel names);
 - the probe-pose paths: ``PoseFitter(method="fd")`` from the scene's pose +
   (0, 0.3, 0), 5 steps of 28 frames in one batched pass each (4 keys,
   scales 2, 4, 8), and
@@ -84,7 +84,9 @@ test counts) and against the binary walk and K1 (t, winner) at every bounce
 of the sphere, ircad_hd and mega bvh frames and of the sphere's bvh batch of
 8, each bvh frame bitwise its brute frame, a served PNG byte
 for byte ``save_png`` of ``render_frame`` at its request, the keyed randomness on the card against the CPU (bits equal,
-normals allclose), and every frame's image is checked. The march kernels
+normals allclose), the draws kernels (``[draws]``: the key chain and its five fields, and the key
+batches) bitwise their plain versions at a chained step's shapes, timed beside them and their
+bound, and every frame's image is checked. The march kernels
 (K2, K8) are also held against their plain versions at full size (the
 sphere frame and the fit's set-up, with bitsum and with Box–Muller
 normals) and at a 64-element frame in every mode of the scatterer field
@@ -153,9 +155,9 @@ from mcray_tpu_torch.models.trainer import MaterialFitter, PoseFitter, column_ma
 from mcray_tpu_torch.ops import bvh, clusters, geometry, imaging, physics
 from mcray_tpu_torch.ops import cuda as kernels
 from mcray_tpu_torch.ops.bvh import build_bvh
-from mcray_tpu_torch.ops.cuda import (_build, bvh_intersect, intersect, intersect_culled,
-                                      intersect_grouped, intersect_listed, intersect_staged, march,
-                                      postproc, scanconv)
+from mcray_tpu_torch.ops.cuda import (_build, bvh_intersect, draws, intersect,
+                                      intersect_culled, intersect_grouped, intersect_listed,
+                                      intersect_staged, march, postproc, scanconv)
 from mcray_tpu_torch.utils.image_io import save_png
 from mcray_tpu_torch.ops.geometry import NO_HIT_T
 from mcray_tpu_torch.parallel.shard import (ShardedRenderer, ShardedRenderer2D, make_mesh,
@@ -238,6 +240,8 @@ SWEEP_FRAMES = 3
 # the chained batch: scene -> (batch, n_chain), bench.py's set-ups; the seed0 of its first call
 CHAINED = {"sphere": (8, 16), "ircad_hd": (8, 8)}
 CHAINED_SEED = 10
+# the draws kernels at a chained step's shapes: 8 frames' paths, every bounce
+DRAWS_FRAMES, DRAWS_SEED = 8, 2**31 + 19
 # the stage tables (roofline.stage_table): label -> (the frame's Simulator, its seeds, the
 # [bvh] ray set whose reference walks its trace floor reads where they are of its rays)
 ROOFLINE_FRAMES = {"sphere": ("sphere", (0,), "sphere"),
@@ -854,6 +858,48 @@ def rng_phase(sim, smi: str) -> dict:
             "draws_busy_ms": view["busy_ms"]}
 
 
+def draws_phase(cfg, smi: str) -> dict:
+    """The draws kernels (``ops/cuda/draws.py``) against their plain versions
+    at a chained step's shapes (DRAWS_FRAMES frames x the frame's paths x
+    max_depth): the step's frame keys and trace keys bitwise ``rng.fold_in``,
+    the five fields bitwise the plain draws (each field's largest distance
+    in ulps printed); each timed replayed from a CUDA graph beside its plain
+    version, the draws beside their bound (``roofline.draws_cost``)."""
+    n_paths = cfg.transducer_elements * cfg.samples_per_element
+    key = rng.prng_key(DRAWS_SEED).cuda()
+    data = torch.arange(DRAWS_FRAMES, device="cuda") + 2**32 - 3
+    frame_keys = draws.fold_in(key, data)
+    trace_key = draws.fold_in(frame_keys, 0)
+    path_ids = torch.arange(n_paths, device="cuda")
+    keys_equal = (torch.equal(frame_keys, rng.fold_in(key, data))
+                  and torch.equal(trace_key, rng.fold_in(frame_keys, 0)))
+    got = draws.keyed_draws(trace_key, path_ids, cfg.max_depth)
+    want = draws.keyed_draws_plain(trace_key, path_ids, cfg.max_depth)
+    torch.cuda.synchronize()
+    ulps = {name: int((got[name].view(torch.int32).long()
+                       - want[name].view(torch.int32).long()).abs().max())
+            for name in draws.FIELDS}
+    ms = {
+        "draws": graph_ms(lambda: draws.keyed_draws(trace_key, path_ids, cfg.max_depth), 1),
+        "draws_plain": graph_ms(
+            lambda: draws.keyed_draws_plain(trace_key, path_ids, cfg.max_depth), 1, copies=2),
+        "fold_in": graph_ms(lambda: draws.fold_in(key, data), 1),
+        "fold_in_plain": graph_ms(lambda: rng.fold_in(key, data), 1, copies=2),
+    }
+    bound = roofline.draws_cost(cfg, DRAWS_FRAMES).floor()
+    print(f"[draws] {smi}: {DRAWS_FRAMES} frames x {n_paths} paths x {cfg.max_depth} bounces "
+          f"({cfg.max_depth * DRAWS_FRAMES * n_paths} threads); keys bitwise {keys_equal}; "
+          f"largest distance to the plain draws in ulps {ulps}")
+    print(f"  device (graph replay): draws kernel {ms['draws']:.5f} ms, plain "
+          f"{ms['draws_plain']:.5f} ms; bound {bound[0]:.5f} ms by {bound[1]} "
+          f"({bound[0] / ms['draws']:.1%} of the kernel's time; {bound.n_ops:.4g} operations, "
+          f"{bound.n_bytes:.4g} bytes); key batch {ms['fold_in']:.5f} ms, plain "
+          f"{ms['fold_in_plain']:.5f} ms")
+    if not keys_equal or any(ulps.values()):
+        raise AssertionError("the draws kernels differ from their plain versions")
+    return {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1], "ulps": ulps}
+
+
 # every mode of the scatterer field at a 64-element sphere frame: normals x
 # lookup x gate x volume side (a power of two and not), and the table texture
 FIELD_MODES = [dict(scatter_rng=rng_mode, trilinear_texture=tri, soft_scattering=soft,
@@ -998,7 +1044,7 @@ def check_launches(label: str, counts: dict, per_run: dict, runs: int = 1) -> No
 
 def frame_launches(cfg, frames: int, closest: str = "intersect_listed") -> dict:
     return {closest: cfg.max_depth * frames, "march": frames, "postproc": frames,
-            "scanconv": frames}
+            "scanconv": frames, "draws": frames}
 
 
 def pose_fd_phase(pack, smi: str) -> dict:
@@ -1223,7 +1269,7 @@ def render_flags_phase(tmp: str) -> dict:
     counts = kernels.launch_counts()
     print(f"[render flags] {lines[0]}; {lines[1]}")
     check_launches("render flags", counts, {"bvh_intersect": cfg.max_depth, "march": 1,
-                                            "scanconv": 1})
+                                            "scanconv": 1, "draws": 1})
     with np.load(rf) as saved:
         files = sorted(saved.files)
         finite = all(bool(np.isfinite(saved[k]).all()) for k in files)
@@ -1360,7 +1406,8 @@ def shard_phase(pack, sim, fit, smi: str) -> dict:
     try:
         print(f"[shard] one-rank {dist.get_backend()} group (world {dist.get_world_size()}), NCCL "
               f"{torch.cuda.nccl.version()}; sphere at SimConfig(), frames 0-{SHARD_FRAMES - 1}")
-        frame_launches = {"intersect_listed": cfg.max_depth, "march": 1, "scanconv": 1}
+        frame_launches = {"intersect_listed": cfg.max_depth, "march": 1, "scanconv": 1,
+                          "draws": 1}
         renderers = {"halo": ShardedRenderer(pack, cfg, mesh, distributed_imaging=True),
                      "gathered": ShardedRenderer(pack, cfg, mesh, distributed_imaging=False),
                      "2d 1x1": ShardedRenderer2D(pack, cfg, make_mesh_2d(1, 1, device="cuda"))}
@@ -1685,8 +1732,7 @@ def bvh_batch_phase(sim) -> dict:
     out = sim.render_frames(seeds)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    check_launches("sphere bvh batch of 8", counts, {"bvh_intersect": cfg.max_depth, "march": 1,
-                                                     "postproc": 1, "scanconv": 1})
+    check_launches("sphere bvh batch of 8", counts, frame_launches(cfg, 1, "bvh_intersect"))
     singles = [sim.render_frame(s) for s in seeds]
     n = singles[0]["segments"]["valid"].shape[1]  # paths a frame
     differing = {}
@@ -1751,13 +1797,13 @@ def chained_phase(sims, smi: str) -> dict:
     wall ms per frame, all three bitwise alike; the device's view (busy ms,
     operations, idle share) of one chained call and of the eager steps, the
     chained call's launches by kernel name from the profiler (n_chain times
-    a step's: K5 10, K2, K3, K4 1)."""
+    a step's: K5 10, K2, K3, K4 1, the draws kernels 3)."""
     result = {}
     for name, (batch, n_chain) in CHAINED.items():
         sim = sims[name]
         cfg = sim.cfg
         frames = batch * n_chain
-        per_step = frame_launches(cfg, 1)
+        per_step = frame_launches(cfg, 1) | {"draws": 3}  # the step's keys on the card
         expect = {roofline.EVENT_NAMES[k]: v * n_chain for k, v in per_step.items()}
         print(f"[chained] {name}: make_chained_batch({batch}, {n_chain}), {frames} frames a call")
         torch.cuda.synchronize()
@@ -1864,7 +1910,7 @@ def main() -> int:
             print(f"  {line.strip()}")
 
     cfg = SimConfig()
-    loop = {"march": 1, "postproc": 1, "scanconv": 1}
+    loop = {"march": 1, "postproc": 1, "scanconv": 1, "draws": 1}
     how = "native library" if get_native() is not None else "Python"
     print(f"[scenes] BVH construction: {how}; OBJ parsing: {how}; {cfg.transducer_elements} elements x "
           f"{cfg.samples_per_element} paths x {cfg.max_depth} bounces")
@@ -1949,8 +1995,7 @@ def main() -> int:
         raise AssertionError("bad compound frame")
     served = kernels.launch_counts()
     frames = len(poses) * 2 + 1  # the compound's four frames are one batched pass
-    want = {k: 0 for k in served} | {"intersect_listed": cfg.max_depth * frames, "march": frames,
-                                     "postproc": frames, "scanconv": frames}
+    want = {k: 0 for k in served} | frame_launches(cfg, frames)
     print(f"[requests] sphere: {len(poses) * 2} frames + compound of 4 (one batch): launches "
           f"{served}")
     if served != want:
@@ -2106,6 +2151,7 @@ def main() -> int:
     mark("cuda vs cpu: pose")
     plain_modes_phase(sphere)
     drawn = rng_phase(sims["sphere"], smi)
+    keyed = draws_phase(cfg, smi)
     queries, stress_sets = isotropic_phase(smi)
     mark("plain modes, rng, isotropic")
 
@@ -2478,6 +2524,7 @@ def main() -> int:
     print("[shard] summary: " + json.dumps({k: v for k, v in shard.items() if k != "launches"}))
     print("[batch] summary: " + json.dumps(
         {k: v for k, v in batch.items() if k not in ("launches", "kernels")}, default=str))
+    print("[draws] summary: " + json.dumps(keyed))
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,9 @@ caller asks for the CPU.
 Randomness is explicit and keyed (``utils/rng.py``, threefry): ``render``
 takes the frame's draws (``physics.draw_bounce_randoms``) and the two
 texture seeds, and ``Simulator`` derives both from integer seeds by the
-reference's key chain, so one seed gives the reference's frame.
+reference's key chain, so one seed gives the reference's frame. On the card
+the draws' key chain is one kernel (``ops/cuda/draws.py``), bitwise its plain
+version.
 
 A batch of frames is one pass, as the reference's ``vmap`` is one call
 (``render_frames``): B frames, each with its own draws and pose, trace as
@@ -50,6 +52,7 @@ from ..ops import clusters, imaging, physics, texture
 from ..ops.bvh import DeviceBVH
 from ..ops.cuda import _build, add_launch_counts, launch_counts
 from ..ops.cuda.bvh_intersect import bvh_intersect_closest_cuda
+from ..ops.cuda.draws import fold_in, keyed_draws
 from ..ops.cuda.intersect import intersect_closest_cuda
 from ..ops.cuda.intersect_culled import intersect_closest_culled
 from ..ops.cuda.intersect_grouped import intersect_closest_grouped
@@ -290,12 +293,14 @@ def path_draws(trace_key: torch.Tensor, cfg: SimConfig, device,
     reference, ``mcray_tpu/models/simulator.py:91-100``): a shard draws for
     its own paths only, and exactly what the whole frame draws for them.
     ``trace_key`` (B, 2), one trace key per frame, gives B frames' draws in
-    one pass, (D, B x N) frame-major: what B calls give, side by side."""
+    one pass, (D, B x N) frame-major: what B calls give, side by side. On
+    the card the whole key chain is one kernel launch (``ops/cuda/draws.py``),
+    bitwise the plain composition it runs on the CPU."""
     if path_ids is None:
         path_ids = torch.arange(cfg.transducer_elements * cfg.samples_per_element,
                                 dtype=torch.int64, device=device)
-    path_keys = rng.fold_in(trace_key.to(device)[..., None, :], path_ids.to(device))
-    return physics.draw_bounce_randoms(path_keys.reshape(-1, 2), cfg.max_depth)
+    return keyed_draws(trace_key.to(device).reshape(-1, 2).contiguous(),
+                       path_ids.to(device).contiguous(), cfg.max_depth)
 
 
 def march_segments(segments, materials, seeds, volume, cfg: SimConfig, n_cols: int):
@@ -493,7 +498,7 @@ class Simulator:
         the CPU), or a (B, 2) tensor of keys (``rng.split``'s, left on its
         device: the chained batch's, derived on the card, copy nothing)."""
         if isinstance(seeds, torch.Tensor):
-            return seeds.reshape(-1, 2)
+            return seeds.reshape(-1, 2).contiguous()
         return torch.stack([(s if isinstance(s, torch.Tensor) else rng.prng_key(s)).cpu()
                             for s in seeds])
 
@@ -506,8 +511,8 @@ class Simulator:
         """The (D, B x N) draws of B frames (``seeds`` as ``render_frames``
         takes them) in one pass: frame b's are columns [b N, (b+1) N),
         bitwise ``draws(seeds[b])``."""
-        # the frames' trace keys are B keys: derived on the host, not by ~150 launches
-        return path_draws(rng.fold_in(self._frame_keys(seeds), 0), self.cfg, self.device)
+        # the frames' trace keys: on the host for host keys, else one kernel launch
+        return path_draws(fold_in(self._frame_keys(seeds), 0), self.cfg, self.device)
 
     def render_frame(self, seed=0, materials=None, position=None, angles=None, draws=None):
         """One frame; returns the dict of ``render``. ``seed`` is an integer
@@ -622,8 +627,8 @@ class ChainedBatch:
 
     def step_keys(self) -> torch.Tensor:
         """The (batch, 2) frame keys of the next step: ``fold_in(key, carry +
-        i * batch + b)`` in uint32."""
-        return rng.fold_in(self.key, self.carry + self.i * self.batch + self.offsets)
+        i * batch + b)`` in uint32 (one kernel launch on the card)."""
+        return fold_in(self.key, self.carry + self.i * self.batch + self.offsets)
 
     def step(self) -> torch.Tensor:
         """One step on the buffers: the next step's frames, then ``carry``

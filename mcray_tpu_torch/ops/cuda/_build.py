@@ -57,6 +57,8 @@ SIGNATURES = {
     "mcray_scan_convert": [P, I, I, I, P, I, P, P, P],
     "mcray_scan_convert_bwd": [P, P, P, P, I, I, I, P, P, P],
     "mcray_mark": [I, P],
+    "mcray_keyed_draws": [P, I, P, I, I, P, P],
+    "mcray_fold_in": [P, I, P, I, U, I, P, P],
     "mcray_capture_nodes": [P],
 }
 

@@ -97,7 +97,9 @@ EVENT_NAMES = {"intersect": "intersect_closest_kernel",
                "bvh_intersect": "bvh4_quad_kernel",
                "march": "march_kernel", "postproc": "postproc_kernel",
                "scanconv": "scan_convert_kernel", "march_bwd": "march_bwd_kernel",
-               "scanconv_bwd": "scanconv_bwd_kernel"}
+               "scanconv_bwd": "scanconv_bwd_kernel",
+               # both kernels of csrc/draws.cu: the draws and the key batches
+               "draws": "keyed_draws"}
 STAGE_CALLS, FRAME_EVENTS = 3, 5  # calls a stage table profiles, frames it times by events
 
 

@@ -36,6 +36,10 @@ halo B-mode at 1e-5 / 1e-6), and a cuda mesh raises where NCCL is missing;
 ``render``'s ``rf_conv`` is ``rf_raw`` where K3 runs; ``FrameMetrics`` waits
 on the card for a CUDA tensor. The measuring layer: ``graph_ms`` and
 ``busy_view`` of one K4 launch, and the stage table of a small sphere frame.
+The keyed draws: the draws kernel's five fields bitwise its plain version
+(1 and 8 frames, a frame's paths, an odd count and a shard's subset), the
+key-batch kernel bitwise ``rng.fold_in``, and a captured chained step's
+B-modes bitwise an eager step of the plain draws.
 The chained batch: replayed from a CUDA graph, bitwise its steps run
 eagerly and ``render_frames`` of the last step's keys, for two seeds; under
 the profiler its replays show every stage mark of every step, the launch
@@ -57,7 +61,7 @@ from mcray_tpu_torch.models.simulator import Simulator
 from mcray_tpu_torch.models.trainer import PoseFitter
 from mcray_tpu_torch.ops import bvh, clusters, geometry, imaging
 from mcray_tpu_torch.ops import physics
-from mcray_tpu_torch.ops.cuda import (_build, bvh_intersect, intersect, intersect_culled,
+from mcray_tpu_torch.ops.cuda import (_build, bvh_intersect, draws, intersect, intersect_culled,
                                       intersect_grouped, intersect_listed, intersect_staged, march,
                                       postproc, scanconv)
 from mcray_tpu_torch.scene.compile import load_and_compile
@@ -327,6 +331,71 @@ def test_keyed_draws_on_the_card_match_the_cpu(cuda):
     sim = Simulator(load_and_compile(SPHERE_SCENE), small_test_config(), device=cuda, seed=3)
     a, b = sim.render_frame(8)["bmode"], sim.render_frame(8)["bmode"]
     assert torch.equal(a, b) and float(a.std()) > 0  # one seed, one frame
+
+
+@pytest.mark.parametrize("frames,paths", [(1, "frame"), (8, "frame"), (8, "odd"), (1, "shard"),
+                                          (8, "shard")])
+def test_keyed_draws_kernel_matches_plain_bitwise(cuda, frames, paths):
+    """The draws kernel against its plain version on the card (``rng`` in
+    elementwise ops, then ``draw_bounce_randoms``), all five fields bitwise,
+    at D = 10: a frame's 2,560 paths, an odd 2,557 (a ragged last block) and
+    a shard's subset of path ids; the five fields views of one buffer."""
+    ids = {"frame": torch.arange(2560), "odd": torch.arange(2557),
+           "shard": (torch.arange(16)[:, None] * 5 + torch.arange(3, 5)[None]).reshape(-1) + 1280}
+    trace_key = rng.fold_in(rng.fold_in(rng.prng_key(2**31 + 77), torch.arange(frames)), 0)
+    trace_key, path_ids = trace_key.to(cuda), ids[paths].to(cuda)
+    before = draws.launches
+    got = draws.keyed_draws(trace_key, path_ids, 10)
+    torch.cuda.synchronize()
+    assert draws.launches == before + 1
+    want = draws.keyed_draws_plain(trace_key, path_ids, 10)
+    base = got["q_normal"].untyped_storage().data_ptr()
+    for i, name in enumerate(draws.FIELDS):
+        assert got[name].shape == (10, frames * path_ids.numel()) and got[name].is_contiguous()
+        assert got[name].data_ptr() == base + 4 * i * got[name].numel(), name
+        assert torch.equal(got[name], want[name]), name
+    assert float(got["angle_u"].min()) >= 1e-12 and bool(torch.isfinite(got["q_normal"]).all())
+
+
+@pytest.mark.parametrize("n", [8, 3000])
+def test_fold_in_kernel_matches_rng_fold_in(cuda, n):
+    """The key-batch kernel against ``rng.fold_in`` bitwise, on the card and
+    on the CPU: n keys against one value, one key against n data (the chained
+    step's frame keys), and n keys against n data."""
+    keys = rng.fold_in(rng.prng_key(3), torch.arange(n))
+    data = torch.arange(n) * 7919 + 2**32 - 5
+    cases = [(keys, 0), (keys, 2**32 + 9), (rng.prng_key(11), data), (keys, data),
+             (keys, torch.tensor(4))]
+    before = draws.launches
+    for k, x in cases:
+        on_card = x.to(cuda) if isinstance(x, torch.Tensor) else x
+        got = draws.fold_in(k.to(cuda), on_card)
+        assert torch.equal(got, rng.fold_in(k.to(cuda), on_card))
+        assert torch.equal(got.cpu(), rng.fold_in(k, x))
+    assert draws.launches == before + len(cases)
+
+
+def test_chained_step_equals_an_eager_step_of_the_plain_draws(cuda):
+    """A captured chained step (its keys and draws by the draws kernels)
+    against the same step run eagerly on the card with the plain draws
+    (``rng`` in elementwise ops): the B-modes bitwise, for one seed; the
+    step graph launches the draws kernels three times."""
+    from mcray_tpu_torch.models import simulator
+
+    cfg = small_test_config(transducer_elements=32, samples_per_element=2)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=1)
+    chained = sim.make_chained_batch(3, 1)
+    got = chained(2**31 + 3).clone()
+    assert chained.launches["draws"] == 3
+    keys = rng.fold_in(rng.prng_key(2**31 + 3).to(cuda), torch.arange(3, device=cuda))
+    n = cfg.transducer_elements * cfg.samples_per_element
+    plain = draws.keyed_draws_plain(rng.fold_in(keys, 0), torch.arange(n, device=cuda),
+                                    cfg.max_depth)
+    want = simulator.render_frames(plain, sim.seeds, sim.materials, sim.position.expand(3, 3),
+                                   sim.angles.expand(3, 3), sim.scene, sim.spacing,
+                                   sim.starting_material, sim.scan_maps, cfg, volume=sim.volume,
+                                   **sim.trace_kw)["bmode"]
+    assert torch.equal(got, want) and float(got.std()) > 0
 
 
 def test_frame_kernels_match_plain(cuda):
@@ -640,6 +709,21 @@ def test_wrappers_reject_bad_inputs(cuda):
         intersect.intersect_best(rays[:5], tri_soa)
     with pytest.raises(TypeError):
         intersect.intersect_best(rays, tri_soa.double())
+    keys = torch.zeros((2, 2), dtype=torch.int64, device=cuda)
+    ids = torch.arange(8, device=cuda)
+    before = draws.launches
+    for bad_key, bad_ids in ((keys.int(), ids), (keys, ids.int()), (keys, ids.cpu()),
+                             (keys[:, :1], ids), (keys, ids[None]), (keys.T, ids),
+                             (keys, ids[::2])):
+        with pytest.raises((TypeError, ValueError)):
+            draws.keyed_draws(bad_key, bad_ids, 10)
+    with pytest.raises(ValueError):  # no path
+        draws.keyed_draws(keys, ids[:0], 10)
+    for bad_key, data in ((keys.int(), 0), (keys[:, :1], 0), (keys, ids.int()),
+                          (keys, ids.cpu()), (keys, ids[:3]), (keys, ids[None])):
+        with pytest.raises((TypeError, ValueError)):
+            draws.fold_in(bad_key, data)
+    assert draws.launches == before
     soa = torch.zeros((4, march.N_FIELDS, 128), device=cuda)
     with pytest.raises(TypeError):
         march.march_cuda(soa.double(), torch.zeros(2, dtype=torch.int64), cfg, 128)
@@ -835,7 +919,8 @@ def test_batched_frame_on_the_card_equals_single_frames(cuda):
     batch = sim.render_frames([1, 2, 3], positions=positions, angles=angles)
     counts = kernels.launch_counts()
     assert counts["intersect_listed"] == cfg.max_depth
-    assert (counts["march"], counts["postproc"], counts["scanconv"]) == (1, 1, 1)
+    assert (counts["march"], counts["postproc"], counts["scanconv"], counts["draws"]) == (
+        1, 1, 1, 1)
     for b, seed in enumerate((1, 2, 3)):
         one = sim.render_frame(seed, position=positions[b], angles=angles[b])
         for key in ("rf_raw", "rf_env", "bmode"):
@@ -1079,7 +1164,7 @@ def test_chained_call_marks_every_stage_and_counts_its_replays(cuda):
     chained(1)  # the capture
     assert profiling.counters()["chained.graph_nodes"] > nodes
     assert chained.launches == {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1,
-                                "scanconv": 1}
+                                "scanconv": 1, "draws": 3}
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
