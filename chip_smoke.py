@@ -22,9 +22,12 @@ with the launch counts set to 0 just before it and read just after:
 - the isotropic 2,560-ray query on a 200,000-triangle synthetic scene that
   the grouped kernel was built for, and the same scene's coherent fan;
 - the differentiable material fit on the sphere in soft + trilinear mode:
-  the target frame, then 5 Adam steps of ``MaterialFitter`` on the doubled
-  LIVER attenuation, through K5, K2, K3, K4 forward and the march (K8) and
-  scan-conversion (K9) backward kernels;
+  the target frame, then 5 Adam steps of ``MaterialFitter.run`` on the
+  doubled LIVER attenuation, the step captured as a CUDA graph and replayed,
+  through K5, K2, K3, K4 forward and the march (K8) and scan-conversion (K9)
+  backward kernels, against the same steps taken eagerly (the first loss
+  bitwise, the table within 1e-5 of each entry), the launches of each
+  replay exact, the replayed step's device ms, nodes and peak memory;
 - the parallel layer on a one-rank NCCL group (``make_mesh(device="cuda")``):
   ``ShardedRenderer``'s sphere frames 0-2 in the halo and the gathered
   imaging mode and a ``ShardedRenderer2D`` 1 x 1 frame against the
@@ -195,6 +198,10 @@ MEGA_FRAME_RTOL, MEGA_FRAME_ATOL = 1e-3, 1e-4
 # the normal draw goes through each device's erfinv
 NORMAL_RTOL, NORMAL_ATOL = 1e-5, 1e-6
 FIT_STEPS = 5
+# the fit's table after FIT_STEPS steps, captured against eager, relative to each
+# entry: the backward's gathers add with atomics, in another order each run, and
+# Adam's normalised update keeps such differences at the gradient's relative size
+FIT_TABLE_RTOL = 1e-5
 SHARD_FRAMES = 3          # sharded frames 0-2 held to the Simulator's, in each imaging mode
 SHARD_TIMED_FRAMES = 10
 # K1 on ircad_hd against its plain version: this many rays of each bounce
@@ -623,7 +630,11 @@ def device_view(label: str, fn, unit_ms: float, n: int = 3, top: int = 8,
 def fit_phase(pack, smi: str) -> dict:
     """The differentiable material fit at full width on the card: the target
     frame, FIT_STEPS Adam steps on the doubled LIVER attenuation with fixed
-    randomness, the launch counts of that run, then step timings."""
+    randomness through ``MaterialFitter.run`` (the step captured as a CUDA
+    graph and replayed) against the same steps taken eagerly (the first loss
+    bitwise, the table after them within FIT_TABLE_RTOL), the launches of
+    each replay, then the replayed step's device ms, nodes and peak memory
+    beside the eager step's timings."""
     cfg = SimConfig(soft_scattering=True, trilinear_texture=True)
     sim = Simulator(pack, cfg, device="cuda", seed=0)
     row, col = 3, physics.ATTENUATION  # LIVER, the box medium
@@ -638,25 +649,43 @@ def fit_phase(pack, smi: str) -> dict:
         return MaterialFitter.from_simulator(sim, perturbed, frame["bmode"], trainable=(col,),
                                              trainable_rows=[row], fixed_frame=draws)
 
-    fit = fitter()
     print(f"[fit] sphere, soft + trilinear, {FIT_STEPS} steps on materials[{row}, {col}] "
           f"(true {pack.materials[row, col]:.4g}, start {perturbed[row, col]:.4g})")
+    eager = fitter()
+    want = [eager.step(draws) for _ in range(FIT_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fit = fitter()
+    nodes = profiling.counters().get("fit.graph_nodes", 0)
+    losses = fit.run(1, verbose=False)
+    grads = [fit.last_grad.clone()]
     kernels.reset_launch_counts()
-    losses, grads = [], []
-    for _ in range(FIT_STEPS):
-        losses.append(fit.step(draws))
+    for _ in range(FIT_STEPS - 1):
+        losses += fit.run(1, verbose=False)
         grads.append(fit.last_grad.clone())
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    nodes = profiling.counters()["fit.graph_nodes"] - nodes
     per_step = {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1, "scanconv": 1,
                 "march_bwd": 1, "scanconv_bwd": 1}
-    want = {k: per_step.get(k, 0) * len(losses) for k in counts}
-    print(f"  launches over {len(losses)} steps: {counts}")
-    if counts != want:
-        raise AssertionError(f"fit launch counts {counts} != {want}")
-    fitted = float(fit.state.materials[row, col])
-    print(f"  losses {[f'{v:.6g}' for v in losses]}; fitted {fitted:.5g}; "
-          f"gradient on the trained entry {[f'{float(g[row, col]):.4g}' for g in grads]}")
+    print(f"  captured step's launches {fit.launches}; over {FIT_STEPS - 1} replays: "
+          f"{nonzero(counts)}")
+    if fit.graph is None or fit.launches != per_step:
+        raise AssertionError(f"fit step launches {fit.launches} != {per_step}")
+    check_launches("fit replays", counts, per_step, FIT_STEPS - 1)
+    table, want_table = fit.state.materials, eager.state.materials
+    table_err = float(((table - want_table).abs() / want_table.abs().clamp(min=1e-30)).max())
+    fitted = float(table[row, col])
+    print(f"  losses {[f'{v:.6g}' for v in losses]} (eager {[f'{v:.6g}' for v in want]}); "
+          f"fitted {fitted:.5g}; gradient on the trained entry "
+          f"{[f'{float(g[row, col]):.4g}' for g in grads]}; table against the eager steps' "
+          f"max rel err {table_err:.3e} (limit {FIT_TABLE_RTOL})")
+    if losses[0] != want[0]:
+        raise AssertionError(f"the captured step's first loss {losses[0]!r} != the eager "
+                             f"step's {want[0]!r}")
+    if table_err > FIT_TABLE_RTOL:
+        raise AssertionError("the captured steps' table parts from the eager steps'")
     off = torch.ones_like(grads[0], dtype=torch.bool)
     off[row, col] = False
     for g in grads:
@@ -665,20 +694,25 @@ def fit_phase(pack, smi: str) -> dict:
                                  "non-zero on a masked one")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"fit losses {losses}: not finite, or the last is not below the first")
-    untouched = fit.state.materials.cpu().numpy()
+    untouched = table.cpu().numpy()
     untouched[row, col] = pack.materials[row, col]
     if not (untouched == pack.materials).all():
         raise AssertionError("the fit moved an untrained material entry")
 
-    # timing: whole steps, then forward and backward apart, on a fresh fitter
-    fit = fitter()
-    fit.step(draws)
-    step_ms, fwd_ms, bwd_ms = event_ms(lambda: fit.step(draws), FIT_STEPS), [], []
-    mats = fit.state.materials.requires_grad_(True)
+    # timing: the replayed step by events, then eager steps, forward and backward apart
+    replay_ms = event_ms(fit.graph.replay, FIT_STEPS)
+    print(f"  [{smi}] fit step replayed: median {statistics.median(replay_ms):.3f} ms (min "
+          f"{min(replay_ms):.3f}, max {max(replay_ms):.3f}) over {FIT_STEPS} replays; "
+          f"{nodes} graph nodes; peak memory {peak} bytes")
+    device_view("fit step (replayed)", lambda: fit.run(1, verbose=False),
+                statistics.median(replay_ms), expect={"march_bwd_kernel": 1,
+                                                      "scanconv_bwd_kernel": 1})
+    step_ms, fwd_ms, bwd_ms = event_ms(lambda: eager.step(draws), FIT_STEPS), [], []
+    mats = eager.state.materials.requires_grad_(True)
     for _ in range(FIT_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        loss = fit.loss(mats, draws)
+        loss = eager.loss(mats, draws)
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -688,12 +722,13 @@ def fit_phase(pack, smi: str) -> dict:
     g_rf = torch.randn(frame["rf_raw"].shape, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(3))
     pp_bwd = cuda_ms(lambda: postproc.postproc_bwd_plain(frame["rf_raw"], g_rf, cfg), 5)
-    print(f"  [{smi}] fit step: median {statistics.median(step_ms):.3f} ms "
+    print(f"  [{smi}] fit step eager: median {statistics.median(step_ms):.3f} ms "
           f"(min {min(step_ms):.3f}, max {max(step_ms):.3f}) over {FIT_STEPS} steps; forward "
           f"{statistics.median(fwd_ms):.3f} ms, backward {statistics.median(bwd_ms):.3f} ms; "
           f"postproc backward (plain PyTorch autograd, no kernel) {pp_bwd:.3f} ms")
-    device_view("fit step", lambda: fit.step(draws), statistics.median(step_ms))
-    return {"sim": sim, "frame": frame, "counts": counts, "steps": len(losses), "cfg": cfg}
+    device_view("fit step (eager)", lambda: eager.step(draws), statistics.median(step_ms))
+    return {"sim": sim, "frame": frame, "counts": counts, "steps": FIT_STEPS - 1, "cfg": cfg,
+            "replay_ms": statistics.median(replay_ms), "nodes": nodes, "peak": peak}
 
 
 def fit_cuda_vs_cpu(pack) -> None:

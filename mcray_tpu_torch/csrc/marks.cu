@@ -1,5 +1,5 @@
-// Stage marks: one empty kernel a stage of the chained step, and the node
-// count of a graph under capture.
+// Stage marks: one empty kernel a stage of the chained step or of the fit
+// step, and the node count of a graph under capture.
 //
 // Replaces no TPU kernel. The chained batch (models/simulator.py:ChainedBatch)
 // replays a step of ~5,500 nodes from a CUDA graph, and a host range
@@ -7,8 +7,9 @@
 // replay. A mark launched into the graph where a stage starts is a device
 // event named after the stage, mcray_mark_<stage>, on the replayed timeline:
 // a trace splits there by stage (utils/profiling.py:mark, STAGES, in this
-// order). One thread, no memory traffic: a mark costs its launch, ~1-2 us of
-// device time.
+// order; the fit step's four backward stages follow the six of the forward).
+// One thread, no memory traffic: a mark costs its launch, ~1-2 us of device
+// time.
 //
 // mcray_capture_nodes counts the nodes of the graph being captured on a
 // stream: the step graph's size, read once at the end of its capture.
@@ -21,6 +22,10 @@ extern "C" __global__ void mcray_mark_closest_hit() {}
 extern "C" __global__ void mcray_mark_bounce_physics() {}
 extern "C" __global__ void mcray_mark_march() {}
 extern "C" __global__ void mcray_mark_image() {}
+extern "C" __global__ void mcray_mark_image_bwd() {}
+extern "C" __global__ void mcray_mark_march_bwd() {}
+extern "C" __global__ void mcray_mark_trace_bwd() {}
+extern "C" __global__ void mcray_mark_update() {}
 
 // Launch the mark of stage `stage` (an index into utils/profiling.py:STAGES).
 extern "C" int mcray_mark(int stage, cudaStream_t stream) {
@@ -31,6 +36,10 @@ extern "C" int mcray_mark(int stage, cudaStream_t stream) {
     case 3: mcray_mark_bounce_physics<<<1, 1, 0, stream>>>(); break;
     case 4: mcray_mark_march<<<1, 1, 0, stream>>>(); break;
     case 5: mcray_mark_image<<<1, 1, 0, stream>>>(); break;
+    case 6: mcray_mark_image_bwd<<<1, 1, 0, stream>>>(); break;
+    case 7: mcray_mark_march_bwd<<<1, 1, 0, stream>>>(); break;
+    case 8: mcray_mark_trace_bwd<<<1, 1, 0, stream>>>(); break;
+    case 9: mcray_mark_update<<<1, 1, 0, stream>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

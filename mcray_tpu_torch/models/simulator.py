@@ -303,17 +303,28 @@ def path_draws(trace_key: torch.Tensor, cfg: SimConfig, device,
                        path_ids.to(device).contiguous(), cfg.max_depth)
 
 
+#: the segment fields a gradient flows back through into the trace
+TRACED_FIELDS = ("from", "to", "direction", "reflected", "initial", "attenuation", "distance")
+
+
 def march_segments(segments, materials, seeds, volume, cfg: SimConfig, n_cols: int):
     """The (rf_rows, n_cols) RF image of ``segments`` (each path's column is
     its ``element``) and the packed SoA the march kernel read: K2 on the
     SoA, or under ``soft_row_binning`` the reference's plain scatter march
-    (its kernel bins hard), with no SoA (None)."""
+    (its kernel bins hard), with no SoA (None). Under autograd the
+    backward's marks sit on the RF image (``march_bwd``: the march's
+    backward follows) and on the segments (``trace_bwd``: the trace's)."""
     profiling.mark("march", segments["valid"].device)
+    traced = [k for k in TRACED_FIELDS if segments[k].requires_grad]
+    segments = {**segments, **dict(zip(traced, profiling.grad_mark(
+        "trace_bwd", *(segments[k] for k in traced))))}
     if cfg.soft_row_binning:
-        return None, march_and_accumulate(segments, materials, volume or {"seeds": seeds}, cfg,
-                                          n_cols)
-    soa = pack_segments(segments, materials, cfg, n_cols)
-    return soa, march_cuda(soa, seeds, cfg, n_cols)
+        soa, rf = None, march_and_accumulate(segments, materials, volume or {"seeds": seeds},
+                                             cfg, n_cols)
+    else:
+        soa = pack_segments(segments, materials, cfg, n_cols)
+        rf = march_cuda(soa, seeds, cfg, n_cols)
+    return soa, profiling.grad_mark("march_bwd", rf)[0]
 
 
 def scan_convert_frame(rf_env, maps, cfg: SimConfig):
@@ -504,8 +515,9 @@ class Simulator:
 
     def draws(self, seed) -> dict[str, torch.Tensor]:
         """The frame's random draws on the device, keyed as the reference
-        keys them: ``seed`` is the frame's integer seed or its (2,) key."""
-        return self.batch_draws([seed])
+        keys them: ``seed`` is the frame's integer seed or its (2,) key (a
+        key on the card is used where it is: nothing is copied)."""
+        return self.batch_draws(seed if isinstance(seed, torch.Tensor) else [seed])
 
     def batch_draws(self, seeds) -> dict[str, torch.Tensor]:
         """The (D, B x N) draws of B frames (``seeds`` as ``render_frames``

@@ -11,7 +11,9 @@ gradients on the scattering threshold (mu1) enable ``cfg.soft_scattering``
 and ``cfg.trilinear_texture``.
 
 The update is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the
-update of ``optax.adam`` at its defaults.
+update of ``optax.adam`` at its defaults; on the card the material fit's
+is ``capturable``, so that the update a CUDA graph replays is the one an
+eager step makes.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ import numpy as np
 import torch
 
 from ..ops import physics
+from ..ops.cuda import _build, add_launch_counts, launch_counts
+from ..ops.cuda.draws import fold_in
 from ..ops.imaging import gaussian_blur
-from ..utils import rng
+from ..utils import profiling, rng
 
 # Default trainable columns: impedance, attenuation, mu0, mu1, sigma.
 # Specularity/shininess/thickness stay frozen (integer-ish semantics).
@@ -56,9 +60,11 @@ class FitState:
     step: int = 0
 
 
-def _adam(params, learning_rate: float) -> torch.optim.Adam:
-    """``optax.adam``'s update at its defaults."""
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+def _adam(params, learning_rate: float, capturable: bool = False) -> torch.optim.Adam:
+    """``optax.adam``'s update at its defaults (``capturable``: its state and
+    arithmetic on the parameters' card, for a CUDA graph)."""
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=capturable)
 
 
 def _adam_state(optimizer: torch.optim.Adam, param: torch.Tensor) -> dict:
@@ -75,8 +81,8 @@ class MaterialFitter:
     ``render_fn(frame, materials) -> bmode`` renders one frame,
     differentiable in ``materials``; ``frame`` says which randomness: an int
     frame seed, a (2,) key of ``utils/rng.py`` (what ``run`` hands out, as
-    the reference's fit loop does), or whatever ``fixed_frame`` holds (a
-    seed, a key, or a dict of draws). The tensors live where
+    the reference's fit loop does, on the fitter's device), or the fixed
+    draws of ``fixed_frame`` (a dict). The tensors live where
     ``init_materials`` lives (hand in the simulator's), so a fitter built
     from a ``Simulator`` on the card fits on the card.
 
@@ -88,6 +94,33 @@ class MaterialFitter:
     -> (n, H, W)`` where one is given (``from_simulator`` gives
     ``Simulator.render_batch``), as the reference's ``vmap`` does; with the
     bare ``render_fn`` alone they render one after another.
+
+    ``run`` steps from buffers on the fitter's device: the key of step i is
+    ``fold_in(prng_key(seed), i)`` from a key buffer and a step counter that
+    the step advances (a fixed seed or key: that key), then the frames, the
+    loss, the backward, the mask, Adam and the clamp. On the card that step
+    is captured as a CUDA graph at the first call, after one eager step on a
+    side stream that builds the kernels, the caches and Adam's state (the
+    fit's state is put back after it), with a memory pool of its own, and
+    each step of a call is a replay: no host value enters between steps, and
+    a call reads its losses from the card once. A call's ``seed``, and a new
+    start set through ``state``, are copied into the graph's buffers; nothing
+    is captured again. ``last_grad`` (the masked gradient) and
+    ``last_frames`` are then the graph's buffers, which the next step
+    overwrites. The graph reads the target and the renderer's tensors as
+    they are at capture. A capture or replay that fails raises. ``step(frame)`` is
+    one step of the same arithmetic, eager, on any device. The kernels'
+    launch counters count a replay's launches (``launches``, by kernel) as
+    the chained batch's do.
+
+    Tracing: a call is the span ``fit.call`` (a request id of its own;
+    ``units``: its frames), each replay a child span ``fit.replay``, the
+    warm-up and capture the span ``fit.capture``; the counters
+    ``fit.graph_nodes`` and ``fit.graph_frames`` count the step graph's nodes
+    and frames once, at capture. A step marks the six stages of its forward
+    (``draws`` first), then ``image_bwd`` where the loss starts, and through
+    the backward ``march_bwd`` and ``trace_bwd``, then ``update``
+    (``utils/profiling.py``).
     """
 
     def __init__(
@@ -108,11 +141,24 @@ class MaterialFitter:
         self.target = target.detach().to(self.device)
         self.mask = column_mask(init_materials.shape[0], trainable, trainable_rows).to(self.device)
         self.n_frames = n_frames_per_step
-        self.fixed_frame = fixed_frame
         self._params = init_materials.detach().clone().to(torch.float32).requires_grad_(True)
-        self.optimizer = _adam([self._params], learning_rate)
+        self.optimizer = _adam([self._params], learning_rate,
+                               capturable=self.device.type == "cuda")
         self.step_count = 0
         self.last_grad = None
+        self.last_frames = None
+        # the buffers a step reads: the seed's key, the step counter, the frame offsets
+        self._key = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._step = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._offsets = torch.arange(n_frames_per_step, dtype=torch.int64, device=self.device)
+        self._fixed = fixed_frame
+        if fixed_frame is not None and not isinstance(fixed_frame, dict):
+            key = fixed_frame if isinstance(fixed_frame, torch.Tensor) else rng.prng_key(fixed_frame)
+            self._fixed = key.to(self.device)
+        self.graph = None
+        self._graph_out = None
+        #: the captured step's kernel launches, by kernel (``launch_counts``' names)
+        self.launches = {}
 
     @classmethod
     def from_simulator(cls, sim, init_materials, target, *, position=None, angles=None, **kw):
@@ -139,6 +185,8 @@ class MaterialFitter:
 
     @state.setter
     def state(self, value: FitState) -> None:
+        """Copies ``value`` into the fitter's tensors (Adam's too, where it
+        has them), so a captured step reads it."""
         opt = value.opt_state
         shape = self._params.shape
         if (set(opt) != {"exp_avg", "exp_avg_sq", "step"}
@@ -147,57 +195,150 @@ class MaterialFitter:
                 or tuple(value.materials.shape) != tuple(shape)):
             raise ValueError("fit state does not match this fitter's Adam state "
                              f"(materials and moments of shape {tuple(shape)})")
+        # Adam keeps its step count as a float32 tensor, on the card where it is capturable
+        capturable = self.optimizer.defaults["capturable"]
+        step = torch.tensor(float(opt["step"]), dtype=torch.float32,
+                            device=self.device if capturable else "cpu")
+        adam = self.optimizer.state[self._params]
         with torch.no_grad():
             self._params.copy_(value.materials.to(self.device))
-        self.optimizer.state[self._params] = {
-            # Adam keeps its step count as a float32 tensor on the CPU
-            "step": torch.tensor(float(opt["step"]), dtype=torch.float32),
-            "exp_avg": opt["exp_avg"].to(self.device, torch.float32).clone(),
-            "exp_avg_sq": opt["exp_avg_sq"].to(self.device, torch.float32).clone(),
-        }
+            for key, v in (("step", step), ("exp_avg", opt["exp_avg"]),
+                           ("exp_avg_sq", opt["exp_avg_sq"])):
+                if key in adam:
+                    adam[key].copy_(v)
+                else:
+                    adam[key] = v if key == "step" else v.to(self.device, torch.float32).clone()
         self.step_count = int(value.step)
 
     # --- one step ---------------------------------------------------------
-    def loss(self, materials: torch.Tensor, frame) -> torch.Tensor:
-        """Pixel MSE of the frame (the mean of ``n_frames_per_step`` frames,
-        keyed by ``split(key of frame, n_frames_per_step)`` as the reference
-        keys them, rendered in one batched call where ``render_batch_fn`` is
-        given) against the target."""
+    def _frames(self, materials: torch.Tensor, frame) -> torch.Tensor:
+        """The (n_frames_per_step, H, W) B-modes of ``frame``: the frames of
+        the keys ``split(key of frame, n_frames_per_step)`` as the reference
+        keys them (one batched call where ``render_batch_fn`` is given), or
+        for one frame a step ``render_fn(frame)``."""
         if self.n_frames == 1:
-            pred = self.render_fn(frame, materials)
-        else:
-            if isinstance(frame, dict):
-                raise ValueError("n_frames_per_step > 1 needs an integer frame seed or a key, "
-                                 "not fixed draws")
-            key = frame if isinstance(frame, torch.Tensor) else rng.prng_key(frame)
-            keys = rng.split(key, self.n_frames)
-            if self.render_batch_fn is not None:
-                frames = self.render_batch_fn(keys, materials)
-            else:
-                frames = torch.stack([self.render_fn(k, materials) for k in keys])
-            pred = frames.mean(dim=0)
+            return self.render_fn(frame, materials)[None]
+        if isinstance(frame, dict):
+            raise ValueError("n_frames_per_step > 1 needs an integer frame seed or a key, "
+                             "not fixed draws")
+        key = frame if isinstance(frame, torch.Tensor) else rng.prng_key(frame)
+        keys = fold_in(key, self._offsets.to(key.device))
+        if self.render_batch_fn is not None:
+            return self.render_batch_fn(keys, materials)
+        return torch.stack([self.render_fn(k, materials) for k in keys])
+
+    def _loss(self, frames: torch.Tensor) -> torch.Tensor:
+        profiling.mark("image_bwd", frames.device)
+        pred = frames[0] if frames.shape[0] == 1 else frames.mean(dim=0)
         return torch.mean((pred - self.target) ** 2)
 
-    def step(self, frame) -> float:
-        """One Adam step on the masked gradient; returns the loss before it."""
+    def loss(self, materials: torch.Tensor, frame) -> torch.Tensor:
+        """Pixel MSE of the frame (the mean of ``n_frames_per_step`` frames,
+        ``_frames``) against the target."""
+        return self._loss(self._frames(materials, frame))
+
+    def _update(self, frame) -> dict[str, torch.Tensor]:
+        """One Adam step on the masked gradient of ``frame``'s loss, then the
+        clamp; returns the step's ``loss`` (before it), ``grad`` (masked),
+        ``frames`` and ``record`` (the loss and the gradient's norm)."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(self._params, frame)
+        frames = self._frames(self._params, frame)
+        loss = self._loss(frames)
         loss.backward()
-        self._params.grad.mul_(self.mask)
-        self.last_grad = self._params.grad.detach().clone()
+        profiling.mark("update", self.device)
+        grad = self._params.grad.mul_(self.mask)
         self.optimizer.step()
         with torch.no_grad():
             # keep physical parameters positive, on trainable entries only
             clamped = torch.clamp(self._params, min=1e-4)
             self._params.copy_(torch.where(self.mask > 0, clamped, self._params))
+        loss = loss.detach()
+        return {"loss": loss, "grad": grad, "frames": frames.detach(),
+                "record": torch.stack([loss, torch.linalg.vector_norm(grad)])}
+
+    def step(self, frame) -> float:
+        """One eager Adam step on the masked gradient; returns the loss before it."""
+        out = self._update(frame)
+        self.last_grad = out["grad"].detach().clone()
+        self.last_frames = out["frames"]
         self.step_count += 1
-        return float(loss.detach())
+        return float(out["loss"])
+
+    def _step_on_buffers(self) -> dict[str, torch.Tensor]:
+        """``run``'s step: the frame (the fixed one, or the key of the step
+        counter), the update, the counter advanced."""
+        profiling.mark("draws", self.device)
+        frame = self._fixed if self._fixed is not None else fold_in(self._key, self._step)
+        out = self._update(frame)
+        self._step.add_(1)
+        return out
+
+    def capture(self) -> None:
+        """One eager step on a side stream, then one step captured into
+        ``graph`` (its own memory pool), both in the span ``fit.capture``;
+        the fit's state is put back after the eager step. Counts the graph's
+        nodes and the step's launches. The kernel library is loaded first,
+        outside the span."""
+        device = self.device
+        _build.library()
+        with profiling.span("fit.capture", units=self.n_frames):
+            start, counter = self.state, self._step.clone()
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self._step_on_buffers()
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.state = start
+            self._step.copy_(counter)
+            graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with torch.cuda.graph(graph):
+                out = self._step_on_buffers()
+                nodes = profiling.capture_nodes(device)
+            torch.cuda.synchronize(device)
+        self.launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        add_launch_counts(self.launches, -1)  # captured, not run
+        profiling.count("fit.graph_nodes", nodes)
+        profiling.count("fit.graph_frames", self.n_frames)
+        self.graph, self._graph_out = graph, out
+
+    def _steps(self, n_steps: int, seed: int = 0) -> torch.Tensor:
+        """``n_steps`` steps from the buffers (``run``), unread: the (n_steps,
+        2) losses and gradient norms on the fitter's device."""
+        with profiling.span("fit.call", request=profiling.request(),
+                            units=n_steps * self.n_frames):
+            if self.device.type == "cuda" and self.graph is None:
+                self.capture()
+            self._key.copy_(rng.prng_key(seed))
+            self._step.fill_(self.step_count)
+            records = []
+            for _ in range(n_steps):
+                if self.graph is None:  # the CPU
+                    out = self._step_on_buffers()
+                else:
+                    with profiling.span("fit.replay", units=self.n_frames):
+                        self.graph.replay()
+                    out = self._graph_out
+                records.append(out["record"].clone())
+            if self.graph is not None:
+                add_launch_counts(self.launches, n_steps)
+            if n_steps:
+                self.last_grad, self.last_frames = out["grad"], out["frames"]
+            self.step_count += n_steps
+            return torch.stack(records) if records else torch.zeros((0, 2))
 
     def run(self, n_steps: int, seed: int = 0, log_every: int = 10, verbose: bool = True):
         """``n_steps`` steps; each renders with ``fixed_frame``, or else with
         the key ``fold_in(prng_key(seed), step)`` (a fresh realisation per
-        step, keyed as the reference's fit loop keys it). Returns the losses."""
-        return _run_loop(self, self.fixed_frame, n_steps, seed, log_every, verbose)
+        step, keyed as the reference's fit loop keys it). Returns the losses,
+        read from the device once."""
+        first = self.step_count
+        rows = self._steps(n_steps, seed).tolist()
+        if verbose:
+            for i, (loss, gnorm) in enumerate(rows):
+                if i % log_every == 0 or i == n_steps - 1:
+                    print(f"step {first + i + 1}: loss {loss:.6g} |g| {gnorm:.3g}")
+        return [loss for loss, _ in rows]
 
 
 class PoseFitter:

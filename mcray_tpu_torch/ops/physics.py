@@ -198,9 +198,12 @@ def hit_boundary(
     refr_sq = 1.0 - ratio * ratio * (1.0 - incidence * incidence)
     tir = refr_sq < 0.0
     # double where: sqrt's gradient at 0 is inf, which would turn the masked
-    # total-internal-reflection lanes' gradients into inf * 0 = NaN
-    refr_angle = torch.where(
-        tir, 0.0, torch.sqrt(torch.where(tir, 1.0, torch.clamp(refr_sq, min=0.0))))
+    # total-internal-reflection lanes' gradients into inf * 0 = NaN, and the
+    # lanes where refr_sq is exactly 0 (a grazing ray at a boundary of equal
+    # impedances, or at the critical angle) into inf in the material table:
+    # both take the value 0 with a zero gradient
+    refracts = refr_sq > 0.0
+    refr_angle = torch.where(refracts, torch.sqrt(torch.where(refracts, refr_sq, 1.0)), 0.0)
 
     refr_dir = normalize(
         snells_law(direction, random_normal, incidence, refr_angle, ratio), eps=1e-20

@@ -5,16 +5,18 @@ timers and counters with rays/s accounting (``FrameMetrics``, the same
 summary keys), and ``device_trace``, a ``torch.profiler`` trace written as
 a Chrome trace (the reference captures a ``jax.profiler`` trace).
 
-The tracing that lives inside the program, because the chained batch's
-timed path is a CUDA graph replay, where a host range around a stage runs
-once, at capture:
+The tracing that lives inside the program, because the timed paths of the
+chained batch and of the material fit are CUDA graph replays, where a host
+range around a stage runs once, at capture:
 
 - ``mark(stage, device)``: an empty kernel, ``mcray_mark_<stage>``
   (``csrc/marks.cu``), launched where a stage of the step starts, in the
   order of ``STAGES``; it launches only while the current stream captures a
   graph or a torch profiler is active, so a trace of the replays splits by
   stage at the marks, and eager frames outside a profiler launch nothing
-  more.
+  more. ``grad_mark(stage, *tensors)`` is the same mark for a stage of the
+  backward: an identity on the tensors whose backward launches it, when
+  the gradient reaches them (nothing at all where no gradient is taken).
 - Spans (``span``): name, id, parent, request id, start and end in
   ``time.perf_counter_ns()``, whether a profiler was active, and the frames
   (``units``) the span rendered, kept in a bounded ring. No span is a
@@ -113,9 +115,14 @@ def device_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-#: the stages of a chained step in the order their marks open them
-#: (``csrc/marks.cu``'s ``mcray_mark`` takes the index)
-STAGES = ("draws", "prepass", "closest_hit", "bounce_physics", "march", "image")
+#: the stages of a step in the order their marks open them (``csrc/marks.cu``'s
+#: ``mcray_mark`` takes the index): the forward's six, in a chained step and
+#: in a fit step, then a fit step's four: the loss and the image's backward
+#: (K9 and the postproc's), the march's (K8 and the packed segments'), the
+#: trace's (the bounce physics into the material table), the update (the mask,
+#: Adam and the clamp)
+STAGES = ("draws", "prepass", "closest_hit", "bounce_physics", "march", "image",
+          "image_bwd", "march_bwd", "trace_bwd", "update")
 #: spans the ring keeps
 SPAN_CAPACITY = 65_536
 
@@ -143,6 +150,33 @@ def mark(stage: str, device) -> None:
 
     stream = torch.cuda.current_stream(device).cuda_stream
     _build.check(_build.library().mcray_mark(STAGES.index(stage), stream), "mcray_mark")
+
+
+class _GradMark(torch.autograd.Function):
+    """The identity, whose backward launches the mark of ``stage`` once the
+    gradients of all its outputs are in."""
+
+    @staticmethod
+    def forward(ctx, stage, *tensors):
+        ctx.stage, ctx.device = stage, tensors[0].device
+        ctx.set_materialize_grads(False)
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mark(ctx.stage, ctx.device)
+        return (None, *grads)
+
+
+def grad_mark(stage: str, *tensors: torch.Tensor) -> tuple:
+    """``tensors``, through an identity whose backward launches the mark of
+    ``stage`` (``mark``: under a capture or a profiler only) when the
+    gradient reaches them; unchanged where grad mode is off or none of them
+    requires grad, so a step without a backward gains no node. The
+    gradients pass through as they come."""
+    if not torch.is_grad_enabled() or not any(t.requires_grad for t in tensors):
+        return tensors
+    return _GradMark.apply(stage, *tensors)
 
 
 def capture_nodes(device) -> int:

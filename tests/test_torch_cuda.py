@@ -1194,3 +1194,67 @@ def test_chained_call_marks_every_stage_and_counts_its_replays(cuda):
                and s.request == call.request]
     assert len(replays) == 3
     assert all(s.parent == call.id and s.units == 2 for s in replays)
+
+
+def test_the_fit_step_replays_from_one_graph_and_marks_its_ten_stages(cuda):
+    """``MaterialFitter.run`` with 2 keyed frames a step: the first call
+    captures the step (span ``fit.capture``, the counters ``fit.graph_nodes``
+    and ``fit.graph_frames``), every step is a replay (K8 and K9 once, K5 a
+    bounce, the draws kernels 4 times); against the same steps taken eagerly
+    the first loss bitwise, the three losses and the table within 1e-5 (the
+    backward's gathers add with atomics); under the profiler a replay shows
+    the forward's marks, then ``image_bwd``, ``march_bwd``, ``trace_bwd``
+    and ``update`` once each; a new start through ``state`` is a fresh fit's
+    first step, bitwise, with no capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcray_tpu_torch.models.trainer import FitState, MaterialFitter
+    from mcray_tpu_torch.ops import cuda as kernels
+    from mcray_tpu_torch.utils import profiling
+
+    cfg = small_test_config(transducer_elements=32, samples_per_element=2,
+                            soft_scattering=True, trilinear_texture=True)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=1)
+    with torch.no_grad():
+        target = sim.render_compound(rng.split(rng.prng_key(3), 2))
+    start = sim.materials.clone()
+    start[3:5, :5] *= 1.3
+
+    def fitter():
+        return MaterialFitter.from_simulator(sim, start, target, trainable_rows=[3, 4],
+                                             n_frames_per_step=2)
+
+    graph, eager = fitter(), fitter()
+    counters = profiling.counters()
+    kernels.reset_launch_counts()
+    got = graph.run(3, seed=5, verbose=False)
+    per_step = {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1, "scanconv": 1,
+                "march_bwd": 1, "scanconv_bwd": 1, "draws": 4}
+    assert graph.launches == per_step
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == \
+        {k: 4 * v for k, v in per_step.items()}  # the warm-up step and 3 replays
+    want = [eager.step(rng.fold_in(rng.prng_key(5), i)) for i in range(3)]
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    torch.testing.assert_close(graph.state.materials, eager.state.materials, rtol=1e-5, atol=1e-7)
+    assert profiling.counters()["fit.graph_frames"] - counters.get("fit.graph_frames", 0) == 2
+    assert profiling.counters()["fit.graph_nodes"] > counters.get("fit.graph_nodes", 0)
+    call = [s for s in profiling.spans() if s.name == "fit.call"][-1]
+    inside = [s for s in profiling.spans() if s.request == call.request]
+    assert sorted(s.name for s in inside) == ["fit.call", "fit.capture"] + ["fit.replay"] * 3
+    assert call.units == 6 and all(s.units == 2 for s in inside if s.name == "fit.replay")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.run(1, seed=5, verbose=False)
+        torch.cuda.synchronize()
+    marks = [e.name.split("mcray_mark_", 1)[1].split("(")[0] for e in sorted(
+        prof.events(), key=lambda e: e.time_range.start)
+        if e.device_type == torch.autograd.DeviceType.CUDA and "mcray_mark_" in e.name]
+    d = cfg.max_depth
+    assert marks == (["draws", "bounce_physics"] + ["prepass", "closest_hit", "bounce_physics"] * d
+                     + ["march", "image", "image_bwd", "march_bwd", "trace_bwd", "update"])
+
+    zeros = torch.zeros_like(start)
+    graph.state = FitState(start, {"exp_avg": zeros, "exp_avg_sq": zeros, "step": 0}, 0)
+    first = graph.graph
+    assert graph.run(1, seed=5, verbose=False) == want[:1] and graph.graph is first

@@ -3,7 +3,10 @@
 ``hit_boundary`` gets the reference's own draws on both sides. Integer and
 boolean outputs (media ids, the roulette choice) must be equal; float
 outputs compare at rtol 1e-5 (pow/sqrt/sin/cos round their last ulp
-differently in XLA and torch), atol 1e-6 for components near zero.
+differently in XLA and torch), atol 1e-6 for components near zero. Where a
+ray's refraction grazes (``refr_sq`` exactly 0), the port's gradient in the
+material table stays finite, where the reference's sqrt has an infinite
+derivative.
 """
 
 import jax.numpy as jnp
@@ -75,3 +78,30 @@ def test_draw_bounce_randoms_distributions():
     again = physics.draw_bounce_randoms(path_keys, 2)
     for key, v in again.items():
         assert torch.equal(v, draws[key][:2]), key
+
+
+def test_hit_boundary_gradient_is_finite_where_the_refraction_is_grazing():
+    """A ray that grazes a boundary between two media of equal impedance has
+    ``refr_sq`` exactly 0, where sqrt's derivative is infinite: the gradient
+    in the material table stays finite (the refracted angle's value, 0, is
+    unchanged). Without the guard one such ray turned a fit's table to NaN
+    (the card, ``sphere_soft.fit``)."""
+    _, cfg = both_configs()
+    n = 4
+    materials = torch.tensor([[1.5, 0.5, 0.1, 1.0, 0.2, 1.0, 1e6, 0.0],
+                              [1.5, 0.7, 0.2, 1.0, 0.3, 1.0, 1e6, 0.0]], requires_grad=True)
+    direction = torch.tensor([[1.0, 0.0, 0.0]]).expand(n, 3)
+    normal = torch.tensor([[0.0, 0.0, 1.0]]).expand(n, 3)
+    draws = {"angle_u": torch.ones(n), "axis_u": torch.full((n,), 0.3),
+             "radius_u": torch.full((n,), 0.5), "roulette_u": torch.full((n,), 0.5)}
+    ids = torch.zeros(n, dtype=torch.int32)
+    out = physics.hit_boundary(direction, torch.zeros(n, 3), normal, torch.full((n,), 0.2), ids,
+                               torch.full((n,), -1, dtype=torch.int32), ids, materials,
+                               torch.ones(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+                               torch.zeros(1, dtype=torch.bool), cfg, draws)
+    ratio = materials[0, 0] / materials[1, 0]
+    incidence = torch.abs((direction * normal).sum(dim=1))
+    assert float(ratio) == 1.0 and bool(((1.0 - ratio * ratio * (1.0 - incidence ** 2)) == 0).all())
+    loss = sum(out[k].sum() for k in ("back_intensity", "new_direction", "new_intensity"))
+    loss.backward()
+    assert bool(torch.isfinite(materials.grad).all())
