@@ -89,7 +89,10 @@ of the sphere, ircad_hd and mega bvh frames and of the sphere's bvh batch of
 for byte ``save_png`` of ``render_frame`` at its request, the keyed randomness on the card against the CPU (bits equal,
 normals allclose), the draws kernels (``[draws]``: the key chain and its five fields, and the key
 batches) bitwise their plain versions at a chained step's shapes, timed beside them and their
-bound, and every frame's image is checked. The march kernels
+bound, the bounce kernel (``[bounce]``: every segment field and the final path state of 8
+frames on the sphere's listed, brute and BVH closest hits and ircad_hd's listed one) bitwise its
+plain version, one bounce timed beside the plain chain and its bound, and every frame's image
+is checked. The march kernels
 (K2, K8) are also held against their plain versions at full size (the
 sphere frame and the fit's set-up, with bitsum and with Box–Muller
 normals) and at a 64-element frame in every mode of the scatterer field
@@ -145,6 +148,7 @@ import statistics
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -158,7 +162,7 @@ from mcray_tpu_torch.models.trainer import MaterialFitter, PoseFitter, column_ma
 from mcray_tpu_torch.ops import bvh, clusters, geometry, imaging, physics
 from mcray_tpu_torch.ops import cuda as kernels
 from mcray_tpu_torch.ops.bvh import build_bvh
-from mcray_tpu_torch.ops.cuda import (_build, bvh_intersect, draws, intersect,
+from mcray_tpu_torch.ops.cuda import (_build, bounce, bvh_intersect, draws, intersect,
                                       intersect_culled, intersect_grouped, intersect_listed,
                                       intersect_staged, march, postproc, scanconv)
 from mcray_tpu_torch.utils.image_io import save_png
@@ -249,6 +253,9 @@ CHAINED = {"sphere": (8, 16), "ircad_hd": (8, 8)}
 CHAINED_SEED = 10
 # the draws kernels at a chained step's shapes: 8 frames' paths, every bounce
 DRAWS_FRAMES, DRAWS_SEED = 8, 2**31 + 19
+# the bounce kernel at a chained step's shapes: 8 frames (20,480 paths at SimConfig())
+BOUNCE_FRAMES, BOUNCE_SEED = 8, 2**31 + 23
+BOUNCE_SETS = ("sphere", "sphere brute", "sphere bvh", "ircad_hd")
 # the stage tables (roofline.stage_table): label -> (the frame's Simulator, its seeds, the
 # [bvh] ray set whose reference walks its trace floor reads where they are of its rays)
 ROOFLINE_FRAMES = {"sphere": ("sphere", (0,), "sphere"),
@@ -668,7 +675,7 @@ def fit_phase(pack, smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     nodes = profiling.counters()["fit.graph_nodes"] - nodes
     per_step = {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1, "scanconv": 1,
-                "march_bwd": 1, "scanconv_bwd": 1}
+                "bounce": cfg.max_depth + 1, "march_bwd": 1, "scanconv_bwd": 1}
     print(f"  captured step's launches {fit.launches}; over {FIT_STEPS - 1} replays: "
           f"{nonzero(counts)}")
     if fit.graph is None or fit.launches != per_step:
@@ -935,6 +942,97 @@ def draws_phase(cfg, smi: str) -> dict:
     return {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1], "ulps": ulps}
 
 
+def trace_bounces(sim, draws_: dict, plain: bool):
+    """BOUNCE_FRAMES frames' bounces through ``bounce.Bounces`` and ``sim``'s
+    closest hit, the record filled by the kernel or (``plain``) by its plain
+    version on the card; returns the ``Bounces``, each bounce's hits, and the
+    segments and final state."""
+    cfg = sim.cfg
+    positions, directions = bounce_elements(sim)
+    closest_hit = simulator.closest_hit_fn(sim.scene, **sim.trace_kw)
+    hits = []
+    with torch.no_grad(), mock.patch.object(bounce._Record, "card", not plain):
+        b = bounce.Bounces(positions, directions, cfg.samples_per_element, draws_, sim.materials,
+                           sim.scene, sim.spacing, sim.starting_material, cfg)
+        for _ in range(cfg.max_depth):
+            hits.append(closest_hit(*b.query))
+            b.step(hits[-1])
+    return b, hits, (b.segments(), b.final_state())
+
+
+def bounce_elements(sim):
+    """The elements of BOUNCE_FRAMES frames at the scene's pose."""
+    from mcray_tpu_torch.probe.transducer import element_layout
+
+    return element_layout(sim.position.expand(BOUNCE_FRAMES, 3),
+                          sim.angles.expand(BOUNCE_FRAMES, 3), sim.cfg)
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two tensors in units of the last place
+    (f32 by their bits), or 0 / 1 for equal / unequal integers."""
+    if a.dtype == torch.float32:
+        return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+    return int(not torch.equal(a, b))
+
+
+def bounce_phase(sims, smi: str) -> dict:
+    """The bounce kernel (``ops/cuda/bounce.py``) against its plain version
+    on the card at a chained step's shapes (BOUNCE_FRAMES frames, 20,480
+    paths, 10 bounces): on the sphere's listed, brute and BVH closest hits
+    and ircad_hd's listed one (vascular meshes), every segment field and the
+    final path state, their largest distance in ulps printed (0 is bitwise);
+    then one bounce (bounce 1's physics and bounce 2's query, on the sphere's
+    record) timed by graph replay beside the plain chain it replaces and its
+    floor (``roofline.bounce_cost``: bytes)."""
+    cfg = sims["sphere"].cfg
+    seeds = list(range(BOUNCE_SEED, BOUNCE_SEED + BOUNCE_FRAMES))
+    print(f"[bounce] {smi}: {BOUNCE_FRAMES} frames x {cfg.transducer_elements} elements x "
+          f"{cfg.samples_per_element} paths, {cfg.max_depth} bounces")
+    gaps, records = {}, {}
+    for name in BOUNCE_SETS:
+        sim = sims[name]
+        draws_ = sim.batch_draws(seeds)
+        before = bounce.launches
+        b, hits, got = trace_bounces(sim, draws_, False)
+        _, _, want = trace_bounces(sim, draws_, True)
+        torch.cuda.synchronize()
+        launched = bounce.launches - before
+        gaps[name] = {k: ulps(got[part][k], want[part][k])
+                      for part in (0, 1) for k in want[part]}
+        records[name] = (b, hits, draws_)
+        live = int(got[0]["valid"].sum())
+        print(f"  {name}: {launched} launches, {live} live path-bounces; largest distance to "
+              f"the plain version in ulps {gaps[name]}")
+        if launched != cfg.max_depth + 1 or any(gaps[name].values()):
+            raise AssertionError(f"{name}: the bounce kernel differs from its plain version")
+
+    b, hits, draws_ = records["sphere"]
+    sim = sims["sphere"]
+    one = {k: v[1] for k, v in draws_.items()}
+    thick = physics.take_rows(sim.materials, sim.scene["mesh_mat_inside"])[:, physics.THICKNESS]
+    state = {k: v.clone() for k, v in b.final_state().items()}
+    query = bounce.rays_plain(state, sim.materials, sim.spacing, cfg)
+
+    def kernel_bounce():
+        b.record.bounce(1, b.rows[1], hits[1], sim.materials, sim.spacing)
+
+    def plain_bounce():
+        _, nxt = bounce.bounce_plain(hits[1], one, state, query, sim.materials, thick, sim.scene,
+                                     sim.spacing, cfg)
+        return bounce.rays_plain(nxt, sim.materials, sim.spacing, cfg)
+
+    with torch.no_grad():
+        ms = {"kernel": graph_ms(kernel_bounce, 1), "plain": graph_ms(plain_bounce, 1, copies=2)}
+    cost = roofline.bounce_cost(cfg, BOUNCE_FRAMES)
+    floor = roofline.bound(cost.hbm_bytes / cfg.max_depth, cost.flops / cfg.max_depth)
+    print(f"  one bounce, device (graph replay): kernel {ms['kernel']:.5f} ms, plain "
+          f"{ms['plain']:.5f} ms ({ms['plain'] / ms['kernel']:.1f}x); floor {floor[0]:.5f} ms by "
+          f"{floor[1]} ({floor[0] / ms['kernel']:.1%} of the kernel's time; {floor.n_bytes:.4g} "
+          f"bytes, {floor.n_ops:.4g} operations)")
+    return {"ms": ms, "bound_ms": floor[0], "bound_by": floor[1], "ulps": gaps}
+
+
 # every mode of the scatterer field at a 64-element sphere frame: normals x
 # lookup x gate x volume side (a power of two and not), and the table texture
 FIELD_MODES = [dict(scatter_rng=rng_mode, trilinear_texture=tri, soft_scattering=soft,
@@ -1022,6 +1120,7 @@ def plain_modes_phase(pack) -> None:
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         want = {k: 0 for k in counts} | {"intersect_listed": cfg.max_depth, "scanconv": 1,
+                                         "bounce": cfg.max_depth + 1,
                                          "march": int(not cfg.soft_row_binning),
                                          "postproc": int(postproc.kernel_modes(cfg))}
         on_cpu = cpu.render_frame(draws=draws)
@@ -1078,8 +1177,13 @@ def check_launches(label: str, counts: dict, per_run: dict, runs: int = 1) -> No
 
 
 def frame_launches(cfg, frames: int, closest: str = "intersect_listed") -> dict:
+    """Launches of ``frames`` render calls without a gradient (a batch is one)."""
     return {closest: cfg.max_depth * frames, "march": frames, "postproc": frames,
-            "scanconv": frames, "draws": frames}
+            "scanconv": frames, "draws": frames, "bounce": (cfg.max_depth + 1) * frames}
+
+
+# the backward kernels a step with a gradient adds to its render
+GRAD_STEP = {"march_bwd": 1, "scanconv_bwd": 1}
 
 
 def pose_fd_phase(pack, smi: str) -> dict:
@@ -1167,7 +1271,7 @@ def pose_ad_phase(pack, smi: str) -> dict:
     start = sim.position.cpu() + torch.tensor(POSE_OFFSET)
     fit = PoseFitter.from_simulator(sim, start, sim.angles, target, method="ad", fixed_key=key,
                                     fit_angles=True, learning_rate=3e-2)
-    per_step = frame_launches(cfg, 1) | {"march_bwd": 1, "scanconv_bwd": 1}
+    per_step = frame_launches(cfg, 1) | GRAD_STEP
     print(f"[pose ad] sphere, soft + trilinear, position and angles, {POSE_AD_STEPS} steps")
     step_ms = []
     for i in range(POSE_AD_STEPS):
@@ -1304,7 +1408,8 @@ def render_flags_phase(tmp: str) -> dict:
     counts = kernels.launch_counts()
     print(f"[render flags] {lines[0]}; {lines[1]}")
     check_launches("render flags", counts, {"bvh_intersect": cfg.max_depth, "march": 1,
-                                            "scanconv": 1, "draws": 1})
+                                            "scanconv": 1, "draws": 1,
+                                            "bounce": cfg.max_depth + 1})
     with np.load(rf) as saved:
         files = sorted(saved.files)
         finite = all(bool(np.isfinite(saved[k]).all()) for k in files)
@@ -1442,7 +1547,7 @@ def shard_phase(pack, sim, fit, smi: str) -> dict:
         print(f"[shard] one-rank {dist.get_backend()} group (world {dist.get_world_size()}), NCCL "
               f"{torch.cuda.nccl.version()}; sphere at SimConfig(), frames 0-{SHARD_FRAMES - 1}")
         frame_launches = {"intersect_listed": cfg.max_depth, "march": 1, "scanconv": 1,
-                          "draws": 1}
+                          "draws": 1, "bounce": cfg.max_depth + 1}
         renderers = {"halo": ShardedRenderer(pack, cfg, mesh, distributed_imaging=True),
                      "gathered": ShardedRenderer(pack, cfg, mesh, distributed_imaging=False),
                      "2d 1x1": ShardedRenderer2D(pack, cfg, make_mesh_2d(1, 1, device="cuda"))}
@@ -1485,7 +1590,7 @@ def shard_phase(pack, sim, fit, smi: str) -> dict:
         torch.cuda.synchronize()
         launches["train step"] = kernels.launch_counts()
         check_launches("sharded train step", launches["train step"],
-                       frame_launches | {"march_bwd": 1, "scanconv_bwd": 1})
+                       frame_launches | GRAD_STEP)
         grad_err = float((step.last_grad - want_grad).abs().max())
         scale = float(want_grad.abs().max())
         print(f"  train step: loss {loss:.8g} vs MaterialFitter {want_loss:.8g}; gradient max err "
@@ -1616,7 +1721,7 @@ def batch_phase(pack, sim, fit, smi: str) -> dict:
     fit_key = rng.prng_key(9)
     fit_batched, fit_looped = fit_fitters()
     loss = launched(f"fit_step_{BATCH_FIT_FRAMES}_frames", lambda: fit_batched.step(fit_key),
-                    per_batch | {"march_bwd": 1, "scanconv_bwd": 1})
+                    per_batch | GRAD_STEP)
     want_loss = fit_looped.step(fit_key)
     grad, want_grad = fit_batched.last_grad, fit_looped.last_grad
     grad_err, scale = float((grad - want_grad).abs().max()), float(want_grad.abs().max())
@@ -1945,7 +2050,7 @@ def main() -> int:
             print(f"  {line.strip()}")
 
     cfg = SimConfig()
-    loop = {"march": 1, "postproc": 1, "scanconv": 1, "draws": 1}
+    loop = {"march": 1, "postproc": 1, "scanconv": 1, "draws": 1, "bounce": cfg.max_depth + 1}
     how = "native library" if get_native() is not None else "Python"
     print(f"[scenes] BVH construction: {how}; OBJ parsing: {how}; {cfg.transducer_elements} elements x "
           f"{cfg.samples_per_element} paths x {cfg.max_depth} bounces")
@@ -2187,6 +2292,7 @@ def main() -> int:
     plain_modes_phase(sphere)
     drawn = rng_phase(sims["sphere"], smi)
     keyed = draws_phase(cfg, smi)
+    bounced = bounce_phase(sims, smi)
     queries, stress_sets = isotropic_phase(smi)
     mark("plain modes, rng, isotropic")
 
@@ -2560,6 +2666,7 @@ def main() -> int:
     print("[batch] summary: " + json.dumps(
         {k: v for k, v in batch.items() if k not in ("launches", "kernels")}, default=str))
     print("[draws] summary: " + json.dumps(keyed))
+    print("[bounce] summary: " + json.dumps(bounced))
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,11 @@ into a CUDA graph are counted by whoever replays it (``add_launch_counts``;
 the chained batch does).
 """
 
-from . import (bvh_intersect, draws, intersect, intersect_culled, intersect_grouped,
+from . import (bounce, bvh_intersect, draws, intersect, intersect_culled, intersect_grouped,
                intersect_listed, intersect_staged, march, postproc, scanconv)
 
 KERNELS = (intersect, intersect_listed, intersect_culled, intersect_staged, intersect_grouped,
-           bvh_intersect, march, postproc, scanconv, draws)
+           bvh_intersect, march, postproc, scanconv, draws, bounce)
 
 
 #: the modules that also hold a backward kernel

@@ -60,6 +60,8 @@ SIGNATURES = {
     "mcray_keyed_draws": [P, I, P, I, I, P, P],
     "mcray_fold_in": [P, I, P, I, U, I, P, P],
     "mcray_capture_nodes": [P],
+    "mcray_bounce": [P, P],
+    "mcray_bounce_shared_bytes": [I, I],
 }
 
 RESTYPES = {"mcray_postproc_slab_floats": ctypes.c_longlong,

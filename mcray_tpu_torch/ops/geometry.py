@@ -60,6 +60,11 @@ def safe_norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     return n[..., None] if keepdim else n
 
 
+def distance_in_mm(a, b, spacing):
+    """World distance with per-axis spacing, x10 to mm (src/scene.cpp:281-290)."""
+    return safe_norm(torch.abs(a - b) * spacing) * 10.0
+
+
 def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     n = torch.clamp(safe_norm(v, keepdim=True), min=eps if eps else 1e-30)
     return v / n

@@ -85,6 +85,16 @@ DRAW_FIELDS = 5
 # and sqrt, Snell's law and two normalisations, the Fresnel and Mattausch
 # terms, the roulette) and the path's state updates (~19)
 OPS_BOUNCE = 270
+# the bounce kernel (csrc/bounce.cu) per path-bounce: OPS_BOUNCE but the hit
+# record (~32), which the closest hit's winner tail computes; and the bytes
+# the bounce needs, each once: the state row (from, direction 24; initial,
+# attenuation, distance, media 16; valid 1; outside 4), the hit record (hit 1,
+# point and normal 24, mesh 4) and five draws (20) read; the segment's end
+# (to 12, reflected 4), the next row's state (45) and its ray (origin and
+# segment 24) written. The kernel writes the far end (12) too, which the hit
+# replaces: a byte of the launch, not of the bounce
+OPS_BOUNCE_KERNEL = OPS_BOUNCE - 32
+BOUNCE_BYTES = 45 + 29 + 20 + 16 + 45 + 24
 # the segment fields the trace writes for the march, once per path-bounce
 SEGMENT_FIELDS = ("from", "to", "direction", "reflected", "initial", "attenuation", "distance",
                   "media_id", "valid")
@@ -99,7 +109,9 @@ EVENT_NAMES = {"intersect": "intersect_closest_kernel",
                "scanconv": "scan_convert_kernel", "march_bwd": "march_bwd_kernel",
                "scanconv_bwd": "scanconv_bwd_kernel",
                # both kernels of csrc/draws.cu: the draws and the key batches
-               "draws": "keyed_draws"}
+               "draws": "keyed_draws",
+               # both instances of csrc/bounce.cu's kernel: row 0 and a bounce
+               "bounce": "bounce_physics_kernel"}
 STAGE_CALLS, FRAME_EVENTS = 3, 5  # calls a stage table profiles, frames it times by events
 
 
@@ -333,6 +345,14 @@ def draws_cost(cfg, frames: int = 1) -> StageCost:
     ciphers = paths + CIPHERS_PER_BOUNCE * draws
     return StageCost("draws", ciphers * OPS_THREEFRY + DRAW_FIELDS * draws * OPS_UNIFORM
                      + draws * OPS_NORMAL, 2 * 8 * frames + DRAW_FIELDS * 4 * draws)
+
+
+def bounce_cost(cfg, frames: int = 1) -> StageCost:
+    """The bounce kernel's launches of a trace of ``frames`` frames, row 0
+    left out: every path-bounce, live or not, OPS_BOUNCE_KERNEL operations
+    and BOUNCE_BYTES bytes."""
+    path_bounces = frames * cfg.transducer_elements * cfg.samples_per_element * cfg.max_depth
+    return StageCost("bounce", path_bounces * OPS_BOUNCE_KERNEL, path_bounces * BOUNCE_BYTES)
 
 
 def trace_cost(segments: dict, walks, bvh: DeviceBVH) -> StageCost:

@@ -40,6 +40,14 @@ The keyed draws: the draws kernel's five fields bitwise its plain version
 (1 and 8 frames, a frame's paths, an odd count and a shard's subset), the
 key-batch kernel bitwise ``rng.fold_in``, and a captured chained step's
 B-modes bitwise an eager step of the plain draws.
+The bounce physics: the bounce kernel bitwise its plain version in every
+segment field, the final path state and every bounce's hits (the sphere's
+listed, brute and BVH closest hits, a scene with vascular meshes, the
+material transition's bug compatibility and the time-window cull off, a
+shard's elements), on made-up bounces through total internal reflection and
+grazing refraction, a gradient through its launches against autograd through
+the plain loop, and a chained call's B-modes against its steps with the
+plain bounce physics.
 The chained batch: replayed from a CUDA graph, bitwise its steps run
 eagerly and ``render_frames`` of the last step's keys, for two seeds; under
 the profiler its replays show every stage mark of every step, the launch
@@ -396,6 +404,210 @@ def test_chained_step_equals_an_eager_step_of_the_plain_draws(cuda):
                                    sim.starting_material, sim.scan_maps, cfg, volume=sim.volume,
                                    **sim.trace_kw)["bmode"]
     assert torch.equal(got, want) and float(got.std()) > 0
+
+
+LIVER_SCENE = SPHERE_SCENE.replace("sphere/sphere.scene", "ircad11/santi-liver.scene")
+
+
+def bounce_record(sim, draws, plain: bool, positions=None, angles=None, elements=None):
+    """The bounces of ``draws`` through ``Bounces`` and ``sim``'s closest hit,
+    the record filled by the kernel or, with ``plain``, by the plain version
+    on the card: the segment fields, the final path state and each bounce's
+    hits. ``positions`` and ``angles`` (B, 3) give B frames; ``elements``
+    (positions, directions) a subset."""
+    from unittest import mock
+
+    from mcray_tpu_torch.models import simulator
+    from mcray_tpu_torch.ops.cuda import bounce
+    from mcray_tpu_torch.probe.transducer import element_layout
+
+    cfg = sim.cfg
+    if elements is None:
+        pose = (sim.position if positions is None else positions,
+                sim.angles if angles is None else angles)
+        elements = element_layout(*pose, cfg)
+    n = draws["q_normal"].shape[1]
+    closest_hit = simulator.closest_hit_fn(sim.scene, **sim.trace_kw)
+    hits = []
+    with torch.no_grad(), mock.patch.object(bounce._Record, "card", not plain):
+        b = bounce.Bounces(*elements, n // elements[0].shape[0], draws, sim.materials, sim.scene,
+                           sim.spacing, sim.starting_material, cfg)
+        for _ in range(cfg.max_depth):
+            hits.append(closest_hit(*b.query))
+            b.step(hits[-1])
+    return b.segments(), b.final_state(), hits
+
+
+BOUNCE_CASES = {"sphere listed": ({}, {}), "sphere brute": ({"use_culled_intersect": False}, {}),
+                "sphere bvh": ({"use_bvh": True}, {}), "liver listed": ({}, {}),
+                "no bug compat": ({}, {"bug_compat_material_transition": False}),
+                "no cull": ({}, {"cull_time_window": False}), "sharded": ({}, {})}
+
+
+@pytest.mark.parametrize("case", list(BOUNCE_CASES))
+def test_bounce_kernel_matches_plain_bitwise(cuda, case):
+    """The bounce kernel against its plain version on the card, 3 frames at
+    3 poses (7,680 paths, 10 bounces): every segment field, the final path
+    state and every bounce's hits bitwise, on the sphere's listed, brute and
+    BVH closest hits, the liver scene's listed one (vascular meshes: the
+    material state machine), with ``bug_compat_material_transition`` and
+    ``cull_time_window`` off, and on a shard's elements and path ids; one
+    launch for row 0, then one a bounce."""
+    from mcray_tpu_torch.models.simulator import path_draws
+    from mcray_tpu_torch.ops.cuda import bounce
+    from mcray_tpu_torch.probe.transducer import element_layout
+
+    sim_kw, cfg_kw = BOUNCE_CASES[case]
+    cfg = small_test_config(transducer_elements=256, samples_per_element=5, **cfg_kw)
+    pack = load_and_compile(LIVER_SCENE if case.startswith("liver") else SPHERE_SCENE)
+    sim = Simulator(pack, cfg, device=cuda, seed=1, **sim_kw)
+    kw = {}
+    if case == "sharded":
+        positions, directions = element_layout(sim.position, sim.angles, cfg)
+        s = cfg.samples_per_element
+        ids = torch.arange(64 * s, 128 * s, device=cuda)
+        draws_ = path_draws(rng.fold_in(rng.prng_key(2**31 + 5), 0)[None], cfg, cuda, ids)
+        kw["elements"] = (positions[64:128], directions[64:128])
+    else:
+        offsets = torch.tensor([[0.0, 0.0, 0.0], [0.2, 0.0, 0.0], [0.0, 0.3, 0.0]], device=cuda)
+        kw["positions"] = sim.position + offsets
+        kw["angles"] = sim.angles + torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, 4.0],
+                                                  [3.0, 0.0, 0.0]], device=cuda)
+        draws_ = sim.batch_draws([2**31 + 5, 7, 8])
+    before = bounce.launches
+    got = bounce_record(sim, draws_, False, **kw)
+    torch.cuda.synchronize()
+    assert bounce.launches == before + cfg.max_depth + 1
+    want = bounce_record(sim, draws_, True, **kw)
+    assert bounce.launches == before + cfg.max_depth + 1
+    for d, (a, b) in enumerate(zip(got[2], want[2])):
+        for key in b:
+            assert torch.equal(a[key], b[key]), (d, key)
+    for part in (0, 1):
+        assert list(got[part]) == list(want[part])
+        for key in want[part]:
+            assert got[part][key].dtype == want[part][key].dtype, key
+            assert torch.equal(got[part][key], want[part][key]), key
+    valid = got[0]["valid"]
+    assert int(valid[1].sum()) > 0 and bool(torch.isfinite(got[0]["reflected"]).all())
+    if case.startswith("liver"):
+        assert bool((got[0]["media_id"] != sim.starting_material).any())
+
+
+def test_bounce_kernel_through_total_internal_reflection_and_grazing_refraction(cuda):
+    """Made-up bounces where the boundary decides by its edge cases, kernel
+    against plain bitwise over 10 bounces: paths from a medium of impedance 3
+    into one of 1.5 at 40-85 degrees (total internal reflection), paths along
+    a boundary between equal impedances (``refr_sq`` exactly 0: the grazing
+    refraction), and near-normal paths; the power-cosine normal held to the
+    surface's (shininess 1e6, angle draw 1)."""
+    from unittest import mock
+
+    from mcray_tpu_torch.ops.cuda import bounce
+
+    cfg = small_test_config()
+    n = 3 * 256
+    d = cfg.max_depth
+    materials = torch.tensor([[3.0, 0.5, 0.1, 1.0, 0.2, 0.5, 1e6, 0.01],
+                              [1.5, 0.7, 0.2, 1.0, 0.3, 0.5, 1e6, 0.01],
+                              [3.0, 0.6, 0.2, 1.0, 0.3, 0.5, 1e6, 0.0]], device=cuda)
+    scene = {"mesh_mat_inside": torch.tensor([1, 2], dtype=torch.int32, device=cuda),
+             "mesh_mat_outside": torch.tensor([0, 0], dtype=torch.int32, device=cuda),
+             "mesh_is_vascular": torch.tensor([False, False], device=cuda)}
+    spacing = torch.tensor([1.0, 1.0, 1.0], device=cuda)
+    k = torch.arange(256, device=cuda, dtype=torch.float32)
+    tir = torch.deg2rad(40.0 + 45.0 * k / 255.0)
+    near = torch.deg2rad(10.0 * k / 255.0)
+    directions = torch.cat([torch.stack([torch.sin(tir), torch.zeros_like(k), -torch.cos(tir)], 1),
+                            torch.tensor([[1.0, 0.0, 0.0]], device=cuda).expand(256, 3),
+                            torch.stack([torch.sin(near), torch.zeros_like(k), -torch.cos(near)],
+                                        1)])
+    positions = torch.zeros(n, 3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    draws_ = {name: torch.rand(d, n, device=cuda, generator=gen) for name in draws.FIELDS}
+    draws_["q_normal"] = torch.randn(d, n, device=cuda, generator=gen)
+    draws_["angle_u"][:] = 1.0
+    hits = {"hit": torch.ones(n, dtype=torch.bool, device=cuda),
+            "point": torch.rand(n, 3, device=cuda, generator=gen),
+            "normal": torch.tensor([[0.0, 0.0, 1.0]], device=cuda).expand(n, 3).contiguous(),
+            "mesh_id": torch.cat([torch.zeros(256), torch.ones(256), torch.zeros(256)]).int().to(
+                cuda)}
+    records = {}
+    for plain in (False, True):
+        with torch.no_grad(), mock.patch.object(bounce._Record, "card", not plain):
+            b = bounce.Bounces(positions, directions, 1, draws_, materials, scene, spacing, 0, cfg)
+            for _ in range(d):
+                b.step(hits)
+        records[plain] = (b.segments(), b.final_state())
+    for part in (0, 1):
+        for key, want in records[True][part].items():
+            assert torch.equal(records[False][part][key], want), key
+    seg = records[False][0]
+    # bounce 0: total internal reflection keeps the whole travelled intensity
+    # in the reflection; the grazing paths go on with a finite direction
+    assert bool(torch.isfinite(seg["direction"]).all())
+    assert bool(torch.isfinite(seg["reflected"]).all())
+    assert bool((seg["media_id"][1, :256] == 0).all())  # reflected back into medium 0
+
+
+@pytest.mark.parametrize("through", ["materials", "pose"])
+def test_bounce_kernel_gradient_is_the_plain_loops(cuda, through):
+    """A gradient through the kernel's launches on the card (each launch's
+    backward is autograd over the plain version, rerun on the row it
+    started from) against autograd through the plain loop the kernel
+    replaced, same draws: a weighted sum of every traced segment field and
+    the rays, into the table or into the pose, within 1e-5 of the loop's
+    (the launches' partial sums add in another order); the trace under
+    autograd launches the kernel, D + 1 times."""
+    from test_torch_bounce import loop_trace
+
+    from mcray_tpu_torch.models import simulator
+    from mcray_tpu_torch.ops.cuda import bounce
+
+    cfg = small_test_config(transducer_elements=64, samples_per_element=2)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=1)
+    draws_ = sim.draws(4)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    fields = (*simulator.TRACED_FIELDS, "rays")
+    weights, grads, launched = None, [], []
+    for trace in (simulator.trace_paths, loop_trace):
+        materials = sim.materials.clone().requires_grad_(through == "materials")
+        pose = [p.clone().requires_grad_(through == "pose") for p in (sim.position, sim.angles)]
+        before = bounce.launches
+        segments = trace(draws_, materials, *pose, sim.scene, sim.spacing, sim.starting_material,
+                         cfg, culled_tris=sim.culled_tris, intersect_tile_r=sim.intersect_tile_r)
+        launched.append(bounce.launches - before)
+        if weights is None:
+            weights = {k: torch.randn(segments[k].shape, device=cuda, generator=gen)
+                       for k in fields}
+        loss = sum((segments[k] * weights[k]).sum() for k in fields)
+        grads.append(torch.autograd.grad(loss, [materials] if through == "materials" else pose))
+    assert launched == [cfg.max_depth + 1, 0]
+    for got, want in zip(*grads):
+        assert bool(want.abs().max() > 0) and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+
+
+def test_chained_bmodes_equal_the_plain_trace(cuda, monkeypatch):
+    """A chained call (the bounce kernel in its step graph, D + 1 launches a
+    step) against its steps run eagerly with the plain bounce physics on the
+    card (the record filled by the plain version): the B-modes bitwise."""
+    from mcray_tpu_torch.ops.cuda import bounce
+
+    cfg = small_test_config(transducer_elements=32, samples_per_element=2)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=1)
+    chained = sim.make_chained_batch(2, 3)
+    got = chained(2**31 + 9).clone()
+    assert chained.launches["bounce"] == cfg.max_depth + 1
+    monkeypatch.setattr(bounce._Record, "card", False)
+    before = bounce.launches
+    eager = sim.make_chained_batch(2, 3)
+    eager.key.copy_(rng.prng_key(2**31 + 9))
+    eager.i.zero_()
+    eager.carry.zero_()
+    steps = [eager.step() for _ in range(3)]
+    assert bounce.launches == before
+    assert torch.equal(got, steps[-1]) and float(got.std()) > 0
 
 
 def test_frame_kernels_match_plain(cuda):
@@ -1164,7 +1376,7 @@ def test_chained_call_marks_every_stage_and_counts_its_replays(cuda):
     chained(1)  # the capture
     assert profiling.counters()["chained.graph_nodes"] > nodes
     assert chained.launches == {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1,
-                                "scanconv": 1, "draws": 3}
+                                "scanconv": 1, "draws": 3, "bounce": cfg.max_depth + 1}
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1200,10 +1412,10 @@ def test_the_fit_step_replays_from_one_graph_and_marks_its_ten_stages(cuda):
     """``MaterialFitter.run`` with 2 keyed frames a step: the first call
     captures the step (span ``fit.capture``, the counters ``fit.graph_nodes``
     and ``fit.graph_frames``), every step is a replay (K8 and K9 once, K5 a
-    bounce, the draws kernels 4 times); against the same steps taken eagerly
-    the first loss bitwise, the three losses and the table within 1e-5 (the
-    backward's gathers add with atomics); under the profiler a replay shows
-    the forward's marks, then ``image_bwd``, ``march_bwd``, ``trace_bwd``
+    bounce, the bounce kernel a bounce and once more, the draws kernels 4
+    times); against the same steps taken eagerly the first loss bitwise, the
+    three losses and the table within 1e-5 (the backward's gathers add with
+    atomics); under the profiler a replay shows the forward's marks, then ``image_bwd``, ``march_bwd``, ``trace_bwd``
     and ``update`` once each; a new start through ``state`` is a fresh fit's
     first step, bitwise, with no capture."""
     from torch.profiler import ProfilerActivity, profile
@@ -1229,7 +1441,7 @@ def test_the_fit_step_replays_from_one_graph_and_marks_its_ten_stages(cuda):
     kernels.reset_launch_counts()
     got = graph.run(3, seed=5, verbose=False)
     per_step = {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1, "scanconv": 1,
-                "march_bwd": 1, "scanconv_bwd": 1, "draws": 4}
+                "march_bwd": 1, "scanconv_bwd": 1, "draws": 4, "bounce": cfg.max_depth + 1}
     assert graph.launches == per_step
     assert {k: v for k, v in kernels.launch_counts().items() if v} == \
         {k: 4 * v for k, v in per_step.items()}  # the warm-up step and 3 replays

@@ -95,7 +95,7 @@ def test_zero_segment_has_a_finite_zero_gradient():
     spacing = np.array([1.0, 1.0, 1.0], np.float32)
     want = np.asarray(jax.grad(lambda a: jnp.sum(ref_sim.distance_in_mm(
         a, jnp.asarray(v), jnp.asarray(spacing))))(jnp.asarray(v)))
-    (got,) = _grad_torch(lambda a: simulator.distance_in_mm(a, to_torch(v), to_torch(spacing)).sum(), v)
+    (got,) = _grad_torch(lambda a: geometry.distance_in_mm(a, to_torch(v), to_torch(spacing)).sum(), v)
     np.testing.assert_array_equal(got, want)
     assert (got == 0).all()
     # where a later ``where`` masks the lane, the gradient stays 0 and not NaN
