@@ -96,8 +96,9 @@ def chained_row(sim, batch: int, n_chain: int, seeds) -> dict:
     correct = True
     ms = []
     for seed in seeds:
-        ms += event_ms(lambda: chained(seed), 1)
-        last = chained.out.clone()
+        got = []
+        ms += event_ms(lambda: got.append(chained(seed)), 1)
+        last = got[0].clone()
         keys = rng.fold_in(rng.prng_key(seed),
                            (n_chain - 1) * batch + torch.arange(batch, dtype=torch.int64))
         eager = sim.render_frames(keys)["bmode"]

@@ -476,7 +476,7 @@ def check_k1_edges() -> dict:
     differing, hits, blocks = 0, {}, {}
     for label, rays, soa in cases:
         t_k, i_k = intersect.intersect_best(rays, soa)
-        blocks[label] = intersect.last_blocks
+        blocks[label] = kernels.last_grid("intersect")
         t_p, i_p = intersect.intersect_best_plain(rays, soa)
         differing += int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum() + (i_k != i_p).sum())
         hits[label] = int((t_k < 1.5).sum())
@@ -795,7 +795,7 @@ def time_grouped_query(label: str, o, s, packed, tile_r: int) -> dict:
                                lambda: intersect_grouped.grouped_winners_plain(*g_args), 1,
                                k_reps=20, p_reps=2)
     k10_device = graph_ms(lambda: intersect_grouped.grouped_winners(*g_args), 1)
-    stats.update(blocks=intersect_grouped.last_blocks)
+    stats.update(blocks=kernels.last_grid("intersect_grouped"))
     k5 = cuda_ms(lambda: intersect_listed.listed_best(*l_args), 10)
     whole_g = cuda_ms(lambda: intersect_grouped.intersect_closest_grouped(
         o, s, packed, residual_tile_r=tile_r), 5)
@@ -993,11 +993,11 @@ def bounce_phase(sims, smi: str) -> dict:
     for name in BOUNCE_SETS:
         sim = sims[name]
         draws_ = sim.batch_draws(seeds)
-        before = bounce.launches
+        before = kernels.launch_counts()["bounce"]
         b, hits, got = trace_bounces(sim, draws_, False)
         _, _, want = trace_bounces(sim, draws_, True)
         torch.cuda.synchronize()
-        launched = bounce.launches - before
+        launched = kernels.launch_counts()["bounce"] - before
         gaps[name] = {k: ulps(got[part][k], want[part][k])
                       for part in (0, 1) for k in want[part]}
         records[name] = (b, hits, draws_)
@@ -1793,8 +1793,7 @@ def batch_phase(pack, sim, fit, smi: str) -> dict:
     kernel_numbers = {}
     for name, (fn, per_call, (b_ms, b_by)) in fns.items():
         fn()
-        mod = getattr(kernels, name.removesuffix("_bwd"))
-        blocks = mod.last_blocks_bwd if name.endswith("_bwd") else mod.last_blocks
+        blocks = kernels.last_grid(name)
         kernel_numbers[name] = {"ms": cuda_ms(fn, 5) / per_call,
                                 "device_ms": graph_ms(fn, per_call), "bound_ms": b_ms,
                                 "bound_by": b_by, "blocks": blocks,
@@ -1892,35 +1891,6 @@ def bvh_batch_phase(sim) -> dict:
 T_START = time.perf_counter()
 
 
-def whole_chain_graph(sim, batch: int, n_chain: int):
-    """The other graph design, measured beside the library's: all n_chain
-    steps of a chained batch captured into one CUDA graph (after an eager
-    warm-up step on a side stream), replayed once a call. Returns
-    (call(seed0) -> the last step's B-modes, capture ms)."""
-    steps = sim.make_chained_batch(batch, n_chain)
-    t0 = time.perf_counter()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        steps.step()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n_chain):
-            out = steps.step()
-    torch.cuda.synchronize()
-    capture_ms = (time.perf_counter() - t0) * 1e3
-
-    def call(seed0):
-        steps.key.copy_(rng.prng_key(seed0))
-        steps.i.zero_()
-        steps.carry.zero_()
-        graph.replay()
-        return out
-
-    return call, capture_ms
-
-
 def chained_phase(sims, smi: str) -> dict:
     """``Simulator.make_chained_batch`` at ``SimConfig()`` on the sphere (8 x
     16, ``bench.py``'s and ``bench_torch.py``'s) and on ircad_hd (8 x 8): one
@@ -1931,10 +1901,9 @@ def chained_phase(sims, smi: str) -> dict:
     ``render_frames`` of its keys run eagerly, ``carry`` 0 after it and every
     frame a good B-mode. Then, per scene: capture ms and graph memory (the
     device memory the graph's pool keeps, after ``empty_cache``) of the
-    chained call and of the whole chain in one graph (``whole_chain_graph``);
-    both and the same n_chain steps run eagerly one after another timed by
-    events in turns (graph, chain graph, eager, eager, chain graph, graph),
-    wall ms per frame, all three bitwise alike; the device's view (busy ms,
+    chained call; it and the same n_chain steps run eagerly one after
+    another timed by events in turns (graph, eager, eager, graph), wall ms
+    per frame, both bitwise alike; the device's view (busy ms,
     operations, idle share) of one chained call and of the eager steps, the
     chained call's launches by kernel name from the profiler (n_chain times
     a step's: K5 10, K2, K3, K4 1, the draws kernels 3)."""
@@ -1971,20 +1940,9 @@ def chained_phase(sims, smi: str) -> dict:
                                  "of its keys")
         for b in range(batch):
             check_bmode(f"{name} chained frame {b}", sim, last[b])
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        chain_call, chain_capture_ms = whole_chain_graph(sim, batch, n_chain)
-        chain_call(CHAINED_SEED)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        chain_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
-        print(f"  the whole chain one graph: capture {chain_capture_ms:.1f} ms (with the warm-up "
-              f"step), graph memory {chain_mib:.1f} MiB")
         row = {"batch": batch, "n_chain": n_chain,
                "graph": {"capture_ms": capture_ms, "graph_mib": graph_mib,
                          "first_call_launches": nonzero(counts)},
-               "chain_graph": {"capture_ms": chain_capture_ms, "graph_mib": chain_mib},
                "eager": {}}
 
         steps = sim.make_chained_batch(batch, n_chain)  # its steps, one by one, no graph
@@ -1998,14 +1956,12 @@ def chained_phase(sims, smi: str) -> dict:
             return out
 
         calls = {"graph": lambda: chained(CHAINED_SEED + 1),
-                 "chain_graph": lambda: chain_call(CHAINED_SEED + 1),
                  "eager": lambda: eager_call(CHAINED_SEED + 1)}
         ms = {k: [] for k in calls}
-        for k in ("graph", "chain_graph", "eager", "eager", "chain_graph", "graph"):
+        for k in ("graph", "eager", "eager", "graph"):
             ms[k] += event_ms(calls[k], 1)
-        if not (torch.equal(chained.out, calls["chain_graph"]())
-                and torch.equal(chained.out, eager_call(CHAINED_SEED + 1))):
-            raise AssertionError(f"[chained] {name}: the two graphs and the eager steps differ")
+        if not torch.equal(calls["graph"](), eager_call(CHAINED_SEED + 1)):
+            raise AssertionError(f"[chained] {name}: the graph and the eager steps differ")
         for k, v in ms.items():
             row[k]["ms"] = v
             print(f"  {k}: {statistics.mean(v):.3f} ms a call (in turns: {v}), "
@@ -2021,7 +1977,7 @@ def chained_phase(sims, smi: str) -> dict:
                            "idle_share": 1.0 - view["busy_ms"] / statistics.mean(ms[k]),
                            "launches_by_name": launched})
         result[name] = row
-        del chained, chain_call, steps
+        del chained, steps
         torch.cuda.empty_cache()
     print(f"[chained] summary ({smi}): " + json.dumps(result))
     return result
@@ -2399,7 +2355,7 @@ def main() -> int:
                      **{f"mega_bounce_{d}": q["k10_device_ms"] for d, q in mega_queries.items()},
                      **{f"stress_200k_{n}": q["k10_device_ms"] for n, q in queries.items()}}
     intersect_grouped.grouped_winners(*mega_calls[0][2])
-    k10_blocks = intersect_grouped.last_blocks
+    k10_blocks = kernels.last_grid("intersect_grouped")
     print("  device ms per launch (graph replay): intersect_grouped "
           + ", ".join(f"{name} {v:.5f}" for name, v in k10_device_ms.items())
           + f"; {k10_blocks} blocks (mega)")
@@ -2437,7 +2393,7 @@ def main() -> int:
     for mode in ("culled", "staged"):
         kernel, _, args = cluster_calls[f"sphere {mode}"][0]
         kernel(*args)
-        cluster_blocks[CLUSTER_KERNEL[mode]] = getattr(kernels, CLUSTER_KERNEL[mode]).last_blocks
+        cluster_blocks[CLUSTER_KERNEL[mode]] = kernels.last_grid(CLUSTER_KERNEL[mode])
     print("  device ms per launch (graph replay): " + "; ".join(
         f"{name} " + ", ".join(f"{scene} {v:.4f}" for scene, v in by_scene.items())
         for name, by_scene in cluster_device_ms.items())
@@ -2456,7 +2412,7 @@ def main() -> int:
                                                                     bm["fit set-up"][2]), 1)}
     march.march_forward(soa, sim.seeds, cfg, cfg.rf_cols)
     march.march_backward(fit_soa, fit_sim.seeds, g_rf, fit_cfg)
-    k2_blocks, k8_blocks = march.last_blocks, march.last_blocks_bwd
+    k2_blocks, k8_blocks = kernels.last_grid("march"), kernels.last_grid("march_bwd")
     print("  device ms per launch (graph replay): march " + ", ".join(
         f"{k} {v:.4f}" for k, v in k2_device_ms.items()) + "; march_bwd " + ", ".join(
         f"{k} {v:.4f}" for k, v in k8_device_ms.items())
@@ -2469,7 +2425,7 @@ def main() -> int:
     for name, (dbvh, rays) in bvh_sets.items():
         k11["device_ms"][name] = graph_ms(
             lambda b=dbvh, q=rays: [bvh_intersect.bvh_best(r, b) for r in q], cfg.max_depth)
-        k11["blocks"][name] = bvh_intersect.last_blocks
+        k11["blocks"][name] = kernels.last_grid("bvh_intersect")
         k11["bound"][name] = roofline.bvh_bound(bvh_walks[name], dbvh)
         k11["walks"][name] = walk_means(bvh_walks[name], bvh_four_wide[name])
         k11["touched"][name] = roofline.bvh_touched(bvh_walks[name])
@@ -2497,9 +2453,9 @@ def main() -> int:
     intersect.intersect_best(brute_rays[0].contiguous(), tri_soa["sphere"])
     scanconv.scan_convert_forward(rf_env, maps)
     scanconv.scan_convert_backward(g_bm, maps)
-    k5_blocks, k3_blocks = intersect_listed.last_blocks, postproc.last_blocks
-    k1_blocks, k4_blocks = intersect.last_blocks, scanconv.last_blocks
-    k9_blocks = scanconv.last_blocks_bwd
+    k5_blocks, k3_blocks = kernels.last_grid("intersect_listed"), kernels.last_grid("postproc")
+    k1_blocks, k4_blocks = kernels.last_grid("intersect"), kernels.last_grid("scanconv")
+    k9_blocks = kernels.last_grid("scanconv_bwd")
     print(f"  blocks per launch on the sphere frame: intersect_listed {k5_blocks}, postproc "
           f"{k3_blocks}, intersect (brute) {k1_blocks}, scanconv {k4_blocks}, scanconv_bwd "
           f"{k9_blocks}; intersect_grouped (mega bounce 0) {k10_blocks} (132 SMs)")

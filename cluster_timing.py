@@ -113,7 +113,7 @@ def main() -> int:
     from mcray_tpu_torch.ops.bvh import build_bvh
     from mcray_tpu_torch.ops.cuda import (bvh_intersect, intersect, intersect_culled,
                                           intersect_grouped, intersect_listed, intersect_staged,
-                                          scanconv)
+                                          last_grid, launch_counts, scanconv)
     from mcray_tpu_torch.ops.geometry import NO_HIT_T
     from mcray_tpu_torch.scene import stress
     from mcray_tpu_torch.scene.compile import load_and_compile
@@ -184,16 +184,18 @@ def main() -> int:
 
     def profile_frames(runs):
         """Each frame timed by events (5) and profiled (3), as ``out["frames"]``."""
-        module = {"brute": intersect, "listed": intersect_listed, "culled": intersect_culled,
-                  "staged": intersect_staged, "grouped": intersect_grouped, "bvh": bvh_intersect}
+        kernel = {"brute": "intersect", "listed": "intersect_listed", "culled": "intersect_culled",
+                  "staged": "intersect_staged", "grouped": "intersect_grouped",
+                  "bvh": "bvh_intersect"}
         for scene, mode in runs:
             sim = sims[scene, mode]
             seeds = iter(range(100, 105))
             frame_ms = event_ms(lambda: sim.render_frame(seed=next(seeds)), 5)
-            before = module[mode].launches
+            before = launch_counts()[kernel[mode]]
             sim.render_frame(seed=7)
+            launched = launch_counts()[kernel[mode]] - before
             view = busy_view(lambda: sim.render_frame(seed=7), 3,
-                             expect={KERNEL_NAME[mode]: module[mode].launches - before})
+                             expect={KERNEL_NAME[mode]: launched})
             med = statistics.median(frame_ms)
             out.setdefault("frames", {})[f"{scene} {mode}"] = {
                 "median_ms": med, "min_ms": min(frame_ms), "max_ms": max(frame_ms),
@@ -219,7 +221,7 @@ def main() -> int:
         entry = out["k11"][name] = {
             "device_ms": graph_ms(lambda b=dbvh, q=bounces: [bvh_intersect.bvh_best(r, b)
                                                              for r in q], len(bounces)),
-            "blocks": bvh_intersect.last_blocks}
+            "blocks": last_grid("bvh_intersect")}
         live = tallies = 0
         slowest = {"launches_ms": 0.0, "alone_ms": 0.0, "nodes": 0}
         for r in bounces:

@@ -56,7 +56,6 @@ import torch
 from ..config import SimConfig, validate
 from ..ops import clusters, imaging, physics, texture
 from ..ops.bvh import DeviceBVH
-from ..ops.cuda import _build, add_launch_counts, launch_counts
 from ..ops.cuda.bounce import Bounces
 from ..ops.cuda.bvh_intersect import bvh_intersect_closest_cuda
 from ..ops.cuda.draws import fold_in, keyed_draws
@@ -72,6 +71,7 @@ from ..ops.geometry import safe_norm
 from ..ops.texture import fdiv
 from ..probe.transducer import element_layout
 from ..utils import convert, profiling, rng
+from .graph_step import GraphStep
 
 #: the cluster closest hits by intersect_mode
 CLUSTER_INTERSECTS = {
@@ -532,29 +532,25 @@ class ChainedBatch:
     (batch, H, W) B-modes.
 
     On the card one step (the keys, the draws, ``render_frames``, the carry)
-    is captured as a CUDA graph at the first call, after one eager step on a
-    side stream that builds the kernels and fills the caches the step reads;
-    the graph has a memory pool of its own (the whole chain as one graph
+    is replayed from a CUDA graph (``graph_step.GraphStep``, named
+    ``chained``), captured at the first call (the whole chain as one graph
     replays no faster and takes longer to capture: ``PERF.md``, the chained
-    batch). A call writes ``seed0``'s key into the graph's key buffer, sets
-    ``i`` and ``carry`` (device buffers that each step advances) to 0, and
-    replays the graph ``n_chain`` times, so no host value enters between
-    steps. The returned tensor is the graph's output buffer: the next call
-    overwrites it. The graph reads the ``Simulator``'s tensors as they are at capture
-    (a later assignment to ``materials`` or the pose is not seen). A
-    capture or replay that fails raises; nothing runs the steps eagerly on
-    the card after that. The kernels' launch counters
-    (``ops.cuda.launch_counts``) count what ran on the card: the warm-up
-    step, then each replay the captured step's launches (``launches``, by
-    kernel); the capture itself counts none.
+    batch). A call writes ``seed0``'s key into the key buffer, sets ``i`` and
+    ``carry`` (device buffers that each step advances) to 0, and replays the
+    graph ``n_chain`` times, so no host value enters between steps. The
+    returned tensor is the graph's output buffer: the next call overwrites
+    it. The graph reads the ``Simulator``'s tensors as they are at capture (a
+    later assignment to ``materials`` or the pose is not seen). The kernels'
+    launch counters (``ops.cuda.launch_counts``) count what ran on the card:
+    the warm-up step, then each replay the captured step's launches
+    (``launches``, by kernel).
 
     The step carries the stage marks (``utils/profiling.py:mark``) into the
     graph, so a profiled replay splits by stage. A call is the span
     ``chained.call`` (a request id of its own; ``units``: its frames), each
     replay a child span ``chained.replay``, and the first call's warm-up and
-    capture the span ``chained.capture``. The counters
-    ``chained.graph_nodes`` and ``chained.graph_frames`` (the step graph's
-    nodes and frames, once at capture) count what a replay hides.
+    capture the span ``chained.capture``, with the counters
+    ``chained.graph_nodes`` and ``chained.graph_frames``.
 
     On the CPU the same step runs ``n_chain`` times, one after another, and
     a call returns a tensor of its own.
@@ -569,10 +565,18 @@ class ChainedBatch:
         self.i = torch.zeros((), dtype=torch.int64, device=device)
         self.carry = torch.zeros((), dtype=torch.int64, device=device)
         self.offsets = torch.arange(batch, dtype=torch.int64, device=device)
-        self.graph = None
-        self.out = None
-        #: the captured step's kernel launches, by kernel (``launch_counts``' names)
-        self.launches = {}
+        self._graph = GraphStep(self.step, device, "chained", batch)
+
+    @property
+    def graph(self):
+        """The step's CUDA graph once captured; None before, and on the CPU."""
+        return self._graph.graph
+
+    @property
+    def launches(self) -> dict[str, int]:
+        """The captured step's kernel launches, by kernel (``launch_counts``'
+        names); ``{}`` before the capture, and on the CPU."""
+        return self._graph.launches
 
     def step_keys(self) -> torch.Tensor:
         """The (batch, 2) frame keys of the next step: ``fold_in(key, carry +
@@ -590,49 +594,11 @@ class ChainedBatch:
             self.i.add_(1)
         return bmode
 
-    def capture(self) -> None:
-        """One eager step on a side stream, then one step captured into
-        ``graph`` (its own memory pool), both in the span
-        ``chained.capture``; counts the graph's nodes and the step's
-        launches. The kernel library is loaded first, outside the span (a
-        checkout's first run builds it)."""
-        device = self.sim.device
-        _build.library()
-        with profiling.span("chained.capture", units=self.batch):
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                self.step()
-            torch.cuda.current_stream(device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            before = launch_counts()
-            with torch.cuda.graph(graph):
-                out = self.step()
-                nodes = profiling.capture_nodes(device)
-            torch.cuda.synchronize(device)
-        self.launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
-        add_launch_counts(self.launches, -1)  # captured, not run
-        profiling.count("chained.graph_nodes", nodes)
-        profiling.count("chained.graph_frames", self.batch)
-        self.graph, self.out = graph, out
-
     def __call__(self, seed0: int) -> torch.Tensor:
         with profiling.span("chained.call", request=profiling.request(),
                             units=self.batch * self.n_chain):
-            return self._call(seed0)
-
-    def _call(self, seed0: int) -> torch.Tensor:
-        if self.sim.device.type == "cuda" and self.graph is None:
-            self.capture()
-        self.key.copy_(rng.prng_key(seed0))
-        self.i.zero_()
-        self.carry.zero_()
-        if self.graph is None:  # the CPU
-            for _ in range(self.n_chain):
-                out = self.step()
-            return out
-        for _ in range(self.n_chain):
-            with profiling.span("chained.replay", units=self.batch):
-                self.graph.replay()
-        add_launch_counts(self.launches, self.n_chain)
-        return self.out
+            self._graph.capture()
+            self.key.copy_(rng.prng_key(seed0))
+            self.i.zero_()
+            self.carry.zero_()
+            return self._graph.run(self.n_chain)

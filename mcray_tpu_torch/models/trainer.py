@@ -18,6 +18,7 @@ eager step makes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -25,10 +26,10 @@ import numpy as np
 import torch
 
 from ..ops import physics
-from ..ops.cuda import _build, add_launch_counts, launch_counts
 from ..ops.cuda.draws import fold_in
 from ..ops.imaging import gaussian_blur
 from ..utils import profiling, rng
+from .graph_step import GraphStep
 
 # Default trainable columns: impedance, attenuation, mu0, mu1, sigma.
 # Specularity/shininess/thickness stay frozen (integer-ish semantics).
@@ -99,19 +100,17 @@ class MaterialFitter:
     ``fold_in(prng_key(seed), i)`` from a key buffer and a step counter that
     the step advances (a fixed seed or key: that key), then the frames, the
     loss, the backward, the mask, Adam and the clamp. On the card that step
-    is captured as a CUDA graph at the first call, after one eager step on a
-    side stream that builds the kernels, the caches and Adam's state (the
-    fit's state is put back after it), with a memory pool of its own, and
-    each step of a call is a replay: no host value enters between steps, and
-    a call reads its losses from the card once. A call's ``seed``, and a new
-    start set through ``state``, are copied into the graph's buffers; nothing
-    is captured again. ``last_grad`` (the masked gradient) and
-    ``last_frames`` are then the graph's buffers, which the next step
-    overwrites. The graph reads the target and the renderer's tensors as
-    they are at capture. A capture or replay that fails raises. ``step(frame)`` is
-    one step of the same arithmetic, eager, on any device. The kernels'
-    launch counters count a replay's launches (``launches``, by kernel) as
-    the chained batch's do.
+    is replayed from a CUDA graph (``graph_step.GraphStep``, named ``fit``),
+    captured at the first call after an eager warm-up step that also builds
+    Adam's state (the fit's state is put back after it): no host value enters
+    between steps, and a call reads its losses from the card once. A call's
+    ``seed``, and a new start set through ``state``, are copied into the
+    graph's buffers; nothing is captured again. ``last_grad`` (the masked
+    gradient) and ``last_frames`` are then the graph's buffers, which the next
+    step overwrites. The graph reads the target and the renderer's tensors as
+    they are at capture. ``step(frame)`` is one step of the same arithmetic,
+    eager, on any device. The kernels' launch counters count a replay's
+    launches (``launches``, by kernel) as the chained batch's do.
 
     Tracing: a call is the span ``fit.call`` (a request id of its own;
     ``units``: its frames), each replay a child span ``fit.replay``, the
@@ -155,10 +154,19 @@ class MaterialFitter:
         if fixed_frame is not None and not isinstance(fixed_frame, dict):
             key = fixed_frame if isinstance(fixed_frame, torch.Tensor) else rng.prng_key(fixed_frame)
             self._fixed = key.to(self.device)
-        self.graph = None
-        self._graph_out = None
-        #: the captured step's kernel launches, by kernel (``launch_counts``' names)
-        self.launches = {}
+        self._graph = GraphStep(self._step_on_buffers, self.device, "fit", n_frames_per_step,
+                                around_warmup=self._state_kept)
+
+    @property
+    def graph(self):
+        """The step's CUDA graph once captured; None before, and on the CPU."""
+        return self._graph.graph
+
+    @property
+    def launches(self) -> dict[str, int]:
+        """The captured step's kernel launches, by kernel (``launch_counts``'
+        names); ``{}`` before the capture, and on the CPU."""
+        return self._graph.launches
 
     @classmethod
     def from_simulator(cls, sim, init_materials, target, *, position=None, angles=None, **kw):
@@ -273,55 +281,23 @@ class MaterialFitter:
         self._step.add_(1)
         return out
 
-    def capture(self) -> None:
-        """One eager step on a side stream, then one step captured into
-        ``graph`` (its own memory pool), both in the span ``fit.capture``;
-        the fit's state is put back after the eager step. Counts the graph's
-        nodes and the step's launches. The kernel library is loaded first,
-        outside the span."""
-        device = self.device
-        _build.library()
-        with profiling.span("fit.capture", units=self.n_frames):
-            start, counter = self.state, self._step.clone()
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                self._step_on_buffers()
-            torch.cuda.current_stream(device).wait_stream(side)
-            self.state = start
-            self._step.copy_(counter)
-            graph = torch.cuda.CUDAGraph()
-            before = launch_counts()
-            with torch.cuda.graph(graph):
-                out = self._step_on_buffers()
-                nodes = profiling.capture_nodes(device)
-            torch.cuda.synchronize(device)
-        self.launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
-        add_launch_counts(self.launches, -1)  # captured, not run
-        profiling.count("fit.graph_nodes", nodes)
-        profiling.count("fit.graph_frames", self.n_frames)
-        self.graph, self._graph_out = graph, out
+    @contextlib.contextmanager
+    def _state_kept(self):
+        """Puts the fit's state back after the warm-up step of the capture."""
+        start = self.state
+        yield
+        self.state = start
 
     def _steps(self, n_steps: int, seed: int = 0) -> torch.Tensor:
         """``n_steps`` steps from the buffers (``run``), unread: the (n_steps,
         2) losses and gradient norms on the fitter's device."""
         with profiling.span("fit.call", request=profiling.request(),
                             units=n_steps * self.n_frames):
-            if self.device.type == "cuda" and self.graph is None:
-                self.capture()
+            self._graph.capture()
             self._key.copy_(rng.prng_key(seed))
             self._step.fill_(self.step_count)
             records = []
-            for _ in range(n_steps):
-                if self.graph is None:  # the CPU
-                    out = self._step_on_buffers()
-                else:
-                    with profiling.span("fit.replay", units=self.n_frames):
-                        self.graph.replay()
-                    out = self._graph_out
-                records.append(out["record"].clone())
-            if self.graph is not None:
-                add_launch_counts(self.launches, n_steps)
+            out = self._graph.run(n_steps, lambda o: records.append(o["record"].clone()))
             if n_steps:
                 self.last_grad, self.last_frames = out["grad"], out["frames"]
             self.step_count += n_steps

@@ -17,12 +17,20 @@ their plain versions exactly. No fast-math flag is passed.
 The library is named by a hash of the sources and flags and lives in
 ``build/mcray_tpu_torch/`` beside the package (git ignores it), so an edited
 source rebuilds and an unchanged one loads at once. A failed build raises
-with nvcc's stderr. Each C entry point returns ``cudaGetLastError()`` after
-its launch; ``check`` raises on a non-zero code.
+with nvcc's stderr.
+
+``ENTRIES`` is the one table of the C entry points: each one's ctypes
+signature and, for a launch, the kernel it counts under. ``launch`` makes
+every launch of a wrapper: it passes the current stream, raises on the code
+the entry returns (``cudaGetLastError()`` after its launch), counts the
+launch and keeps its grid. ``launch_counts``, ``add_launch_counts`` and
+``last_grid`` read and add to what it counted.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -31,6 +39,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "mcray_tpu_torch"
@@ -38,34 +49,53 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-# C signatures of the entry points (the launches return cudaError_t as int and
-# take the CUDA stream last; the others return what RESTYPES says)
-SIGNATURES = {
-    "mcray_intersect_closest": [P, I, P, I, P, P, P, P],
-    "mcray_bvh_intersect": [P, I, P, P, I, I, P, P, P, P, P],
-    "mcray_intersect_listed": [P, I, I, P, P, P, I, P, P, P, P, I, P, P, P, P],
-    "mcray_intersect_grouped": [P, I, P, P, I, I, P, I, P, P, P],
-    "mcray_intersect_culled": [P, I, P, P, I, I, P, P, P, P],
-    "mcray_intersect_staged": [P, I, P, I, I, P, P, I, P, P, P, P],
-    "mcray_intersect_listed_static_shared": [],
-    "mcray_intersect_culled_static_shared": [],
-    "mcray_intersect_staged_static_shared": [],
-    "mcray_march": [P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
-    "mcray_march_bwd": [P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
-    "mcray_postproc": [P, I, I, I, P, I, P, I, I, P, P, P, P],
-    "mcray_postproc_slab_floats": [I, I, I, I, I],
-    "mcray_scan_convert": [P, I, I, I, P, I, P, P, P],
-    "mcray_scan_convert_bwd": [P, P, P, P, I, I, I, P, P, P],
-    "mcray_mark": [I, P],
-    "mcray_keyed_draws": [P, I, P, I, I, P, P],
-    "mcray_fold_in": [P, I, P, I, U, I, P, P],
-    "mcray_capture_nodes": [P],
-    "mcray_bounce": [P, P],
-    "mcray_bounce_shared_bytes": [I, I],
+
+
+class Entry(NamedTuple):
+    """A C entry point: its argument types; for a launch, the kernel its
+    launches count under (``launch_counts``' names) and whether it reports
+    its grid (through the ``int*`` before the CUDA stream, which a launch
+    takes last); its return type (a launch returns ``cudaError_t`` as int)."""
+
+    args: list
+    kernel: str | None = None
+    grid: bool = False
+    restype: type = ctypes.c_int
+
+
+#: every C entry point of the library: the counted launches by kernel, then
+#: ``mcray_mark`` (a launch counted nowhere) and the queries
+ENTRIES = {
+    "mcray_intersect_closest": Entry([P, I, P, I, P, P, P, P], "intersect", True),
+    "mcray_intersect_listed": Entry([P, I, I, P, P, P, I, P, P, P, P, I, P, P, P, P],
+                                    "intersect_listed", True),
+    "mcray_intersect_culled": Entry([P, I, P, P, I, I, P, P, P, P], "intersect_culled", True),
+    "mcray_intersect_staged": Entry([P, I, P, I, I, P, P, I, P, P, P, P], "intersect_staged",
+                                    True),
+    "mcray_intersect_grouped": Entry([P, I, P, P, I, I, P, I, P, P, P], "intersect_grouped",
+                                     True),
+    "mcray_bvh_intersect": Entry([P, I, P, P, I, I, P, P, P, P, P], "bvh_intersect", True),
+    "mcray_march": Entry([P, I, I, I, I, U, U, F, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
+                         "march", True),
+    "mcray_march_bwd": Entry([P, P, I, I, I, I, U, U, F, F, F, F, F, I, F, I, I, I, F, P, P, P],
+                             "march_bwd", True),
+    "mcray_postproc": Entry([P, I, I, I, P, I, P, I, I, P, P, P, P], "postproc", True),
+    "mcray_scan_convert": Entry([P, I, I, I, P, I, P, P, P], "scanconv", True),
+    "mcray_scan_convert_bwd": Entry([P, P, P, P, I, I, I, P, P, P], "scanconv_bwd", True),
+    "mcray_keyed_draws": Entry([P, I, P, I, I, P, P], "draws"),
+    "mcray_fold_in": Entry([P, I, P, I, U, I, P, P], "draws"),
+    "mcray_bounce": Entry([P, P], "bounce"),
+    "mcray_mark": Entry([I, P]),
+    "mcray_intersect_listed_static_shared": Entry([]),
+    "mcray_intersect_culled_static_shared": Entry([]),
+    "mcray_intersect_staged_static_shared": Entry([]),
+    "mcray_postproc_slab_floats": Entry([I, I, I, I, I], restype=ctypes.c_longlong),
+    "mcray_bounce_shared_bytes": Entry([I, I]),
+    "mcray_capture_nodes": Entry([P], restype=ctypes.c_longlong),
 }
 
-RESTYPES = {"mcray_postproc_slab_floats": ctypes.c_longlong,
-            "mcray_capture_nodes": ctypes.c_longlong}
+#: the kernels whose launches ``launch_counts`` counts, in ``ENTRIES``' order
+COUNTED = tuple(dict.fromkeys(e.kernel for e in ENTRIES.values() if e.kernel))
 
 
 def _sources() -> list[Path]:
@@ -124,10 +154,9 @@ def library() -> ctypes.CDLL:
         )
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
+    for name, entry in ENTRIES.items():
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, ctypes.c_int)
+        fn.argtypes, fn.restype = entry.args, entry.restype
     return lib
 
 
@@ -137,17 +166,81 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
-def stream_of(t) -> int:
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def check(code: int, name: str) -> None:
     if code == 1:  # cudaErrorInvalidValue: the C entry refused its arguments, launched nothing
         raise ValueError(f"{name}: arguments the kernel does not take (CUDA error 1)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+#: launches run since the last reset, and the grid of the latest launch, by kernel
+_launches = dict.fromkeys(COUNTED, 0)
+_grids = dict.fromkeys(COUNTED, 0)
+#: the launches of the capture that ``tallied`` holds open, by kernel
+_tally = None
+
+
+def launch(entry: str, *args, device) -> None:
+    """Launch C entry ``entry`` with ``args`` on ``device``'s current
+    stream: an ``int*`` for the grid follows them where the entry reports
+    one, then the stream. Raises on the entry's code (``check``), then
+    counts the launch under its kernel: in the open capture's tally where
+    the current stream is capturing (``tallied``; without one it counts
+    nowhere, since a captured launch has not run), else in the totals
+    (``launch_counts``); keeps the grid (``last_grid``)."""
+    spec = ENTRIES[entry]
+    blocks = ctypes.c_int(0)
+    grid = (ctypes.byref(blocks),) if spec.grid else ()
+    code = getattr(library(), entry)(*args, *grid, torch.cuda.current_stream(device).cuda_stream)
+    check(code, entry)
+    if spec.kernel is None:
+        return
+    if spec.grid:
+        _grids[spec.kernel] = blocks.value
+    if not torch.cuda.is_current_stream_capturing():
+        _launches[spec.kernel] += 1
+    elif _tally is not None:
+        _tally[spec.kernel] += 1
+
+
+@contextlib.contextmanager
+def tallied():
+    """Yield the tally (by kernel) that the launches captured inside go to,
+    in place of the totals."""
+    global _tally
+    outer, _tally = _tally, collections.Counter()
+    try:
+        yield _tally
+    finally:
+        _tally = outer
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches run since the last reset, by kernel: every kernel of
+    ``COUNTED``, 0 included."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for kernel in _launches:
+        _launches[kernel] = 0
+
+
+def add_launch_counts(counts: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (by kernel, as ``launch_counts`` names
+    them) to the totals: the launches of a CUDA graph's replays, which no
+    wrapper sees. Raises ``KeyError`` on a name that is no kernel's."""
+    unknown = set(counts) - set(_launches)
+    if unknown:
+        raise KeyError(f"no launch counter for {sorted(unknown)}")
+    for kernel, n in counts.items():
+        _launches[kernel] += times * n
+
+
+def last_grid(kernel: str) -> int:
+    """The grid (blocks) of ``kernel``'s latest launch, as its C entry
+    reported it; 0 before the first."""
+    return _grids[kernel]
 
 
 def require(t, name: str, dtype, shape: tuple | None = None) -> None:

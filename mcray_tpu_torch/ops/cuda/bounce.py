@@ -17,7 +17,7 @@ tensors, which it writes into the same record. Each launch is an
 ``autograd.Function`` whose backward is autograd over the plain version,
 rerun on the launch's inputs (rematerialised: the record holds the state
 each bounce started from), so a gradient through the trace (the material
-fit, the pose fit by autograd) takes the kernel's forward too. ``launches``
+fit, the pose fit by autograd) takes the kernel's forward too. ``launch_counts()["bounce"]``
 counts the kernel's launches: D + 1 a trace (row 0, then one a bounce).
 """
 
@@ -34,8 +34,6 @@ from ..texture import fdiv
 from . import _build
 from .draws import FIELDS
 
-#: kernel launches since the last reset (D + 1 a trace on the card)
-launches = 0
 
 #: the segment fields of a trace, in the order ``trace_paths`` returns them
 SEGMENT_FIELDS = ("from", "to", "direction", "reflected", "initial", "attenuation", "distance",
@@ -291,11 +289,7 @@ class _Record:
         )
 
     def _launch(self) -> None:
-        global launches
-        code = _build.library().mcray_bounce(ctypes.byref(self.args),
-                                             _build.stream_of(self.buffers["query"]))
-        _build.check(code, "mcray_bounce")
-        launches += 1
+        _build.launch("mcray_bounce", ctypes.byref(self.args), device=self.buffers["query"].device)
 
     def _write(self, d: int, row: dict) -> None:
         for k, v in row.items():

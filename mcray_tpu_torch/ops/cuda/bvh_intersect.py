@@ -20,18 +20,11 @@ gradients flow through the hit point while the kernel sees detached rays.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import bvh as bvh_mod
 from .. import geometry
 from . import _build
-
-#: kernel launches since the last reset (one per call on a CUDA tensor)
-launches = 0
-#: the grid of the latest launch, as the C entry reported it (16 rays a block)
-last_blocks = 0
 
 
 def bvh_best(rays: torch.Tensor, bvh: bvh_mod.DeviceBVH, *, counts: bool = False):
@@ -40,7 +33,6 @@ def bvh_best(rays: torch.Tensor, bvh: bvh_mod.DeviceBVH, *, counts: bool = False
     tested): the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. Raises ``ValueError`` where the layout's walk can need more
     stack than the kernel holds."""
-    global launches, last_blocks
     bvh_mod.check_stack(bvh)
     if rays.device.type == "cpu" and bvh.tris4.device.type == "cpu":
         return bvh_mod.bvh4_best_plain(rays, bvh, counts=counts)
@@ -56,15 +48,12 @@ def bvh_best(rays: torch.Tensor, bvh: bvh_mod.DeviceBVH, *, counts: bool = False
     best_t = torch.empty(n, dtype=torch.float32, device=rays.device)
     best_idx = torch.empty(n, dtype=torch.int32, device=rays.device)
     tally = torch.empty((2, n), dtype=torch.int32, device=rays.device) if counts else None
-    blocks = ctypes.c_int(0)
-    code = _build.library().mcray_bvh_intersect(
+    _build.launch(
+        "mcray_bvh_intersect",
         rays.data_ptr(), n, bvh.nodes4.data_ptr(), bvh.tris4.data_ptr(), t, bvh.stack_need,
         best_t.data_ptr(), best_idx.data_ptr(), tally.data_ptr() if counts else None,
-        ctypes.byref(blocks), _build.stream_of(rays),
+        device=rays.device,
     )
-    _build.check(code, "mcray_bvh_intersect")
-    launches += 1
-    last_blocks = blocks.value
     return (best_t, best_idx, tally) if counts else (best_t, best_idx)
 
 

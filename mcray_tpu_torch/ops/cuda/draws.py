@@ -10,7 +10,7 @@ registers, one thread per (depth, column), and writes the five fields bit for
 bit the plain path's on the card (the source's note has the chain and the
 bound); ``keyed_draws_fold_in_kernel`` derives a batch of keys in one launch.
 
-Both count in ``launches``: a chained step makes three (its frame keys, the
+Both count under ``draws`` (``launch_counts``): a chained step makes three (its frame keys, the
 frames' trace keys, the draws), an eager frame one (its keys are derived on
 the host). Nothing is differentiable here.
 """
@@ -23,8 +23,6 @@ from ...utils import rng
 from .. import physics
 from . import _build
 
-#: kernel launches since the last reset (the draws and the key batches alike)
-launches = 0
 
 #: the five fields, in the order of the kernel's (5, D, N) buffer
 FIELDS = ("q_normal", "angle_u", "axis_u", "radius_u", "roulette_u")
@@ -46,7 +44,6 @@ def keyed_draws(trace_key: torch.Tensor, path_ids: torch.Tensor,
     b P + p is path ``path_ids[p]`` of frame b. The kernel for CUDA tensors
     (the five fields views of one (5, n_depth, B x P) buffer), the plain
     version for CPU ones."""
-    global launches
     if trace_key.device.type == "cpu" and path_ids.device.type == "cpu":
         return keyed_draws_plain(trace_key, path_ids, n_depth)
     if trace_key.dim() != 2 or trace_key.shape[1] != 2:
@@ -60,11 +57,8 @@ def keyed_draws(trace_key: torch.Tensor, path_ids: torch.Tensor,
     b, p = trace_key.shape[0], path_ids.shape[0]
     out = torch.empty((len(FIELDS), n_depth, b * p), dtype=torch.float32,
                       device=trace_key.device)
-    code = _build.library().mcray_keyed_draws(trace_key.data_ptr(), b, path_ids.data_ptr(), p,
-                                              n_depth, out.data_ptr(),
-                                              _build.stream_of(trace_key))
-    _build.check(code, "mcray_keyed_draws")
-    launches += 1
+    _build.launch("mcray_keyed_draws", trace_key.data_ptr(), b, path_ids.data_ptr(), p, n_depth,
+                  out.data_ptr(), device=trace_key.device)
     return dict(zip(FIELDS, out))
 
 
@@ -73,7 +67,6 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     or an int64 tensor (), (1,) or (K,): one kernel launch for CUDA keys, the
     plain ``rng.fold_in`` for CPU ones. Returns (K, 2) int64 (the broadcast
     of the two; a (2,) key with an int data gives (2,))."""
-    global launches
     if keys.device.type == "cpu":
         return rng.fold_in(keys, data)
     if keys.dim() not in (1, 2) or keys.shape[-1] != 2:
@@ -93,10 +86,8 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
         raise ValueError(f"keys ({n_keys}) and data ({n_data}) do not broadcast to a batch")
     batched = keys.dim() == 2 or (tensor and data.dim() == 1)
     out = torch.empty((n, 2) if batched else (2,), dtype=torch.int64, device=keys.device)
-    code = _build.library().mcray_fold_in(
-        keys.data_ptr(), int(n_keys > 1), data.data_ptr() if tensor else None,
+    _build.launch(
+        "mcray_fold_in", keys.data_ptr(), int(n_keys > 1), data.data_ptr() if tensor else None,
         int(n_data > 1), 0 if tensor else int(data) & rng._MASK32, n, out.data_ptr(),
-        _build.stream_of(keys))
-    _build.check(code, "mcray_fold_in")
-    launches += 1
+        device=keys.device)
     return out

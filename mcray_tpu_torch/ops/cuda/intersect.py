@@ -16,7 +16,7 @@ shared memory and reading each as a broadcast. The warps' winners merge on
 (t, index) in shared memory, and a thread-block cluster of the slices'
 blocks merges theirs through distributed shared memory; one block writes
 each ray's result. One launch per call: 2,560 rays x 8 slices make 640
-blocks (``last_blocks``), where a thread per ray made 20. A cluster whose
+blocks (``last_grid("intersect")``), where a thread per ray made 20. A cluster whose
 32 rays all have a zero segment skips the walk (they cannot hit: det is
 exactly 0). ``tests/test_torch_intersect.py`` holds that decomposition, in
 plain torch, to ``intersect_best_plain`` bitwise for any number of parts.
@@ -32,17 +32,10 @@ Dead rays are parked at 1e9 with a zero segment: det == 0, so they miss.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import geometry
 from . import _build
-
-#: kernel launches since the last reset (one per call on a CUDA tensor)
-launches = 0
-#: the grid of the latest launch, as the C entry reported it
-last_blocks = 0
 
 
 def intersect_best_plain(rays: torch.Tensor, tri_soa: torch.Tensor):
@@ -60,7 +53,6 @@ def intersect_best_plain(rays: torch.Tensor, tri_soa: torch.Tensor):
 def intersect_best(rays: torch.Tensor, tri_soa: torch.Tensor):
     """(best_t, best_idx) of every ray: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors. Any N >= 1 and T >= 0."""
-    global launches, last_blocks
     if rays.device.type == "cpu" and tri_soa.device.type == "cpu":
         return intersect_best_plain(rays, tri_soa)
     n, t = rays.shape[1], tri_soa.shape[1]
@@ -70,14 +62,11 @@ def intersect_best(rays: torch.Tensor, tri_soa: torch.Tensor):
     _build.require(tri_soa, "tri_soa", torch.float32, (9, t))
     best_t = torch.empty(n, dtype=torch.float32, device=rays.device)
     best_idx = torch.empty(n, dtype=torch.int32, device=rays.device)
-    blocks = ctypes.c_int(0)
-    code = _build.library().mcray_intersect_closest(
+    _build.launch(
+        "mcray_intersect_closest",
         rays.data_ptr(), n, tri_soa.data_ptr(), t, best_t.data_ptr(), best_idx.data_ptr(),
-        ctypes.byref(blocks), _build.stream_of(rays),
+        device=rays.device,
     )
-    _build.check(code, "mcray_intersect_closest")
-    launches += 1
-    last_blocks = blocks.value
     return best_t, best_idx
 
 

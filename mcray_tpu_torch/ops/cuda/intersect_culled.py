@@ -24,17 +24,11 @@ kernel's bitwise at the kernel's group, and at the whole packet.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import clusters
 from . import _build
 
-#: kernel launches since the last reset (one per call on CUDA tensors)
-launches = 0
-#: the grid of the latest launch, as the C entry reported it
-last_blocks = 0
 
 TILE_R = 128
 #: rays per block of the kernel
@@ -63,7 +57,6 @@ def culled_best_plain(rays, packed: clusters.CulledTris, tile_r: int, group: int
 def culled_best(rays, packed: clusters.CulledTris, tile_r: int):
     """(best_t, best_slot) of every ray: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    global launches, last_blocks
     if rays.device.type == "cpu" and packed.device.type == "cpu":
         return culled_best_plain(rays, packed, tile_r)
     n_tot = rays.shape[1]
@@ -77,15 +70,11 @@ def culled_best(rays, packed: clusters.CulledTris, tile_r: int):
     _build.require_tiles(packed, "mcray_intersect_culled")
     best_t = torch.empty(n_tot, dtype=torch.float32, device=rays.device)
     best_slot = torch.empty(n_tot, dtype=torch.int32, device=rays.device)
-    blocks = ctypes.c_int(0)
-    code = _build.library().mcray_intersect_culled(
+    _build.launch(
+        "mcray_intersect_culled",
         rays.data_ptr(), n_tot, packed.hbm_tris.data_ptr(), packed.aabb_cluster.data_ptr(),
-        packed.n_slots // tt, tt, best_t.data_ptr(), best_slot.data_ptr(), ctypes.byref(blocks),
-        _build.stream_of(rays),
+        packed.n_slots // tt, tt, best_t.data_ptr(), best_slot.data_ptr(), device=rays.device,
     )
-    _build.check(code, "mcray_intersect_culled")
-    launches += 1
-    last_blocks = blocks.value
     return best_t, best_slot
 
 

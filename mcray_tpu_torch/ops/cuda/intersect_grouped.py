@@ -34,8 +34,6 @@ tables to the reference use them.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import clusters
@@ -43,10 +41,6 @@ from ..geometry import NO_HIT_T, _moller_trumbore
 from . import _build
 from .intersect_listed import TILE_R, listed_best
 
-#: kernel launches since the last reset (one per call on CUDA tensors)
-launches = 0
-#: the grid of the latest launch, as the C entry reported it
-last_blocks = 0
 
 GROUP_G = 32  # ray slots per cluster (the reference's default budget)
 CHUNK_G = 4   # of which at most this many from one 128-ray chunk
@@ -99,7 +93,6 @@ def grouped_winners(rays, ray_ids, counts, packed: clusters.CulledTris):
     multiple of 8 up to 256 and ``tile_t`` a multiple of 4 up to 3,200 (its
     shared memory); the C entry refuses anything else, and this raises
     ``ValueError`` with no launch."""
-    global launches, last_blocks
     if rays.device.type == "cpu" and packed.device.type == "cpu":
         return grouped_winners_plain(rays, ray_ids, counts, packed)
     n_tot, (n_c, g) = rays.shape[1], ray_ids.shape
@@ -112,15 +105,11 @@ def grouped_winners(rays, ray_ids, counts, packed: clusters.CulledTris):
     _build.require(counts, "counts", torch.int32, (n_c,))
     _build.require(tiles, "hbm_tris", torch.float32, (n_c, clusters.SOA_ROWS, tile_t))
     keys = torch.full((n_tot,), clusters.NO_HIT_KEY, dtype=torch.int64, device=rays.device)
-    blocks = ctypes.c_int(0)
-    code = _build.library().mcray_intersect_grouped(
+    _build.launch(
+        "mcray_intersect_grouped",
         rays.data_ptr(), n_tot, ray_ids.data_ptr(), counts.data_ptr(), n_c, g, tiles.data_ptr(),
-        tile_t, keys.data_ptr(), ctypes.byref(blocks),
-        _build.stream_of(rays),
+        tile_t, keys.data_ptr(), device=rays.device,
     )
-    _build.check(code, "mcray_intersect_grouped")
-    launches += 1
-    last_blocks = blocks.value
     # a key's halves (little-endian): the slot, then the bits of t; one copy
     # makes both rows contiguous
     halves = keys.view(torch.int32).view(n_tot, 2).T.contiguous()

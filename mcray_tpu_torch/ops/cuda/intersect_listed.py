@@ -28,8 +28,6 @@ winning t and slot equal the kernel's bitwise.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ...utils import profiling
@@ -37,10 +35,6 @@ from .. import clusters
 from ..geometry import NO_HIT_T
 from . import _build
 
-#: kernel launches since the last reset (one per call on CUDA tensors)
-launches = 0
-#: the grid of the latest launch, as the C entry reported it
-last_blocks = 0
 
 TILE_R = 128
 #: rays per block of the kernel (each ray has a warp): 640 blocks of 128 threads
@@ -90,7 +84,6 @@ def listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed: cluster
 def listed_best(rays, counts, ids, keys, t_init, idx_init, packed: clusters.CulledTris):
     """(best_t, best_slot) of every ray: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    global launches, last_blocks
     if rays.device.type == "cpu" and packed.device.type == "cpu":
         return listed_best_plain(rays, counts, ids, keys, t_init, idx_init, packed)
     n_tot, (p, n_c) = rays.shape[1], ids.shape
@@ -110,16 +103,12 @@ def listed_best(rays, counts, ids, keys, t_init, idx_init, packed: clusters.Cull
     _build.require_tiles(packed, "mcray_intersect_listed")
     best_t = torch.empty(n_tot, dtype=torch.float32, device=rays.device)
     best_slot = torch.empty(n_tot, dtype=torch.int32, device=rays.device)
-    blocks = ctypes.c_int(0)
-    code = _build.library().mcray_intersect_listed(
+    _build.launch(
+        "mcray_intersect_listed",
         rays.data_ptr(), n_tot, tile_r, counts.data_ptr(), ids.data_ptr(), keys.data_ptr(), n_c,
         t_init.data_ptr(), idx_init.data_ptr(), tiles.data_ptr(), boxes.data_ptr(),
-        packed.tile_t, best_t.data_ptr(), best_slot.data_ptr(), ctypes.byref(blocks),
-        _build.stream_of(rays),
+        packed.tile_t, best_t.data_ptr(), best_slot.data_ptr(), device=rays.device,
     )
-    _build.check(code, "mcray_intersect_listed")
-    launches += 1
-    last_blocks = blocks.value
     return best_t, best_slot
 
 

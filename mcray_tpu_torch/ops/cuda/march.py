@@ -62,14 +62,6 @@ F_FROM_X, F_FROM_Y, F_FROM_Z, F_DIR_X, F_DIR_Y, F_DIR_Z, F_T0, F_STEPS, \
 N_FIELDS = 16
 TILE_C = 128
 
-#: forward kernel (K2) launches since the last reset (one per call on a CUDA tensor)
-launches = 0
-#: backward kernel (K8) launches since the last reset
-launches_bwd = 0
-#: the grids of the latest K2 and K8 launches, as the C entries reported them
-last_blocks = 0
-last_blocks_bwd = 0
-
 
 def pack_segments(segments, materials, cfg: SimConfig, n_cols: int) -> torch.Tensor:
     """Regroup the (D, N) segment tensor into the kernel's (SD, 16, C_pad)
@@ -262,22 +254,17 @@ def _texture_args(cfg: SimConfig):
 
 def march_forward(soa: torch.Tensor, seeds: torch.Tensor, cfg: SimConfig, n_cols: int) -> torch.Tensor:
     """K2 for a CUDA ``soa``, ``march_plain`` for a CPU one (no autograd)."""
-    global launches, last_blocks
     if soa.device.type == "cpu":
         return march_plain(soa, seeds, cfg, n_cols)
     sd, c_pad, seed0, seed1 = _kernel_args(soa, seeds, cfg, n_cols)
     out = torch.empty((cfg.rf_rows, n_cols), dtype=torch.float32, device=soa.device)
     f32 = ctypes.c_float
-    blocks = ctypes.c_int(0)
-    code = _build.library().mcray_march(
-        soa.data_ptr(), sd, c_pad, n_cols, cfg.rf_rows, seed0, seed1,
+    _build.launch(
+        "mcray_march", soa.data_ptr(), sd, c_pad, n_cols, cfg.rf_rows, seed0, seed1,
         f32(cfg.rf_row_dt_us), f32(cfg.march_dt_us), f32(cfg.rf_row_dt_us / cfg.march_dt_us),
         f32(float(cfg.max_travel_time_us)), f32(cfg.axial_resolution_mm),
-        *_texture_args(cfg), out.data_ptr(), ctypes.byref(blocks), _build.stream_of(soa),
+        *_texture_args(cfg), out.data_ptr(), device=soa.device,
     )
-    _build.check(code, "mcray_march")
-    launches += 1
-    last_blocks = blocks.value
     return out
 
 
@@ -285,7 +272,6 @@ def march_backward(soa: torch.Tensor, seeds: torch.Tensor, g: torch.Tensor,
                    cfg: SimConfig) -> torch.Tensor:
     """K8 for a CUDA ``soa``, ``march_bwd_plain`` for a CPU one: the SoA's
     gradient (SD, 16, C_pad) from the RF cotangent ``g`` (rf_rows, n_cols)."""
-    global launches_bwd, last_blocks_bwd
     if soa.device.type == "cpu":
         return march_bwd_plain(soa, seeds, g, cfg)
     n_cols = g.shape[1]
@@ -293,16 +279,12 @@ def march_backward(soa: torch.Tensor, seeds: torch.Tensor, g: torch.Tensor,
     _build.require(g, "g", torch.float32, (cfg.rf_rows, n_cols))
     gout = torch.empty_like(soa)
     f32 = ctypes.c_float
-    blocks = ctypes.c_int(0)
-    code = _build.library().mcray_march_bwd(
+    _build.launch(
+        "mcray_march_bwd",
         soa.data_ptr(), g.data_ptr(), sd, c_pad, n_cols, cfg.rf_rows, seed0, seed1,
         f32(cfg.rf_row_dt_us), f32(cfg.march_dt_us), f32(float(cfg.max_travel_time_us)),
-        f32(cfg.axial_resolution_mm), *_texture_args(cfg), gout.data_ptr(),
-        ctypes.byref(blocks), _build.stream_of(soa),
+        f32(cfg.axial_resolution_mm), *_texture_args(cfg), gout.data_ptr(), device=soa.device,
     )
-    _build.check(code, "mcray_march_bwd")
-    launches_bwd += 1
-    last_blocks_bwd = blocks.value
     return gout
 
 

@@ -38,7 +38,6 @@ kernel.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -49,10 +48,6 @@ from .. import imaging
 from .. import psf as psf_mod
 from . import _build
 
-#: kernel launches since the last reset (one per call on a CUDA tensor)
-launches = 0
-#: the grid of the latest launch, as the C entry reported it
-last_blocks = 0
 
 #: shared memory a block may use on sm_90 (227 KB); taller strips use a slab
 #: of device memory instead
@@ -112,7 +107,6 @@ def kernel_modes(cfg: SimConfig) -> bool:
 def postproc_forward(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     """K3 for a CUDA ``rf``, ``postproc_plain`` for a CPU one or for the
     modes K3 does not compute (no autograd)."""
-    global launches, last_blocks
     if rf.device.type == "cpu" or not kernel_modes(cfg):
         return postproc_plain(rf, cfg)
     if rf.dim() not in (2, 3):
@@ -127,13 +121,9 @@ def postproc_forward(rf: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     lib = _build.library()
     n_slab = lib.mcray_postproc_slab_floats(rows, cols, frames, l, MAX_SHARED_BYTES)
     slab = torch.empty(n_slab, dtype=torch.float32, device=rf.device) if n_slab else None
-    blocks = ctypes.c_int(0)
-    code = lib.mcray_postproc(
+    _build.launch(
+        "mcray_postproc",
         rf.data_ptr(), rows, cols, frames, taps.data_ptr(), a, taps.data_ptr() + 4 * a, l,
-        do_conv, slab.data_ptr() if slab is not None else None, out.data_ptr(),
-        ctypes.byref(blocks), _build.stream_of(rf),
+        do_conv, slab.data_ptr() if slab is not None else None, out.data_ptr(), device=rf.device,
     )
-    _build.check(code, "mcray_postproc")
-    launches += 1
-    last_blocks = blocks.value
     return out

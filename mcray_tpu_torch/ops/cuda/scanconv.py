@@ -46,7 +46,6 @@ grid's second axis is the frame.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -56,15 +55,6 @@ from .. import imaging
 from . import _build
 
 LANES = 128
-
-#: forward kernel (K4) launches since the last reset (one per call on a CUDA tensor)
-launches = 0
-#: the grid of the latest K4 launch, as the C entry reported it
-last_blocks = 0
-#: backward kernel (K9) launches since the last reset
-launches_bwd = 0
-#: the grid of the latest K9 launch, as the C entry reported it
-last_blocks_bwd = 0
 
 
 def pack_scan_maps(map_row: np.ndarray, map_col: np.ndarray, rf_rows: int, rf_cols: int):
@@ -221,7 +211,6 @@ def scan_convert_backward(g: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
     """RF gradient (rf_rows, rf_cols) from the B-mode cotangent ``g``
     (out_rows, out_cols), or (F, rf_rows, rf_cols) from (F, out_rows,
     out_cols): K9 for CUDA tensors, ``scan_convert_bwd_plain`` for CPU tensors."""
-    global launches_bwd, last_blocks_bwd
     rows, cols = maps.rf_rows, maps.rf_cols
     if g.device.type == "cpu" and maps.table.device.type == "cpu":
         return scan_convert_bwd_plain(g, maps.table, rows, cols)
@@ -232,15 +221,11 @@ def scan_convert_backward(g: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
     _build.require(maps.pixel, "pixel", torch.int32)
     _build.require(maps.weight, "weight", torch.float32, tuple(maps.pixel.shape))
     out = torch.empty(lead + (rows, cols), dtype=torch.float32, device=g.device)
-    blocks = ctypes.c_int(0)
-    code = _build.library().mcray_scan_convert_bwd(
+    _build.launch(
+        "mcray_scan_convert_bwd",
         maps.row_ptr.data_ptr(), maps.pixel.data_ptr(), maps.weight.data_ptr(), g.data_ptr(),
-        n_cells, g.shape[-2] * g.shape[-1], frames, out.data_ptr(), ctypes.byref(blocks),
-        _build.stream_of(g),
+        n_cells, g.shape[-2] * g.shape[-1], frames, out.data_ptr(), device=g.device,
     )
-    _build.check(code, "mcray_scan_convert_bwd")
-    launches_bwd += 1
-    last_blocks_bwd = blocks.value
     return out
 
 
@@ -266,7 +251,6 @@ def scan_convert_cuda(rf: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
 def scan_convert_forward(rf: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
     """K4 for CUDA tensors, ``scan_convert_plain`` for CPU tensors (no
     autograd); ``rf`` is (rf_rows, rf_cols) or (F, rf_rows, rf_cols)."""
-    global launches, last_blocks
     if rf.device.type == "cpu" and maps.table.device.type == "cpu":
         return scan_convert_plain(rf, maps.table, maps.out_cols)
     rows, cols = maps.rf_rows, maps.rf_cols
@@ -275,12 +259,9 @@ def scan_convert_forward(rf: torch.Tensor, maps: ScanMaps) -> torch.Tensor:
     _build.require(rf, "rf", torch.float32)
     _build.require(maps.coords, "coords", torch.float32, (2, out_rows, maps.out_cols))
     out = torch.empty(lead + (out_rows, maps.out_cols), dtype=torch.float32, device=rf.device)
-    blocks = ctypes.c_int(0)
-    code = _build.library().mcray_scan_convert(
+    _build.launch(
+        "mcray_scan_convert",
         rf.data_ptr(), rows, cols, frames, maps.coords.data_ptr(), out_rows * maps.out_cols,
-        out.data_ptr(), ctypes.byref(blocks), _build.stream_of(rf),
+        out.data_ptr(), device=rf.device,
     )
-    _build.check(code, "mcray_scan_convert")
-    launches += 1
-    last_blocks = blocks.value
     return out

@@ -148,8 +148,7 @@ def mark(stage: str, device) -> None:
         return
     from ..ops.cuda import _build
 
-    stream = torch.cuda.current_stream(device).cuda_stream
-    _build.check(_build.library().mcray_mark(STAGES.index(stage), stream), "mcray_mark")
+    _build.launch("mcray_mark", STAGES.index(stage), device=device)
 
 
 class _GradMark(torch.autograd.Function):

@@ -98,7 +98,7 @@ BOUNCE_BYTES = 45 + 29 + 20 + 16 + 45 + 24
 # the segment fields the trace writes for the march, once per path-bounce
 SEGMENT_FIELDS = ("from", "to", "direction", "reflected", "initial", "attenuation", "distance",
                   "media_id", "valid")
-# each kernel's wrapper (``ops.cuda.launch_counts``) and its device events' name
+# each counted kernel (``ops.cuda.launch_counts``' names) and its device events' name
 EVENT_NAMES = {"intersect": "intersect_closest_kernel",
                "intersect_listed": "intersect_listed_kernel",
                "intersect_culled": "intersect_culled_kernel",

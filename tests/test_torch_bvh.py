@@ -56,7 +56,7 @@ from mcray_tpu_torch.config import small_test_config
 from mcray_tpu_torch.models import simulator
 from mcray_tpu_torch.models.simulator import Simulator
 from mcray_tpu_torch.ops import bvh, geometry
-from mcray_tpu_torch.ops.cuda import bvh_intersect, intersect
+from mcray_tpu_torch.ops.cuda import bvh_intersect, intersect, launch_counts
 from mcray_tpu_torch.scene.compile import load_and_compile
 from mcray_tpu_torch.scene.runtime import Scene
 from mcray_tpu_torch.utils import rng
@@ -116,9 +116,9 @@ def test_plain_traversal_equals_plain_brute(case):
     tri_soa = geometry.triangle_soa(to_torch(tris))
     device_bvh = bvh.DeviceBVH.from_flat(bvh.build_bvh(tris), tri_soa)
     rays = torch.cat([o, s], dim=1).T.contiguous()
-    before = bvh_intersect.launches
+    before = launch_counts()["bvh_intersect"]
     best_t, best_i, counts = bvh_intersect.bvh_best(rays, device_bvh, counts=True)
-    assert bvh_intersect.launches == before  # the CPU runs the plain version
+    assert launch_counts()["bvh_intersect"] == before  # the CPU runs the plain version
     brute_t, brute_i = intersect.intersect_best_plain(rays, tri_soa)
     assert torch.equal(best_t, brute_t) and int((best_t < 1.5).sum()) > 20
     assert torch.equal(best_i, brute_i)

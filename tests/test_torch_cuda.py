@@ -70,8 +70,8 @@ from mcray_tpu_torch.models.trainer import PoseFitter
 from mcray_tpu_torch.ops import bvh, clusters, geometry, imaging
 from mcray_tpu_torch.ops import physics
 from mcray_tpu_torch.ops.cuda import (_build, bvh_intersect, draws, intersect, intersect_culled,
-                                      intersect_grouped, intersect_listed, intersect_staged, march,
-                                      postproc, scanconv)
+                                      intersect_grouped, intersect_listed, intersect_staged,
+                                      last_grid, launch_counts, march, postproc, scanconv)
 from mcray_tpu_torch.scene.compile import load_and_compile
 from mcray_tpu_torch.utils import rng
 
@@ -91,10 +91,10 @@ def test_intersect_kernel_matches_plain(cuda):
     o, s = random_segments(rng, 1000)
     rays = to_torch(np.concatenate([o, s], axis=1)).T.contiguous().to(cuda)
     tri_soa = geometry.triangle_soa(to_torch(tris)).to(cuda)
-    before = intersect.launches
+    before = launch_counts()["intersect"]
     t_k, i_k = intersect.intersect_best(rays, tri_soa)
     t_p, i_p = intersect.intersect_best_plain(rays, tri_soa)
-    assert intersect.launches == before + 1
+    assert launch_counts()["intersect"] == before + 1
     assert bool((t_p < 1.5).any())
     assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
 
@@ -114,10 +114,10 @@ def test_intersect_kernel_at_edge_shapes(cuda, n, t):
     from chip_smoke import k1_edge_case  # duplicated triangles, aimed rays, a dead stretch
 
     rays, tri_soa = k1_edge_case(n, t)
-    before = intersect.launches
+    before = launch_counts()["intersect"]
     t_k, i_k = intersect.intersect_best(rays, tri_soa)
-    assert intersect.launches == before + 1
-    assert intersect.last_blocks == _k1_blocks(n, t)
+    assert launch_counts()["intersect"] == before + 1
+    assert last_grid("intersect") == _k1_blocks(n, t)
     t_p, i_p = intersect.intersect_best_plain(rays, tri_soa)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
     assert torch.equal(i_k, i_p)
@@ -138,7 +138,7 @@ def test_intersect_kernel_on_dead_rays_and_no_triangles(cuda, t):
     live = to_torch(np.concatenate([o, s], axis=1)).T.contiguous().to(cuda)
     for rays in (dead, live) if t == 0 else (dead,):
         t_k, i_k = intersect.intersect_best(rays, tri_soa)
-        assert intersect.last_blocks == _k1_blocks(rays.shape[1], t)
+        assert last_grid("intersect") == _k1_blocks(rays.shape[1], t)
         assert bool((t_k == 2.0).all()) and not bool(i_k.any())
         t_p, i_p = intersect.intersect_best_plain(rays, tri_soa)
         assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
@@ -183,7 +183,7 @@ def test_cluster_kernels_match_plain(cuda, mode, tile_r):
     closest = getattr(mod, f"intersect_closest_{mode}")
     for name, rays in cases:
         o, s, padded = clusters.pad_rays(rays[0:3].T, rays[3:6].T, tile_r)
-        before = mod.launches
+        before = launch_counts()[f"intersect_{mode}"]
         if mode == "listed":
             lists = clusters.packet_cluster_lists(o, s, packed, tile_r)
             start = _listed_start(s)
@@ -196,11 +196,11 @@ def test_cluster_kernels_match_plain(cuda, mode, tile_r):
             best, plain = ((mod.culled_best, mod.culled_best_plain) if mode == "culled"
                            else (mod.staged_best, mod.staged_best_plain))
             t_k, i_k = best(padded, packed, tile_r)
-            assert mod.last_blocks == -(-padded.shape[1] // mod.GROUP), name
+            assert last_grid(f"intersect_{mode}") == -(-padded.shape[1] // mod.GROUP), name
             t_p, i_p = plain(padded, packed, tile_r)
             t_g, i_g = plain(padded, packed, tile_r, group=mod.GROUP)
             assert torch.equal(t_k, t_g) and torch.equal(i_k, i_g), name
-        assert mod.launches == before + 1, name
+        assert launch_counts()[f"intersect_{mode}"] == before + 1, name
         assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), name
         # hit and t equal the brute kernel's
         got = closest(rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, tile_r=tile_r)
@@ -234,15 +234,15 @@ def test_cluster_kernels_take_the_widest_tile_that_fits(cuda, mode):
         args = ((padded, *clusters.packet_cluster_lists(o, s, packed, 512), *_listed_start(s),
                  packed) if mode == "listed" else (padded, packed, 512))
         kernel, plain = getattr(mod, f"{mode}_best"), getattr(mod, f"{mode}_best_plain")
-        before = mod.launches
+        before = launch_counts()[f"intersect_{mode}"]
         if tile_t > widest:
             with pytest.raises(ValueError, match="static shared memory"):
                 kernel(*args)
-            assert mod.launches == before
+            assert launch_counts()[f"intersect_{mode}"] == before
         else:
             t_k, i_k = kernel(*args)
             t_p, i_p = plain(*args)
-            assert mod.launches == before + 1
+            assert launch_counts()[f"intersect_{mode}"] == before + 1
             assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
             assert bool((t_k < 1.5).any())
 
@@ -258,11 +258,11 @@ def test_listed_kernel_two_passes_match_brute(cuda, tile_r):
                                        device=cuda)
     tri_soa = geometry.triangle_soa(to_torch(pack.tris)).to(cuda)
     for name, rays in cases:
-        before = intersect_listed.launches
+        before = launch_counts()["intersect_listed"]
         got = intersect_listed.intersect_closest_listed(
             rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, tile_r=tile_r, passes=2,
             front_k=2)
-        assert intersect_listed.launches == before + 2, name
+        assert launch_counts()["intersect_listed"] == before + 2, name
         bt, _ = intersect.intersect_best(rays.contiguous(), tri_soa)
         assert torch.equal(got["hit"], bt < 1.5) and torch.equal(got["t"], bt), name
         # a seeded launch: the first two list slots, then the whole list from there
@@ -299,16 +299,16 @@ def test_grouped_kernel_matches_plain(cuda, budget):
         ray_ids, counts, _ = clusters.cluster_ray_tables(hit, *budget)
         shapes[name] = (int((counts == 1).sum()), int((counts == ray_ids.shape[1]).sum()))
         want = intersect_grouped.grouped_winners_plain(padded, ray_ids, counts, packed)
-        before = (intersect_grouped.launches, intersect_listed.launches)
+        before = (launch_counts()["intersect_grouped"], launch_counts()["intersect_listed"])
         t_k, i_k = intersect_grouped.grouped_winners(padded, ray_ids, counts, packed)
-        assert intersect_grouped.launches == before[0] + 1, name
-        assert intersect_grouped.last_blocks >= 1
+        assert launch_counts()["intersect_grouped"] == before[0] + 1, name
+        assert last_grid("intersect_grouped") >= 1
         assert torch.equal(t_k.view(torch.int32), want[0].view(torch.int32)), name
         assert torch.equal(i_k, want[1]), name
         got = intersect_grouped.intersect_closest_grouped(
             rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), packed, group_g=g,
             chunk_g=budget[1], residual_tile_r=512)
-        assert (intersect_grouped.launches, intersect_listed.launches) == (
+        assert (launch_counts()["intersect_grouped"], launch_counts()["intersect_listed"]) == (
             before[0] + 2, before[1] + 1), name
         bt, _ = intersect.intersect_best(rays.contiguous(), tri_soa)
         assert torch.equal(got["hit"], bt < 1.5) and torch.equal(got["t"], bt), name
@@ -352,10 +352,10 @@ def test_keyed_draws_kernel_matches_plain_bitwise(cuda, frames, paths):
            "shard": (torch.arange(16)[:, None] * 5 + torch.arange(3, 5)[None]).reshape(-1) + 1280}
     trace_key = rng.fold_in(rng.fold_in(rng.prng_key(2**31 + 77), torch.arange(frames)), 0)
     trace_key, path_ids = trace_key.to(cuda), ids[paths].to(cuda)
-    before = draws.launches
+    before = launch_counts()["draws"]
     got = draws.keyed_draws(trace_key, path_ids, 10)
     torch.cuda.synchronize()
-    assert draws.launches == before + 1
+    assert launch_counts()["draws"] == before + 1
     want = draws.keyed_draws_plain(trace_key, path_ids, 10)
     base = got["q_normal"].untyped_storage().data_ptr()
     for i, name in enumerate(draws.FIELDS):
@@ -374,13 +374,13 @@ def test_fold_in_kernel_matches_rng_fold_in(cuda, n):
     data = torch.arange(n) * 7919 + 2**32 - 5
     cases = [(keys, 0), (keys, 2**32 + 9), (rng.prng_key(11), data), (keys, data),
              (keys, torch.tensor(4))]
-    before = draws.launches
+    before = launch_counts()["draws"]
     for k, x in cases:
         on_card = x.to(cuda) if isinstance(x, torch.Tensor) else x
         got = draws.fold_in(k.to(cuda), on_card)
         assert torch.equal(got, rng.fold_in(k.to(cuda), on_card))
         assert torch.equal(got.cpu(), rng.fold_in(k, x))
-    assert draws.launches == before + len(cases)
+    assert launch_counts()["draws"] == before + len(cases)
 
 
 def test_chained_step_equals_an_eager_step_of_the_plain_draws(cuda):
@@ -474,12 +474,12 @@ def test_bounce_kernel_matches_plain_bitwise(cuda, case):
         kw["angles"] = sim.angles + torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, 4.0],
                                                   [3.0, 0.0, 0.0]], device=cuda)
         draws_ = sim.batch_draws([2**31 + 5, 7, 8])
-    before = bounce.launches
+    before = launch_counts()["bounce"]
     got = bounce_record(sim, draws_, False, **kw)
     torch.cuda.synchronize()
-    assert bounce.launches == before + cfg.max_depth + 1
+    assert launch_counts()["bounce"] == before + cfg.max_depth + 1
     want = bounce_record(sim, draws_, True, **kw)
-    assert bounce.launches == before + cfg.max_depth + 1
+    assert launch_counts()["bounce"] == before + cfg.max_depth + 1
     for d, (a, b) in enumerate(zip(got[2], want[2])):
         for key in b:
             assert torch.equal(a[key], b[key]), (d, key)
@@ -573,10 +573,10 @@ def test_bounce_kernel_gradient_is_the_plain_loops(cuda, through):
     for trace in (simulator.trace_paths, loop_trace):
         materials = sim.materials.clone().requires_grad_(through == "materials")
         pose = [p.clone().requires_grad_(through == "pose") for p in (sim.position, sim.angles)]
-        before = bounce.launches
+        before = launch_counts()["bounce"]
         segments = trace(draws_, materials, *pose, sim.scene, sim.spacing, sim.starting_material,
                          cfg, culled_tris=sim.culled_tris, intersect_tile_r=sim.intersect_tile_r)
-        launched.append(bounce.launches - before)
+        launched.append(launch_counts()["bounce"] - before)
         if weights is None:
             weights = {k: torch.randn(segments[k].shape, device=cuda, generator=gen)
                        for k in fields}
@@ -600,13 +600,13 @@ def test_chained_bmodes_equal_the_plain_trace(cuda, monkeypatch):
     got = chained(2**31 + 9).clone()
     assert chained.launches["bounce"] == cfg.max_depth + 1
     monkeypatch.setattr(bounce._Record, "card", False)
-    before = bounce.launches
+    before = launch_counts()["bounce"]
     eager = sim.make_chained_batch(2, 3)
     eager.key.copy_(rng.prng_key(2**31 + 9))
     eager.i.zero_()
     eager.carry.zero_()
     steps = [eager.step() for _ in range(3)]
-    assert bounce.launches == before
+    assert launch_counts()["bounce"] == before
     assert torch.equal(got, steps[-1]) and float(got.std()) > 0
 
 
@@ -644,10 +644,10 @@ def test_scan_convert_kernel_matches_plain_bitwise(cuda, case):
         rf = torch.randn((cfg.rf_rows, cfg.rf_cols), device=cuda, generator=gen)
         maps = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols,
                                   device=cuda)
-    before = scanconv.launches
+    before = launch_counts()["scanconv"]
     got = scanconv.scan_convert_forward(rf, maps)
-    assert scanconv.launches == before + 1
-    assert scanconv.last_blocks == -(-cfg.bmode_rows * cfg.bmode_cols // 128)
+    assert launch_counts()["scanconv"] == before + 1
+    assert last_grid("scanconv") == -(-cfg.bmode_rows * cfg.bmode_cols // 128)
     assert torch.equal(got, scanconv.scan_convert_coords_plain(rf, maps.coords))
     assert torch.equal(got, scanconv.scan_convert_plain(rf, maps.table, cfg.bmode_cols))
     assert float(got.abs().max()) > 0
@@ -673,10 +673,10 @@ def test_postproc_kernel_matches_plain_on_made_up_images(cuda):
     cfg = SimConfig()
     for name, image in _made_up_images():
         rf = image.to(cuda)
-        before = postproc.launches
+        before = launch_counts()["postproc"]
         got = postproc.postproc_forward(rf, cfg)
-        assert postproc.launches == before + 1, name
-        assert postproc.last_blocks == -(-rf.shape[1] // 4), name
+        assert launch_counts()["postproc"] == before + 1, name
+        assert last_grid("postproc") == -(-rf.shape[1] // 4), name
         np.testing.assert_allclose(got.cpu(), postproc.postproc_plain(rf, cfg).cpu(),
                                    rtol=1e-5, atol=1e-6, err_msg=name)
 
@@ -692,9 +692,9 @@ def test_postproc_kernel_takes_tall_images(cuda, rows):
     rf[:, 7] = torch.linspace(1.0, -1.0, rows)
     rf[900:1100, 9] = 0.5
     rf = rf.to(cuda)
-    before = postproc.launches
+    before = launch_counts()["postproc"]
     got = postproc.postproc_forward(rf, cfg)
-    assert postproc.launches == before + 1
+    assert launch_counts()["postproc"] == before + 1
     assert torch.equal(got, postproc.postproc_plain(rf, cfg))
 
 
@@ -715,11 +715,11 @@ def test_march_kernels_match_plain_in_every_mode(cuda, mode):
     soa, seeds = sim.render_frame(1)["soa"], sim.seeds
     g = torch.randn((cfg.rf_rows, cfg.rf_cols), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(2))
-    before = (march.launches, march.launches_bwd)
+    before = (launch_counts()["march"], launch_counts()["march_bwd"])
     x = soa.clone().requires_grad_(True)
     rf = march.march_cuda(x, seeds, cfg, cfg.rf_cols)
     (got,) = torch.autograd.grad(rf, x, g)
-    assert (march.launches, march.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert (launch_counts()["march"], launch_counts()["march_bwd"]) == (before[0] + 1, before[1] + 1)
     np.testing.assert_allclose(rf.detach().cpu(),
                                march.march_plain(soa, seeds, cfg, cfg.rf_cols).cpu(),
                                rtol=1e-4, atol=1e-5)
@@ -782,11 +782,11 @@ def test_modes_on_the_card_match_the_cpu(cuda, overrides):
     cpu = Simulator(pack, cfg, device="cpu", seed=5)
     gpu = Simulator(pack, cfg, device=cuda, seed=5)
     draws = cpu.draws(5)
-    before = (march.launches, postproc.launches)
+    before = (launch_counts()["march"], launch_counts()["postproc"])
     on_gpu = gpu.render_frame(draws={k: v.to(cuda) for k, v in draws.items()})
     on_cpu = cpu.render_frame(draws=draws)
-    assert march.launches - before[0] == int(not cfg.soft_row_binning)
-    assert postproc.launches - before[1] == int(postproc.kernel_modes(cfg))
+    assert launch_counts()["march"] - before[0] == int(not cfg.soft_row_binning)
+    assert launch_counts()["postproc"] - before[1] == int(postproc.kernel_modes(cfg))
     # the scatter march sums a pixel's echoes in another order on the card
     # (index_put_ sorts by index there; the same order every run): atol 1e-4
     atol = 1e-4 if cfg.soft_row_binning else 1e-5
@@ -817,11 +817,11 @@ def test_scan_convert_backward_kernel_matches_plain(cuda, case):
     else:
         maps = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols,
                                   device=cuda)
-    before = scanconv.launches_bwd
+    before = launch_counts()["scanconv_bwd"]
     out = scanconv.scan_convert_cuda(rf, maps)
     (got,) = torch.autograd.grad(out, rf, g)
-    assert scanconv.launches_bwd == before + 1
-    assert scanconv.last_blocks_bwd == -(-cfg.rf_rows * cfg.rf_cols // 256)
+    assert launch_counts()["scanconv_bwd"] == before + 1
+    assert last_grid("scanconv_bwd") == -(-cfg.rf_rows * cfg.rf_cols // 256)
     row_ptr, pixel, weight = (a.cpu().numpy() for a in (maps.row_ptr, maps.pixel, maps.weight))
     in_order = np.zeros(cfg.rf_rows * cfg.rf_cols, np.float32)
     np.add.at(in_order, np.repeat(np.arange(in_order.size), np.diff(row_ptr)),
@@ -871,7 +871,7 @@ def test_wrappers_reject_bad_inputs(cuda):
     on_card = scanconv.scan_maps(*imaging.scan_conversion_maps(cfg), cfg.rf_rows, cfg.rf_cols,
                                  device=cuda)
     coords = on_card.coords
-    before = scanconv.launches
+    before = launch_counts()["scanconv"]
     with pytest.raises(TypeError):
         scanconv.scan_convert_forward(rf, dataclasses.replace(on_card, coords=coords.double()))
     with pytest.raises(ValueError):  # one map only
@@ -881,22 +881,22 @@ def test_wrappers_reject_bad_inputs(cuda):
             rf, dataclasses.replace(on_card, coords=coords.transpose(1, 2).contiguous().transpose(1, 2)))
     with pytest.raises(ValueError):
         scanconv.scan_convert_forward(rf, dataclasses.replace(on_card, coords=coords.cpu()))
-    assert scanconv.launches == before
+    assert launch_counts()["scanconv"] == before
     g = torch.zeros((cfg.bmode_rows, cfg.bmode_cols), device=cuda)
-    before = scanconv.launches_bwd
+    before = launch_counts()["scanconv_bwd"]
     for field, bad in (("row_ptr", on_card.row_ptr.long()), ("row_ptr", on_card.row_ptr[:-1]),
                        ("pixel", on_card.pixel.cpu()), ("weight", on_card.weight[:-1])):
         with pytest.raises((TypeError, ValueError)):
             scanconv.scan_convert_backward(g, dataclasses.replace(on_card, **{field: bad}))
     with pytest.raises(ValueError):  # the cotangent's shape
         scanconv.scan_convert_backward(g[:, :-1], on_card)
-    assert scanconv.launches_bwd == before
+    assert launch_counts()["scanconv_bwd"] == before
     pack = load_and_compile(SPHERE_SCENE)
     packed = clusters.pack_tris_culled(pack.tris, pack.tri_mesh_id, pack.bvh.tri_order,
                                        tile_t=128, device=cuda)
     padded = torch.zeros((6, 128), device=cuda)
     counts = torch.zeros(packed.n_clusters, dtype=torch.int32, device=cuda)
-    before = intersect_grouped.launches
+    before = launch_counts()["intersect_grouped"]
     for width in (4, 12, 264):  # slots per cluster: multiples of 8 in [8, 256]
         ids = torch.zeros((packed.n_clusters, width), dtype=torch.int32, device=cuda)
         with pytest.raises(ValueError):
@@ -912,7 +912,7 @@ def test_wrappers_reject_bad_inputs(cuda):
         intersect_grouped.grouped_winners(padded, ids.long(), counts, packed)
     with pytest.raises(ValueError):  # the card computes no per-slot table
         intersect_grouped.grouped_best(padded, ids, counts, packed)
-    assert intersect_grouped.launches == before
+    assert launch_counts()["intersect_grouped"] == before
     rays = torch.zeros((6, 8), device=cuda)
     tri_soa = torch.zeros((9, 4), device=cuda)
     with pytest.raises(ValueError):
@@ -923,7 +923,7 @@ def test_wrappers_reject_bad_inputs(cuda):
         intersect.intersect_best(rays, tri_soa.double())
     keys = torch.zeros((2, 2), dtype=torch.int64, device=cuda)
     ids = torch.arange(8, device=cuda)
-    before = draws.launches
+    before = launch_counts()["draws"]
     for bad_key, bad_ids in ((keys.int(), ids), (keys, ids.int()), (keys, ids.cpu()),
                              (keys[:, :1], ids), (keys, ids[None]), (keys.T, ids),
                              (keys, ids[::2])):
@@ -935,7 +935,7 @@ def test_wrappers_reject_bad_inputs(cuda):
                           (keys, ids.cpu()), (keys, ids[:3]), (keys, ids[None])):
         with pytest.raises((TypeError, ValueError)):
             draws.fold_in(bad_key, data)
-    assert draws.launches == before
+    assert launch_counts()["draws"] == before
     soa = torch.zeros((4, march.N_FIELDS, 128), device=cuda)
     with pytest.raises(TypeError):
         march.march_cuda(soa.double(), torch.zeros(2, dtype=torch.int64), cfg, 128)
@@ -971,11 +971,11 @@ def test_bvh_kernel_matches_plain_bitwise(cuda, n_rays, n_tris, dead):
     counts of the 4-wide walk bitwise; t and winner against the binary walk
     and against K1 bitwise. 1,001 and 17 rays fill no 16-ray block."""
     rays, device_bvh = _bvh_case(n_rays, n_tris, dead)
-    before = bvh_intersect.launches
+    before = launch_counts()["bvh_intersect"]
     t_k, j_k, c_k = bvh_intersect.bvh_best(rays, device_bvh, counts=True)
     torch.cuda.synchronize()
-    assert bvh_intersect.launches == before + 1
-    assert bvh_intersect.last_blocks == -(-n_rays // 16)
+    assert launch_counts()["bvh_intersect"] == before + 1
+    assert last_grid("bvh_intersect") == -(-n_rays // 16)
     t_p, j_p, c_p = bvh.bvh4_best_plain(rays, device_bvh, counts=True)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
     assert torch.equal(j_k, j_p) and torch.equal(c_k, c_p)
@@ -1055,10 +1055,10 @@ def test_postproc_kernel_takes_a_frame_axis(cuda, rows):
     strips' buffers are a device-memory slab per block of every frame)."""
     cfg = SimConfig()
     rf = _differing_frames(rows, 96, 3, rows).to(cuda)
-    before = postproc.launches
+    before = launch_counts()["postproc"]
     got = postproc.postproc_forward(rf, cfg)
-    assert postproc.launches == before + 1
-    assert postproc.last_blocks == 3 * (96 // 4)
+    assert launch_counts()["postproc"] == before + 1
+    assert last_grid("postproc") == 3 * (96 // 4)
     each = torch.stack([postproc.postproc_forward(rf[b], cfg) for b in range(3)])
     assert torch.equal(got, each)
     assert torch.equal(postproc.postproc_forward(rf[1:2], cfg)[0], each[1])
@@ -1084,12 +1084,12 @@ def test_scan_kernels_take_a_frame_axis(cuda):
     rf = _differing_frames(cfg.rf_rows, cfg.rf_cols, 3, 5).to(cuda)
     g = _differing_frames(cfg.bmode_rows, cfg.bmode_cols, 3, 6).to(cuda)
     n_pix = cfg.bmode_rows * cfg.bmode_cols
-    before = scanconv.launches, scanconv.launches_bwd
+    before = launch_counts()["scanconv"], launch_counts()["scanconv_bwd"]
     got = scanconv.scan_convert_forward(rf, maps)
     grad = scanconv.scan_convert_backward(g, maps)
-    assert (scanconv.launches, scanconv.launches_bwd) == (before[0] + 1, before[1] + 1)
-    assert scanconv.last_blocks == 3 * -(-n_pix // 128)
-    assert scanconv.last_blocks_bwd == 3 * -(-cfg.rf_rows * cfg.rf_cols // 256)
+    assert (launch_counts()["scanconv"], launch_counts()["scanconv_bwd"]) == (before[0] + 1, before[1] + 1)
+    assert last_grid("scanconv") == 3 * -(-n_pix // 128)
+    assert last_grid("scanconv_bwd") == 3 * -(-cfg.rf_rows * cfg.rf_cols // 256)
     assert torch.equal(got, scanconv.scan_convert_coords_plain(rf, maps.coords))
     assert torch.equal(got, scanconv.scan_convert_plain(rf, maps.table, cfg.bmode_cols))
     for b in range(3):
@@ -1107,9 +1107,9 @@ def test_scan_kernels_take_a_frame_axis(cuda):
         grad.cpu(), scanconv.scan_convert_bwd_plain(g, maps.table, cfg.rf_rows, cfg.rf_cols).cpu(),
         rtol=1e-5, atol=1e-6)
     x = rf.clone().requires_grad_(True)
-    before = scanconv.launches_bwd
+    before = launch_counts()["scanconv_bwd"]
     (through,) = torch.autograd.grad(scanconv.scan_convert_cuda(x, maps), x, g)
-    assert scanconv.launches_bwd == before + 1 and torch.equal(through, grad)
+    assert launch_counts()["scanconv_bwd"] == before + 1 and torch.equal(through, grad)
     with pytest.raises(ValueError):  # a frame of another shape
         scanconv.scan_convert_forward(rf[:, :, :-1].contiguous(), maps)
 

@@ -24,7 +24,7 @@ from mcray_tpu.ops.pallas.intersect import intersect_closest_pallas
 from mcray_tpu_torch.config import small_test_config
 from mcray_tpu_torch.models.simulator import Simulator
 from mcray_tpu_torch.ops import geometry
-from mcray_tpu_torch.ops.cuda import intersect
+from mcray_tpu_torch.ops.cuda import intersect, launch_counts
 from mcray_tpu_torch.scene.compile import load_and_compile
 
 
@@ -72,10 +72,10 @@ def test_intersect_plain_matches_pallas(rng, case):
 def test_wrapper_runs_plain_on_cpu_without_counting(rng):
     tris, _, rays = _random_rays(rng)
     tri_soa = geometry.triangle_soa(to_torch(tris))
-    before = intersect.launches
+    before = launch_counts()["intersect"]
     best_t, best_idx = intersect.intersect_best(rays.T.contiguous(), tri_soa)
     want_t, want_idx = intersect.intersect_best_plain(rays.T.contiguous(), tri_soa)
-    assert intersect.launches == before
+    assert launch_counts()["intersect"] == before
     assert best_idx.dtype == torch.int32
     assert torch.equal(best_t, want_t) and torch.equal(best_idx, want_idx)
 

@@ -33,7 +33,8 @@ from mcray_tpu.ops.pallas import intersect as ref
 from mcray_tpu_torch.config import small_test_config
 from mcray_tpu_torch.models.simulator import Simulator
 from mcray_tpu_torch.ops import clusters, geometry
-from mcray_tpu_torch.ops.cuda import intersect_culled, intersect_listed, intersect_staged
+from mcray_tpu_torch.ops.cuda import (intersect_culled, intersect_listed, intersect_staged,
+                                      launch_counts)
 from mcray_tpu_torch.scene.compile import load_and_compile
 
 TILE_R = 128
@@ -130,13 +131,13 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     tris, mid, probe, o, s = _case("random")
     _, pack = _packs(tris, mid, probe, "listed")
     _, _, rays = clusters.pad_rays(to_torch(o), to_torch(s), TILE_R)
-    before = intersect_listed.launches
+    before = launch_counts()["intersect_listed"]
     lists = clusters.packet_cluster_lists(rays[0:3].T, rays[3:6].T, pack, TILE_R)
     t0 = torch.full((rays.shape[1],), geometry.NO_HIT_T)
     i0 = torch.zeros(rays.shape[1], dtype=torch.int32)
     got = intersect_listed.listed_best(rays, *lists, t0, i0, pack)
     want = intersect_listed.listed_best_plain(rays, *lists, t0, i0, pack)
-    assert intersect_listed.launches == before
+    assert launch_counts()["intersect_listed"] == before
     assert got[1].dtype == torch.int32
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 

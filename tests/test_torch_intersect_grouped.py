@@ -42,7 +42,7 @@ from _torch_port import random_triangles, to_np, to_torch
 from mcray_tpu.ops.bvh import build_bvh as ref_build_bvh
 from mcray_tpu.ops.pallas import intersect as ref
 from mcray_tpu_torch.ops import clusters, geometry
-from mcray_tpu_torch.ops.cuda import intersect_grouped, intersect_listed
+from mcray_tpu_torch.ops.cuda import intersect_grouped, intersect_listed, launch_counts
 from test_torch_intersect_clusters import _unique_winner
 
 N_RAYS = 300
@@ -181,9 +181,9 @@ def test_grouped_kernel_table_contract():
     attaining it (cluster * tile_t when nothing is hit); unused slots are
     (NO_HIT_T, 0); on the CPU the wrapper runs the plain version uncounted."""
     pack, (_, _, rays), _, (ray_ids, counts, _) = _tables("bounce", 32, 4)
-    before = intersect_grouped.launches
+    before = launch_counts()["intersect_grouped"]
     t, slot = intersect_grouped.grouped_best(rays, ray_ids, counts, pack)
-    assert intersect_grouped.launches == before
+    assert launch_counts()["intersect_grouped"] == before
     assert t.shape == slot.shape == ray_ids.shape
     assert t.dtype == torch.float32 and slot.dtype == torch.int32
     used = torch.arange(ray_ids.shape[1])[None, :] < counts[:, None]
@@ -281,9 +281,9 @@ def test_grouped_winners_reduce_the_tables_per_ray(budget, case):
     equal to it where the ray's every incidence is in the tables."""
     pack, (o, s, rays), (hit_m, live), (ray_ids, counts, overflow) = _tables(
         case, **BUDGETS[budget][0])
-    before = intersect_grouped.launches
+    before = launch_counts()["intersect_grouped"]
     t, slot = intersect_grouped.grouped_winners(rays, ray_ids, counts, pack)
-    assert intersect_grouped.launches == before
+    assert launch_counts()["intersect_grouped"] == before
     n_tot = rays.shape[1]
     assert t.shape == slot.shape == (n_tot,) and t.dtype == torch.float32
     assert slot.dtype == torch.int32

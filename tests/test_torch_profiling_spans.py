@@ -2,8 +2,9 @@
 host spans nest, a chained call is one request, the ring stays bounded; a
 stage mark launches only for a CUDA device under a capture or a profiler,
 and a step marks its stages in order in every closest-hit mode; the launch
-counters count each of a chained call's eager steps and add a graph's
-replays. The marks on the card, in a replayed
+counters count each of a chained call's eager steps, add a graph's
+replays, and count a captured launch in its capture's tally alone; a
+``GraphStep`` on the CPU runs its step eagerly. The marks on the card, in a replayed
 graph: ``tests/test_torch_cuda.py::test_chained_call_marks_every_stage_and_counts_its_replays``.
 ~5 s."""
 
@@ -17,6 +18,7 @@ import torch
 
 from _torch_port import SPHERE_SCENE
 from mcray_tpu_torch.config import small_test_config
+from mcray_tpu_torch.models.graph_step import GraphStep
 from mcray_tpu_torch.models.simulator import Simulator
 from mcray_tpu_torch.ops import cuda as kernels
 from mcray_tpu_torch.ops.cuda import _build, intersect_listed, march, postproc, scanconv
@@ -156,11 +158,11 @@ def test_the_scene_compile_is_a_span():
     assert last.id not in before and last.end_ns > last.start_ns and last.parent is None
 
 
-def _counting(mod, plain):
+def _counting(mod, plain, kernel):
     fn = getattr(mod, plain)
 
     def call(*args, **kw):
-        mod.launches += 1
+        kernels.add_launch_counts({kernel: 1})
         return fn(*args, **kw)
     return call
 
@@ -169,9 +171,11 @@ def test_launch_counts_count_each_eager_step_of_a_chained_call(monkeypatch):
     """The plain versions stand in for launches (the CPU launches nothing):
     a call of 3 steps counts 3 steps' launches, none twice."""
     sim = _simulator()
-    for mod, plain in ((intersect_listed, "listed_best_plain"), (march, "march_plain"),
-                       (postproc, "postproc_plain"), (scanconv, "scan_convert_plain")):
-        monkeypatch.setattr(mod, plain, _counting(mod, plain))
+    for mod, plain, kernel in ((intersect_listed, "listed_best_plain", "intersect_listed"),
+                               (march, "march_plain", "march"),
+                               (postproc, "postproc_plain", "postproc"),
+                               (scanconv, "scan_convert_plain", "scanconv")):
+        monkeypatch.setattr(mod, plain, _counting(mod, plain, kernel))
     chained = sim.make_chained_batch(2, 3)
     kernels.reset_launch_counts()
     chained(5)
@@ -187,8 +191,105 @@ def test_launch_counts_count_each_eager_step_of_a_chained_call(monkeypatch):
 def test_add_launch_counts_adds_a_graphs_replays():
     kernels.reset_launch_counts()
     kernels.add_launch_counts({"intersect_listed": 10, "march": 1, "scanconv_bwd": 1}, 4)
-    kernels.add_launch_counts({"intersect_listed": 10}, -1)
+    kernels.add_launch_counts({"intersect_listed": 10})
     counts = {k: v for k, v in kernels.launch_counts().items() if v}
     kernels.reset_launch_counts()
-    assert counts == {"intersect_listed": 30, "march": 4, "scanconv_bwd": 4}
-    assert intersect_listed.launches == 0 and scanconv.launches_bwd == 0
+    assert counts == {"intersect_listed": 50, "march": 4, "scanconv_bwd": 4}
+    assert not any(kernels.launch_counts().values())
+
+
+#: every kernel ``launch_counts`` names
+KERNEL_NAMES = ("intersect", "intersect_listed", "intersect_culled", "intersect_staged",
+                "intersect_grouped", "bvh_intersect", "march", "march_bwd", "postproc",
+                "scanconv", "scanconv_bwd", "draws", "bounce")
+
+
+def test_launch_counts_name_every_kernel_and_refuse_an_unknown_name():
+    kernels.add_launch_counts({"march": 2})
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts() == dict.fromkeys(KERNEL_NAMES, 0)
+    with pytest.raises(KeyError, match="nope"):
+        kernels.add_launch_counts({"march": 1, "nope": 1})
+    assert kernels.launch_counts() == dict.fromkeys(KERNEL_NAMES, 0)
+
+
+class _Kernels:
+    """Stands in for the library's launch entries: each returns ``code`` and
+    reports a grid of 7 blocks where the entry reports one."""
+
+    def __init__(self, code=0):
+        self.code = code
+
+    def __getattr__(self, entry):
+        def launch(*args):
+            if _build.ENTRIES[entry].grid:
+                args[-2]._obj.value = 7
+            return self.code
+        return launch
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    def use(capturing: bool, code: int = 0):
+        monkeypatch.setattr(_build, "library", lambda: _Kernels(code))
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: types.SimpleNamespace(cuda_stream=0))
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    kernels.reset_launch_counts()
+    yield use
+    kernels.reset_launch_counts()
+
+
+def test_a_launch_counts_in_the_totals_and_keeps_its_grid(stand_in):
+    """An eager launch counts under its kernel (both draws entries under
+    ``draws``) and keeps the grid its entry reports; one the entry refuses
+    (code 1) raises ``ValueError`` and counts nothing; a mark counts nowhere."""
+    stand_in(capturing=False)
+    _build.launch("mcray_march_bwd", device="cuda")
+    _build.launch("mcray_keyed_draws", device="cuda")
+    _build.launch("mcray_fold_in", device="cuda")
+    _build.launch("mcray_mark", 0, device="cuda")
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {"march_bwd": 1, "draws": 2}
+    assert kernels.last_grid("march_bwd") == 7
+    stand_in(capturing=False, code=1)
+    with pytest.raises(ValueError, match="mcray_bounce"):
+        _build.launch("mcray_bounce", None, device="cuda")
+    assert kernels.launch_counts()["bounce"] == 0
+
+
+def test_a_captured_launch_counts_in_the_captures_tally_not_in_the_totals(stand_in):
+    """A launch while the current stream captures goes to the open capture's
+    tally; with no tally open (a timing tool's capture) it counts nowhere."""
+    stand_in(capturing=True)
+    with _build.tallied() as tally:
+        _build.launch("mcray_intersect_listed", device="cuda")
+        _build.launch("mcray_intersect_listed", device="cuda")
+        _build.launch("mcray_scan_convert", device="cuda")
+    _build.launch("mcray_march", device="cuda")
+    assert dict(tally) == {"intersect_listed": 2, "scanconv": 1}
+    assert not any(kernels.launch_counts().values())
+    assert kernels.last_grid("scanconv") == 7
+
+
+def test_a_graph_step_on_the_cpu_runs_its_step_n_times_in_order():
+    """On the CPU a ``GraphStep`` runs its step eagerly, once a step, hands
+    each step's outputs to ``each`` and returns the last; it captures
+    nothing and opens no capture or replay span under its call."""
+    done = []
+
+    def step():
+        done.append(len(done))
+        return {"i": done[-1]}
+
+    counters = profiling.counters()
+    graph = GraphStep(step, "cpu", "probe", 2)
+    seen = []
+    with profiling.span("probe.call", request=profiling.request()) as call:
+        out = graph.run(3, lambda o: seen.append(o["i"]))
+        graph.capture()
+    assert done == seen == [0, 1, 2] and out == {"i": 2}
+    assert graph.graph is None and graph.launches == {}
+    assert graph.run(0) is None and done == [0, 1, 2]
+    assert not [s for s in profiling.spans() if s.request == call.request
+                and s.name != "probe.call"]
+    assert profiling.counters() == counters
