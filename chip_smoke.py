@@ -91,8 +91,10 @@ normals allclose), the draws kernels (``[draws]``: the key chain and its five fi
 batches) bitwise their plain versions at a chained step's shapes, timed beside them and their
 bound, the bounce kernel (``[bounce]``: every segment field and the final path state of 8
 frames on the sphere's listed, brute and BVH closest hits and ircad_hd's listed one) bitwise its
-plain version, one bounce timed beside the plain chain and its bound, and every frame's image
-is checked. The march kernels
+plain version, one bounce timed beside the plain chain and its bound, its backward kernel
+(``[bounce_bwd]``: row 0's and one bounce's gradients of every input against autograd over
+the plain version rerun, bitwise from call to call) timed beside that rerun, and every
+frame's image is checked. The march kernels
 (K2, K8) are also held against their plain versions at full size (the
 sphere frame and the fit's set-up, with bitsum and with Box–Muller
 normals) and at a 64-element frame in every mode of the scatterer field
@@ -176,6 +178,10 @@ from mcray_tpu_torch.utils.benchmarking import (busy_view, cuda_ms, event_ms, gr
                                                grid_sample_remap, nvidia_smi)
 from mcray_tpu_torch.utils.native import get_native
 
+# the bounce backward's yardstick, shared with the tests (plain torch)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from _bounce_rerun import rerun_bounce_grads, rerun_grads, rerun_start  # noqa: E402
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 SPHERE_SCENE = os.path.join(REPO, "assets", "sphere", "sphere.scene")
 IRCAD_HD_SCENE = os.path.join(REPO, "assets", "ircad11_hd", "santi-liver-hd.scene")
@@ -256,6 +262,8 @@ DRAWS_FRAMES, DRAWS_SEED = 8, 2**31 + 19
 # the bounce kernel at a chained step's shapes: 8 frames (20,480 paths at SimConfig())
 BOUNCE_FRAMES, BOUNCE_SEED = 8, 2**31 + 23
 BOUNCE_SETS = ("sphere", "sphere brute", "sphere bvh", "ircad_hd")
+# the bounce backward kernel against autograd over the plain rerun: relative L2 per input
+BOUNCE_BWD_RTOL = 1e-5
 # the stage tables (roofline.stage_table): label -> (the frame's Simulator, its seeds, the
 # [bvh] ray set whose reference walks its trace floor reads where they are of its rays)
 ROOFLINE_FRAMES = {"sphere": ("sphere", (0,), "sphere"),
@@ -659,12 +667,25 @@ def fit_phase(pack, smi: str) -> dict:
     print(f"[fit] sphere, soft + trilinear, {FIT_STEPS} steps on materials[{row}, {col}] "
           f"(true {pack.materials[row, col]:.4g}, start {perturbed[row, col]:.4g})")
     eager = fitter()
-    want = [eager.step(draws) for _ in range(FIT_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fit = fitter()
-    nodes = profiling.counters().get("fit.graph_nodes", 0)
-    losses = fit.run(1, verbose=False)
+    # every plain bounce (bounce_plain, the CPU backward's recompute) and query
+    # goes through these two: on the card the trace and its backward call neither
+    plain = {name: mock.patch.object(bounce, name, wraps=getattr(bounce, name))
+             for name in ("bounce_parts", "rays_plain")}
+    counted = {name: patch.start() for name, patch in plain.items()}
+    try:
+        want = [eager.step(draws) for _ in range(FIT_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fit = fitter()
+        nodes = profiling.counters().get("fit.graph_nodes", 0)
+        losses = fit.run(1, verbose=False)
+    finally:
+        for patch in plain.values():
+            patch.stop()
+    plain_calls = {name: c.call_count for name, c in counted.items()}
+    print(f"  plain bounce physics called by the eager steps and the capture: {plain_calls}")
+    if any(plain_calls.values()):
+        raise AssertionError("the fit's trace or its backward ran the plain bounce physics")
     grads = [fit.last_grad.clone()]
     kernels.reset_launch_counts()
     for _ in range(FIT_STEPS - 1):
@@ -675,7 +696,8 @@ def fit_phase(pack, smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     nodes = profiling.counters()["fit.graph_nodes"] - nodes
     per_step = {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1, "scanconv": 1,
-                "bounce": cfg.max_depth + 1, "march_bwd": 1, "scanconv_bwd": 1}
+                "bounce": cfg.max_depth + 1, "march_bwd": 1, "scanconv_bwd": 1,
+                "bounce_bwd": cfg.max_depth + 1}
     print(f"  captured step's launches {fit.launches}; over {FIT_STEPS - 1} replays: "
           f"{nonzero(counts)}")
     if fit.graph is None or fit.launches != per_step:
@@ -1033,6 +1055,79 @@ def bounce_phase(sims, smi: str) -> dict:
     return {"ms": ms, "bound_ms": floor[0], "bound_by": floor[1], "ulps": gaps}
 
 
+def bounce_bwd_phase(sims, smi: str) -> dict:
+    """The bounce backward kernel (``csrc/bounce.cu``) at a chained step's
+    shapes (BOUNCE_FRAMES frames of the sphere, 20,480 paths), with random
+    gradients on every output: row 0's backward (the first mode: the table
+    and each element's paths summed into its positions and directions, as
+    the material fit and the pose fit by ``ad`` take them) and bounce 1's,
+    each input's gradient against autograd over the plain version rerun on
+    the card (``tests/_bounce_rerun.py``; relative L2, BOUNCE_BWD_RTOL) and
+    bitwise on a second call; then each timed by graph replay beside that
+    rerun (the backward it replaces, its gathers summed in double), bounce
+    1's beside its floor too (``roofline.bounce_bwd_cost``: bytes)."""
+    sim = sims["sphere"]
+    cfg = sim.cfg
+    draws_ = sim.batch_draws(list(range(BOUNCE_SEED, BOUNCE_SEED + BOUNCE_FRAMES)))
+    b, hits, _ = trace_bounces(sim, draws_, False)
+    record, n, d = b.record, b.record.args.n, 1
+    row, h = record.row(d), hits[d]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    shapes = {"from": (n, 3), "direction": (n, 3), "initial": (n,), "distance": (n,),
+              "attenuation": (n,), "to": (n, 3), "query": (2, n, 3)}
+    inputs = tuple(record.inputs[:4])  # positions, directions, materials, spacing
+    g0 = {k: rand(*s) for k, s in shapes.items()}
+    g0["initial"] = g0["distance"] = None  # row 0's are not differentiable
+    g = {"to": rand(n, 3), "reflected": rand(n), "next": {k: rand(*s) for k, s in shapes.items()}}
+    names = {"start": ("positions", "directions", "materials"),
+             "bounce": (*bounce.GRADED_ROW[:-1], "point", "normal", "materials")}
+    kernel = {
+        "start": lambda: record.start_backward(inputs, g0, want_pose=True, want_table=True),
+        "bounce": lambda: record.bounce_backward(d, row, h, sim.materials, sim.spacing, g,
+                                                 set(names["bounce"])),
+    }
+    rerun = {
+        "start": lambda: dict(zip(names["start"], rerun_grads(
+            rerun_start(record), inputs, (True, True, True, False),
+            [g0[k] for k in bounce.GRADED_ROW]))),
+        "bounce": lambda: rerun_bounce_grads(record, d, row, h, sim.materials, sim.spacing, g,
+                                             [True] * 10 + [False]),
+    }
+    errs, bitwise, ms = {}, {}, {}
+    for launch in ("start", "bounce"):
+        got, again, want = kernel[launch](), kernel[launch](), rerun[launch]()
+        errs[launch] = {}
+        for k in names[launch]:
+            ref = torch.zeros_like(got[k]) if want[k] is None else want[k]
+            scale = float(ref.norm())
+            errs[launch][k] = float((got[k] - ref).norm()) / (scale or 1.0)
+        bitwise[launch] = all(torch.equal(got[k], again[k]) for k in names[launch])
+        ms[launch] = {"kernel": graph_ms(kernel[launch], 1),
+                      "rerun": graph_ms(rerun[launch], 1, copies=2)}
+    cost = roofline.bounce_bwd_cost(cfg, BOUNCE_FRAMES)
+    floor = roofline.bound(cost.hbm_bytes / cfg.max_depth, cost.flops / cfg.max_depth)
+    print(f"[bounce_bwd] {smi}: row 0 and bounce {d} of {BOUNCE_FRAMES} frames ({n} paths); "
+          f"relative L2 to autograd over the plain rerun {errs} (limit {BOUNCE_BWD_RTOL}); "
+          f"bitwise on a second call: {bitwise}")
+    one = ms["start"]
+    print(f"  row 0's backward, device (graph replay): kernel {one['kernel']:.5f} ms, plain rerun "
+          f"under autograd {one['rerun']:.5f} ms ({one['rerun'] / one['kernel']:.1f}x)")
+    one = ms["bounce"]
+    print(f"  one bounce's backward, device (graph replay): kernel {one['kernel']:.5f} ms, plain "
+          f"rerun under autograd {one['rerun']:.5f} ms ({one['rerun'] / one['kernel']:.1f}x); "
+          f"floor {floor[0]:.5f} ms by {floor[1]} ({floor[0] / one['kernel']:.1%} of the "
+          f"kernel's time; {floor.n_bytes:.4g} bytes, {floor.n_ops:.4g} operations)")
+    if max(e for by in errs.values() for e in by.values()) > BOUNCE_BWD_RTOL \
+            or not all(bitwise.values()):
+        raise AssertionError("the bounce backward kernel differs from autograd over the plain "
+                             "rerun, or from itself")
+    return {"ms": ms, "bound_ms": floor[0], "bound_by": floor[1], "rel_l2": errs}
+
+
 # every mode of the scatterer field at a 64-element sphere frame: normals x
 # lookup x gate x volume side (a power of two and not), and the table texture
 FIELD_MODES = [dict(scatter_rng=rng_mode, trilinear_texture=tri, soft_scattering=soft,
@@ -1183,7 +1278,7 @@ def frame_launches(cfg, frames: int, closest: str = "intersect_listed") -> dict:
 
 
 # the backward kernels a step with a gradient adds to its render
-GRAD_STEP = {"march_bwd": 1, "scanconv_bwd": 1}
+GRAD_STEP = {"march_bwd": 1, "scanconv_bwd": 1, "bounce_bwd": SimConfig().max_depth + 1}
 
 
 def pose_fd_phase(pack, smi: str) -> dict:
@@ -2249,6 +2344,7 @@ def main() -> int:
     drawn = rng_phase(sims["sphere"], smi)
     keyed = draws_phase(cfg, smi)
     bounced = bounce_phase(sims, smi)
+    bounced["bwd"] = bounce_bwd_phase(sims, smi)
     queries, stress_sets = isotropic_phase(smi)
     mark("plain modes, rng, isotropic")
 

@@ -85,6 +85,7 @@ ENTRIES = {
     "mcray_keyed_draws": Entry([P, I, P, I, I, P, P], "draws"),
     "mcray_fold_in": Entry([P, I, P, I, U, I, P, P], "draws"),
     "mcray_bounce": Entry([P, P], "bounce"),
+    "mcray_bounce_bwd": Entry([P, P], "bounce_bwd"),
     "mcray_mark": Entry([I, P]),
     "mcray_intersect_listed_static_shared": Entry([]),
     "mcray_intersect_culled_static_shared": Entry([]),

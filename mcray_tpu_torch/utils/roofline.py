@@ -95,6 +95,17 @@ OPS_BOUNCE = 270
 # replaces: a byte of the launch, not of the bounce
 OPS_BOUNCE_KERNEL = OPS_BOUNCE - 32
 BOUNCE_BYTES = 45 + 29 + 20 + 16 + 45 + 24
+# the bounce's backward kernel (csrc/bounce.cu) per path-bounce: the bounce
+# recomputed (OPS_BOUNCE_KERNEL) and its adjoint (~230: the next row's query,
+# the roulette's choice, the two safe_pows with their pow and log, the Fresnel
+# quotient, two normalisations, Snell, the power-cosine normal's ~30, the
+# travel's and the distance's); and the bytes, each once: what the bounce
+# reads (the state row 45, the hit record 29, five draws 20), the gradients
+# reaching the launch (the segment's end and reflection 16, the next row's
+# fields 48 and its ray 24) read, the row's fields and the hit's point and
+# normal written (72)
+OPS_BOUNCE_BWD = OPS_BOUNCE_KERNEL + 230
+BOUNCE_BWD_BYTES = 45 + 29 + 20 + 16 + 48 + 24 + 72
 # the segment fields the trace writes for the march, once per path-bounce
 SEGMENT_FIELDS = ("from", "to", "direction", "reflected", "initial", "attenuation", "distance",
                   "media_id", "valid")
@@ -111,7 +122,9 @@ EVENT_NAMES = {"intersect": "intersect_closest_kernel",
                # both kernels of csrc/draws.cu: the draws and the key batches
                "draws": "keyed_draws",
                # both instances of csrc/bounce.cu's kernel: row 0 and a bounce
-               "bounce": "bounce_physics_kernel"}
+               "bounce": "bounce_physics_kernel",
+               # both kernels of a backward launch: the adjoint and its sums
+               "bounce_bwd": "bounce_physics_bwd"}
 STAGE_CALLS, FRAME_EVENTS = 3, 5  # calls a stage table profiles, frames it times by events
 
 
@@ -353,6 +366,16 @@ def bounce_cost(cfg, frames: int = 1) -> StageCost:
     and BOUNCE_BYTES bytes."""
     path_bounces = frames * cfg.transducer_elements * cfg.samples_per_element * cfg.max_depth
     return StageCost("bounce", path_bounces * OPS_BOUNCE_KERNEL, path_bounces * BOUNCE_BYTES)
+
+
+def bounce_bwd_cost(cfg, frames: int = 1) -> StageCost:
+    """The bounce backward kernel's launches of a trace of ``frames``
+    frames, row 0's left out, counted as ``bounce_cost`` counts the
+    forward's: every path-bounce, OPS_BOUNCE_BWD operations and
+    BOUNCE_BWD_BYTES bytes."""
+    path_bounces = frames * cfg.transducer_elements * cfg.samples_per_element * cfg.max_depth
+    return StageCost("bounce_bwd", path_bounces * OPS_BOUNCE_BWD,
+                     path_bounces * BOUNCE_BWD_BYTES)
 
 
 def trace_cost(segments: dict, walks, bvh: DeviceBVH) -> StageCost:

@@ -47,7 +47,11 @@ material transition's bug compatibility and the time-window cull off, a
 shard's elements), on made-up bounces through total internal reflection and
 grazing refraction, a gradient through its launches against autograd through
 the plain loop, and a chained call's B-modes against its steps with the
-plain bounce physics.
+plain bounce physics. Its backward kernel at the fit's shapes, launch by
+launch, within 1e-5 relative L2 of autograd over the plain version rerun,
+within 1e-6 of its plain twin and bitwise from call to call, into the table
+or the pose; a spacing gradient refused; a replayed fit step bitwise its
+eager step under deterministic algorithms.
 The chained batch: replayed from a CUDA graph, bitwise its steps run
 eagerly and ``render_frames`` of the last step's keys, for two seeds; under
 the profiler its replays show every stage mark of every step, the launch
@@ -63,6 +67,7 @@ import numpy as np
 import pytest
 import torch
 
+from _bounce_rerun import rerun_bounce_grads, rerun_grads, rerun_start
 from _torch_port import SPHERE_SCENE, random_segments, random_triangles, to_torch
 from mcray_tpu_torch.config import SimConfig, small_test_config
 from mcray_tpu_torch.models.simulator import Simulator
@@ -553,12 +558,12 @@ def test_bounce_kernel_through_total_internal_reflection_and_grazing_refraction(
 @pytest.mark.parametrize("through", ["materials", "pose"])
 def test_bounce_kernel_gradient_is_the_plain_loops(cuda, through):
     """A gradient through the kernel's launches on the card (each launch's
-    backward is autograd over the plain version, rerun on the row it
-    started from) against autograd through the plain loop the kernel
-    replaced, same draws: a weighted sum of every traced segment field and
-    the rays, into the table or into the pose, within 1e-5 of the loop's
-    (the launches' partial sums add in another order); the trace under
-    autograd launches the kernel, D + 1 times."""
+    backward is one launch of the backward kernel) against autograd through
+    the plain loop the kernel replaced, same draws: a weighted sum of every
+    traced segment field and the rays, into the table or into the pose,
+    within 1e-5 of the loop's (the launches' partial sums add in another
+    order); the trace under autograd launches the kernel D + 1 times, and
+    its backward the backward kernel D + 1 times."""
     from test_torch_bounce import loop_trace
 
     from mcray_tpu_torch.models import simulator
@@ -573,16 +578,16 @@ def test_bounce_kernel_gradient_is_the_plain_loops(cuda, through):
     for trace in (simulator.trace_paths, loop_trace):
         materials = sim.materials.clone().requires_grad_(through == "materials")
         pose = [p.clone().requires_grad_(through == "pose") for p in (sim.position, sim.angles)]
-        before = launch_counts()["bounce"]
+        before = dict(launch_counts())
         segments = trace(draws_, materials, *pose, sim.scene, sim.spacing, sim.starting_material,
                          cfg, culled_tris=sim.culled_tris, intersect_tile_r=sim.intersect_tile_r)
-        launched.append(launch_counts()["bounce"] - before)
         if weights is None:
             weights = {k: torch.randn(segments[k].shape, device=cuda, generator=gen)
                        for k in fields}
         loss = sum((segments[k] * weights[k]).sum() for k in fields)
         grads.append(torch.autograd.grad(loss, [materials] if through == "materials" else pose))
-    assert launched == [cfg.max_depth + 1, 0]
+        launched.append([launch_counts()[k] - before[k] for k in ("bounce", "bounce_bwd")])
+    assert launched == [[cfg.max_depth + 1] * 2, [0, 0]]
     for got, want in zip(*grads):
         assert bool(want.abs().max() > 0) and bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
@@ -608,6 +613,153 @@ def test_chained_bmodes_equal_the_plain_trace(cuda, monkeypatch):
     steps = [eager.step() for _ in range(3)]
     assert launch_counts()["bounce"] == before
     assert torch.equal(got, steps[-1]) and float(got.std()) > 0
+
+
+#: the backward kernel against its plain twin on the card: the same
+#: arithmetic, op for op; the table's sums both in double, the twin's in its
+#: ``index_add_``'s atomic order, so the f32 results part only at a tie
+BOUNCE_BWD_TWIN_TOL = 1e-6
+
+
+def fit_shaped_bounces(cuda):
+    """8 frames of ``sphere_soft`` (the fit's shapes: 20,480 paths, 10
+    bounces) through ``Bounces`` and the listed closest hit on the card,
+    the record filled by the kernel: (cfg, sim, Bounces, elements, hits)."""
+    from mcray_tpu_torch.models import simulator
+    from mcray_tpu_torch.ops.cuda import bounce
+    from mcray_tpu_torch.probe.transducer import element_layout
+
+    cfg = SimConfig(soft_scattering=True, trilinear_texture=True)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=0)
+    frames = 8
+    draws_ = sim.batch_draws(list(range(2**31 + 100, 2**31 + 100 + frames)))
+    elements = element_layout(sim.position.expand(frames, 3), sim.angles.expand(frames, 3), cfg)
+    closest = simulator.closest_hit_fn(sim.scene, **sim.trace_kw)
+    hits = []
+    with torch.no_grad():
+        b = bounce.Bounces(*elements, cfg.samples_per_element, draws_, sim.materials, sim.scene,
+                           sim.spacing, sim.starting_material, cfg)
+        for _ in range(cfg.max_depth):
+            hits.append(closest(*b.query))
+            b.step(hits[-1])
+    return cfg, sim, b, elements, hits
+
+
+def _rel_l2(got, want) -> float:
+    want = torch.zeros_like(got) if want is None else want
+    scale, err = float(want.norm()), float((got - want).norm())
+    return err / scale if scale else err
+
+
+@pytest.mark.parametrize("through", ["materials", "pose"])
+def test_bounce_backward_kernel_at_the_fits_shapes(cuda, through):
+    """Each launch of the backward kernel at the fit's shapes (8 frames of
+    ``sphere_soft``), random gradients on every output: every input's
+    gradient within 1e-5 relative L2 of autograd over the plain version
+    rerun on the card (``rerun_bounce_grads``, its gathers summed in double:
+    in f32 its table sums over 20,480 paths, whose terms reach ~1e9 where a
+    path in the gel reaches ~1e9 away, move by up to ~6e-5 with the atomics'
+    order), within BOUNCE_BWD_TWIN_TOL of the plain twin, and bitwise on a
+    second call; the table's gradient only where asked for (``materials``),
+    row 0's positions and directions (``pose``); one counted launch each."""
+    from mcray_tpu_torch.ops.cuda import bounce
+
+    cfg, sim, b, elements, hits = fit_shaped_bounces(cuda)
+    record, n = b.record, b.record.args.n
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen)
+
+    shapes = {"from": (n, 3), "direction": (n, 3), "initial": (n,), "distance": (n,),
+              "attenuation": (n,), "to": (n, 3), "query": (2, n, 3)}
+    table = through == "materials"
+    inputs = (*elements, sim.materials, sim.spacing)
+    g0 = {k: rand(*s) for k, s in shapes.items()}
+    g0["initial"] = g0["distance"] = None
+    before = launch_counts()["bounce_bwd"]
+    got = [record.start_backward(inputs, g0, not table, table) for _ in range(2)]
+    assert launch_counts()["bounce_bwd"] == before + 2
+    assert set(got[0]) == ({"materials"} if table else {"positions", "directions"})
+    state = bounce.initial_state(*elements, cfg.samples_per_element, sim.starting_material, cfg)
+    twin = bounce.start_adjoint_plain(state, cfg.samples_per_element, sim.materials, sim.spacing,
+                                      cfg, g0, table, not table)
+    want = rerun_grads(rerun_start(record), inputs, (True, True, True, False),
+                              [g0[k] for k in bounce.GRADED_ROW])
+    for name, w in zip(("positions", "directions", "materials"), want):
+        if name in got[0]:
+            assert torch.equal(got[0][name], got[1][name]), name
+            assert _rel_l2(got[0][name], w) <= 1e-5, name
+            assert _rel_l2(got[0][name], twin[name]) <= BOUNCE_BWD_TWIN_TOL, name
+
+    names = (*bounce.GRADED_ROW[:-1], "point", "normal") + (("materials",) if table else ())
+    for d, h in enumerate(hits):
+        row = record.row(d)
+        g = {"to": rand(n, 3), "reflected": rand(n),
+             "next": {k: rand(*s) for k, s in shapes.items()}}
+        got = [record.bounce_backward(d, row, h, sim.materials, sim.spacing, g, set(names))
+               for _ in range(2)]
+        assert set(got[0]) == set(names)
+        draws_ = {k: v[d] for k, v in record.draws.items()}
+        twin = bounce.bounce_adjoint_plain(bounce.state_of(row), h, draws_, row["attenuation"],
+                                           row["to"], sim.materials, sim.scene, sim.spacing, cfg,
+                                           g, table)
+        want = rerun_bounce_grads(record, d, row, h, sim.materials, sim.spacing, g,
+                                         [True] * 9 + [table, False])
+        for name in names:
+            assert torch.equal(got[0][name], got[1][name]), (d, name)
+            assert bool(torch.isfinite(got[0][name]).all()), (d, name)
+            assert _rel_l2(got[0][name], want[name]) <= 1e-5, (d, name)
+            assert _rel_l2(got[0][name], twin[name]) <= BOUNCE_BWD_TWIN_TOL, (d, name)
+    assert launch_counts()["bounce_bwd"] == before + 2 + 2 * cfg.max_depth
+
+
+def test_bounce_backward_refuses_a_spacing_gradient(cuda):
+    """A trace whose spacing requires grad: its backward raises (no
+    gradient of spacing), on the card as on the CPU; nothing falls back to
+    the plain rerun."""
+    from mcray_tpu_torch.models import simulator
+
+    cfg = small_test_config(transducer_elements=16, samples_per_element=2)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=1)
+    spacing = sim.spacing.clone().requires_grad_(True)
+    segments = simulator.trace_paths(sim.draws(2), sim.materials, sim.position, sim.angles,
+                                     sim.scene, spacing, sim.starting_material, cfg, **sim.trace_kw)
+    with pytest.raises(ValueError, match="spacing"):
+        segments["reflected"].sum().backward()
+
+
+def test_a_replayed_fit_step_is_bitwise_its_eager_step(cuda):
+    """Under ``torch.use_deterministic_algorithms(True)`` (PyTorch's own
+    gathers add without atomics; the bounce backward never uses them): a
+    fit's steps replayed from one CUDA graph against the same steps taken
+    eagerly, every loss and the table after them bitwise, and two eager
+    fits bitwise each other."""
+    from mcray_tpu_torch.models.trainer import MaterialFitter
+
+    cfg = small_test_config(transducer_elements=32, samples_per_element=2,
+                            soft_scattering=True, trilinear_texture=True)
+    sim = Simulator(load_and_compile(SPHERE_SCENE), cfg, device=cuda, seed=1)
+    with torch.no_grad():
+        target = sim.render_compound(rng.split(rng.prng_key(3), 2))
+    start = sim.materials.clone()
+    start[3:5, :5] *= 1.3
+
+    def fitter():
+        return MaterialFitter.from_simulator(sim, start, target, trainable_rows=[3, 4],
+                                             n_frames_per_step=2)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        graph = fitter()
+        got = graph.run(3, seed=5, verbose=False)
+        eager = [fitter() for _ in range(2)]
+        want = [[f.step(rng.fold_in(rng.prng_key(5), i)) for i in range(3)] for f in eager]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert got == want[0] == want[1]
+    assert torch.equal(graph.state.materials, eager[0].state.materials)
+    assert torch.equal(eager[0].state.materials, eager[1].state.materials)
 
 
 def test_frame_kernels_match_plain(cuda):
@@ -1412,8 +1564,8 @@ def test_the_fit_step_replays_from_one_graph_and_marks_its_ten_stages(cuda):
     """``MaterialFitter.run`` with 2 keyed frames a step: the first call
     captures the step (span ``fit.capture``, the counters ``fit.graph_nodes``
     and ``fit.graph_frames``), every step is a replay (K8 and K9 once, K5 a
-    bounce, the bounce kernel a bounce and once more, the draws kernels 4
-    times); against the same steps taken eagerly the first loss bitwise, the
+    bounce, the bounce kernel and its backward a bounce and once more each,
+    the draws kernels 4 times); against the same steps taken eagerly the first loss bitwise, the
     three losses and the table within 1e-5 (the backward's gathers add with
     atomics); under the profiler a replay shows the forward's marks, then ``image_bwd``, ``march_bwd``, ``trace_bwd``
     and ``update`` once each; a new start through ``state`` is a fresh fit's
@@ -1441,7 +1593,8 @@ def test_the_fit_step_replays_from_one_graph_and_marks_its_ten_stages(cuda):
     kernels.reset_launch_counts()
     got = graph.run(3, seed=5, verbose=False)
     per_step = {"intersect_listed": cfg.max_depth, "march": 1, "postproc": 1, "scanconv": 1,
-                "march_bwd": 1, "scanconv_bwd": 1, "draws": 4, "bounce": cfg.max_depth + 1}
+                "march_bwd": 1, "scanconv_bwd": 1, "draws": 4, "bounce": cfg.max_depth + 1,
+                "bounce_bwd": cfg.max_depth + 1}
     assert graph.launches == per_step
     assert {k: v for k, v in kernels.launch_counts().items() if v} == \
         {k: 4 * v for k, v in per_step.items()}  # the warm-up step and 3 replays

@@ -201,7 +201,7 @@ def test_add_launch_counts_adds_a_graphs_replays():
 #: every kernel ``launch_counts`` names
 KERNEL_NAMES = ("intersect", "intersect_listed", "intersect_culled", "intersect_staged",
                 "intersect_grouped", "bvh_intersect", "march", "march_bwd", "postproc",
-                "scanconv", "scanconv_bwd", "draws", "bounce")
+                "scanconv", "scanconv_bwd", "draws", "bounce", "bounce_bwd")
 
 
 def test_launch_counts_name_every_kernel_and_refuse_an_unknown_name():
