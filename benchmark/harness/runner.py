@@ -33,14 +33,16 @@ MESH_ROOT = os.path.join(cell.ROOT, "build", "benchmark", "meshes")
 
 def simulator(conf: dict, acquisition: dict, scene_path: str, mesh_dir: str, texture_seed: int,
               device):
-    """The program under test: the port's ``Simulator`` of the configuration."""
+    """The program under test: the port's ``Simulator`` of the configuration.
+    Its ``closest_hit`` is ``"bvh"`` (K11's walk) or a cluster mode."""
     from mcray_tpu_torch.config import SimConfig
     from mcray_tpu_torch.models.simulator import Simulator
     from mcray_tpu_torch.scene.compile import load_and_compile
 
     pack = load_and_compile(scene_path, asset_dir=mesh_dir)
-    return Simulator(pack, SimConfig(**acquisition), device=device, seed=texture_seed,
-                     intersect_mode=conf["closest_hit"])
+    hit = conf["closest_hit"]
+    choice = {"use_bvh": True} if hit == "bvh" else {"intersect_mode": hit}
+    return Simulator(pack, SimConfig(**acquisition), device=device, seed=texture_seed, **choice)
 
 
 class Context:
