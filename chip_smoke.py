@@ -49,10 +49,12 @@ with the launch counts set to 0 just before it and read just after:
   the sphere's batch of 8 by BVH traversal (K11 10 launches, every frame
   bitwise ``render_frame``'s);
 - the chained batch (``Simulator.make_chained_batch``: each step of 8
-  frames replayed from a CUDA graph of one step), sphere 8 x 16 and
-  ircad_hd 8 x 8: the last step bitwise ``render_frames`` of its keys,
-  ``carry`` 0; capture ms and graph memory, beside the whole chain captured
-  as one graph; the call beside the same steps run eagerly, timed in turns
+  frames replayed from a CUDA graph of one step), sphere 8 x 16, ircad_hd
+  8 x 8 and mega listed 8 x 16: the last step bitwise ``render_frames`` of
+  its keys, ``carry`` 0; capture ms and graph memory (mega: with its
+  set-up's span ``simulator.clusters`` and its size, which must be 615,176
+  triangles, 11 meshes, 4,832 clusters); sphere and ircad_hd: the call
+  beside the same steps run eagerly, timed in turns
   and profiled (K5, K2, K3, K4 and the draws kernels launched from the
   graph, counted by the profiler's kernel names);
 - the probe-pose paths: ``PoseFitter(method="fd")`` from the scene's pose +
@@ -254,8 +256,13 @@ BATCH_SEEDS = tuple(range(8))
 BATCH_FIT_FRAMES, BATCH_TIMED = 4, 10
 FIT_BATCH_GRAD_TOL = 1e-5
 SWEEP_FRAMES = 3
-# the chained batch: scene -> (batch, n_chain), bench.py's set-ups; the seed0 of its first call
-CHAINED = {"sphere": (8, 16), "ircad_hd": (8, 8)}
+# the chained batch: scene -> (batch, n_chain), bench.py's set-ups and the mega scene's at the
+# sphere's batch; the seed0 of its first call; the scenes also timed against their eager steps
+# and profiled
+CHAINED = {"sphere": (8, 16), "ircad_hd": (8, 8), "mega listed": (8, 16)}
+CHAINED_TIMED = ("sphere", "ircad_hd")
+# the mega scene's size as its Simulator holds it: triangles, meshes, packed clusters
+MEGA_SIZE = {"triangles": 615_176, "meshes": 11, "clusters": 4_832}
 CHAINED_SEED = 10
 # the draws kernels at a chained step's shapes: 8 frames' paths, every bounce
 DRAWS_FRAMES, DRAWS_SEED = 8, 2**31 + 19
@@ -1986,9 +1993,10 @@ def bvh_batch_phase(sim) -> dict:
 T_START = time.perf_counter()
 
 
-def chained_phase(sims, smi: str) -> dict:
+def chained_phase(sims, smi: str, set_up: dict) -> dict:
     """``Simulator.make_chained_batch`` at ``SimConfig()`` on the sphere (8 x
-    16, ``bench.py``'s and ``bench_torch.py``'s) and on ircad_hd (8 x 8): one
+    16, ``bench.py``'s and ``bench_torch.py``'s), on ircad_hd (8 x 8) and on
+    the mega scene, listed (8 x 16): one
     step captured as a CUDA graph, replayed n_chain times. The first call
     (the warm-up step, the capture, the replays) is driven with the launch
     counts set to 0 just before it and read just after (the warm-up step and
@@ -1996,7 +2004,9 @@ def chained_phase(sims, smi: str) -> dict:
     ``render_frames`` of its keys run eagerly, ``carry`` 0 after it and every
     frame a good B-mode. Then, per scene: capture ms and graph memory (the
     device memory the graph's pool keeps, after ``empty_cache``) of the
-    chained call; it and the same n_chain steps run eagerly one after
+    chained call, and the scene's ``set_up`` record where it has one (the
+    span ``simulator.clusters`` and the scene's size); on the sphere and
+    ircad_hd (``CHAINED_TIMED``) it and the same n_chain steps run eagerly one after
     another timed by events in turns (graph, eager, eager, graph), wall ms
     per frame, both bitwise alike; the device's view (busy ms,
     operations, idle share) of one chained call and of the eager steps, the
@@ -2039,6 +2049,13 @@ def chained_phase(sims, smi: str) -> dict:
                "graph": {"capture_ms": capture_ms, "graph_mib": graph_mib,
                          "first_call_launches": nonzero(counts)},
                "eager": {}}
+        if name in set_up:
+            row["set_up"] = set_up[name]
+        if name not in CHAINED_TIMED:
+            result[name] = row
+            del chained
+            torch.cuda.empty_cache()
+            continue
 
         steps = sim.make_chained_batch(batch, n_chain)  # its steps, one by one, no graph
 
@@ -2132,11 +2149,20 @@ def main() -> int:
         "sphere staged": Simulator(sphere, cfg, device="cuda", seed=0, intersect_mode="staged"),
         "ircad_hd staged": Simulator(ircad, cfg, device="cuda", seed=0, intersect_mode="staged"),
     }
+    set_up = {}
     for mode in ("grouped", "listed"):
         t0 = time.perf_counter()
-        sims[f"mega {mode}"] = Simulator(mega, cfg, device="cuda", seed=0, intersect_mode=mode)
-        print(f"  mega {mode}: {sims[f'mega {mode}'].culled_tris[0].n_clusters} clusters packed "
-              f"and uploaded in {time.perf_counter() - t0:.1f} s")
+        sim = sims[f"mega {mode}"] = Simulator(mega, cfg, device="cuda", seed=0,
+                                               intersect_mode=mode)
+        size = {"triangles": sim.pack.n_triangles, "meshes": len(sim.pack.mesh_mat_inside),
+                "clusters": sim.culled_tris[0].n_clusters}
+        set_up[f"mega {mode}"] = {"cluster_pack_ms": profiling.last_ms("simulator.clusters"),
+                                  "size": size}
+        print(f"  mega {mode}: {size['clusters']} clusters packed and uploaded in "
+              f"{time.perf_counter() - t0:.1f} s (span simulator.clusters "
+              f"{set_up[f'mega {mode}']['cluster_pack_ms']:.1f} ms; {size})")
+        if size != MEGA_SIZE:
+            raise AssertionError(f"mega {mode}: {size}, not {MEGA_SIZE}")
     t0 = time.perf_counter()
     sims["mega bvh"] = Simulator(mega, cfg, device="cuda", seed=0, use_bvh=True)
     sims["mega brute"] = Simulator(mega, cfg, device="cuda", seed=0, use_culled_intersect=False)
@@ -2203,7 +2229,7 @@ def main() -> int:
     bvh_batch = bvh_batch_phase(sims["sphere bvh"])
     batch["launches"]["render_batch_8_bvh"] = bvh_batch["launches"]
     mark("batch")
-    chained = chained_phase(sims, smi)
+    chained = chained_phase(sims, smi, set_up)
     mark("chained")
     # the probe-pose paths: registration (fd, ad), serve, sweep
     pose_fd_phase(sphere, smi)
@@ -2708,7 +2734,8 @@ def main() -> int:
         event = roofline.EVENT_NAMES[name]
         if event in chained["sphere"]["graph"]["launches_by_name"]:
             entry["chained_replay_launches"] = {
-                scene: row["graph"]["launches_by_name"][event] for scene, row in chained.items()}
+                scene: row["graph"]["launches_by_name"][event] for scene, row in chained.items()
+                if "launches_by_name" in row["graph"]}
         record.append(entry)
         print(f"  {name}: {k_ms:.4f} ms, bound {bounds[name][0]:.5f} ms by {bounds[name][1]} "
               f"({bounds[name][0] / k_ms:.1%} of the kernel's time; {bounds[name].n_bytes:.1f} "

@@ -375,6 +375,9 @@ class Simulator:
     path ids, on ``device``. ``render_frame(seed)`` therefore renders the
     frame the reference renders for ``seed`` (``normal`` to ``erfinv``'s
     rounding); ``render_frame(draws=...)`` takes fixed draws, for a fit.
+
+    Set-up records the cluster packing as the span ``simulator.clusters``
+    (``utils/profiling.py``).
     """
 
     def __init__(self, pack, cfg: SimConfig, *, device="cuda", seed: int = 0,
@@ -410,12 +413,13 @@ class Simulator:
             use_culled_intersect = not use_bvh and pack.n_triangles >= 2048
         self.culled_tris = None
         if use_culled_intersect and pack.n_triangles > 0:
-            packed = clusters.pack_tris_culled(
-                pack.tris, pack.tri_mesh_id, bvh.tri_order if bvh is not None else None,
-                sort_origin=pack.transducer_position,
-                tile_t=128 if intersect_mode in ("listed", "grouped") else clusters.TILE_T,
-                device=self.device,
-            )
+            with profiling.span("simulator.clusters"):
+                packed = clusters.pack_tris_culled(
+                    pack.tris, pack.tri_mesh_id, bvh.tri_order if bvh is not None else None,
+                    sort_origin=pack.transducer_position,
+                    tile_t=128 if intersect_mode in ("listed", "grouped") else clusters.TILE_T,
+                    device=self.device,
+                )
             self.culled_tris = (packed, intersect_mode)
             use_bvh = False
         self.bvh = DeviceBVH.from_flat(bvh, self.scene["tri_soa"]) if use_bvh else None
